@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives ``hierarchicalgnn_torch`` (never JAX or the JAX package) through
-five phases and fails if any of them fails:
+these phases and fails if any of them fails:
 
   1. device   the card's name and power limit (nvidia-smi);
   2. build    nvcc builds every CUDA source of the port for sm_90a;
@@ -14,12 +14,23 @@ five phases and fails if any of them fails:
               and one PyTorch library call;
   4. serving  the BC-HGNN-GMM flagship (latent 256, hidden 512, 6 + 6
               iterations, bf16, capacities 24576/49152/3072/4096, seeded
-              weights) reconstructs 3 synthetic events of 3000 particles
+              weights) reconstructs 2 synthetic events of 3000 particles
               through ``InferenceEngine.reconstruct``; the launch counts
               show the path went through the kernels;
   5. parity   the same forward in f32 through the kernels and through the
               plain versions on the card: IN-block embeddings agree and
-              the clusters are equal.
+              the clusters are equal;
+  6. gradients  each kernel-backed ``autograd.Function`` against autograd
+              through its plain version, f32, at the flagship shapes;
+  7. auction  a seeded sparse matching instance of the warm flagship shape
+              (3001 x 2633 of 4096 x 3072) on the card with kernel K6,
+              against scipy's exact matching on the host;
+  8. training 3 steps of the same flagship through ``Trainer.train_step``
+              (forward in training mode, auction truth, loss, backward
+              through the kernels, clip, AdamW-amsgrad, buffer updates);
+              the launch counts per step are asserted;
+  9. training parity  one f32 step at depth 2 + 2 through the kernels and
+              through the plain versions: loss and gradient norm agree.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -41,15 +52,29 @@ FLAGSHIP = {"n_nodes_max": 24576, "n_edges_max": 49152, "max_clusters": 3072,
 N_PARTICLES = 3000
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM non-tensor f32
-SOURCE = "hierarchicalgnn_torch/csrc/segment_csr.cu"
+CSRC = "hierarchicalgnn_torch/csrc/"
+SOURCES = {"K1": "segment_csr.cu", "K2": "segment_csr.cu", "K5": "segment_csr.cu",
+           "K3": "sddmm_csr.cu", "K4": "sddmm_csr.cu", "K6": "top2.cu"}
 REPLACES = {
     "K1": "hierarchicalgnn_tpu/ops/pallas/sorted_agg.py:148",
     "K2": "hierarchicalgnn_tpu/ops/pallas/sorted_agg.py:252",
     "K5": "hierarchicalgnn_tpu/ops/pallas/sorted_agg.py:390",
+    "K3": "hierarchicalgnn_tpu/ops/pallas/sddmm_kernel.py:63",
+    "K4": "hierarchicalgnn_tpu/ops/pallas/sddmm_kernel.py:133",
+    "K6": "hierarchicalgnn_tpu/ops/pallas/top2.py:31",
 }
 NAMES = {"K1": "K1 sorted_aggregate", "K2": "K2 sorted_aggregate_weighted",
-         "K5": "K5 sorted_segment_min_i32"}
+         "K5": "K5 sorted_segment_min_i32", "K3": "K3 sorted_sddmm",
+         "K4": "K4 scaled_gather", "K6": "K6 row_top2"}
+# the kernels' names in a profiler trace
+PROFILE_TAGS = {"K1": "csr_sum_kernel<__nv_bfloat16, false>",
+                "K2": "csr_sum_kernel<__nv_bfloat16, true>",
+                "K5": "csr_min_i32_kernel", "K3": "sddmm_kernel<",
+                "K4": "scaled_gather_kernel<", "K6": "row_top2_kernel"}
 SUM_TOL = 1e-4  # f32 accumulation in another order: 1e-4 of the row's sum of |terms|
+DOT_TOL = 1e-5  # K3's 256-term f32 dot, K4's single product: 1e-5 of the sum of |terms|
+TRAIN_EPOCH = 50  # of emb_epoch 100: both losses carry weight on the sine schedule
+SCORE_CUT_CLAMP = 8.38  # atanh(1 - 1e-7): a score_cut there means collapsed clustering
 
 
 def log(msg):
@@ -102,7 +127,8 @@ def phase_build():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {source}: {line.strip()}")
-    build.library()
+    for source in build.SIGNATURES:
+        build.library(source)
 
 
 def phase_kernels(torch):
@@ -198,16 +224,144 @@ def phase_kernels(torch):
     rows["K5"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                   "bound_by": b_by, "library_ms": lib_ms,
                   "shape": f"CC hop int32 E={e} N={n}"}
+    kernels_backward(torch, gen, sum_cases, bound_ms, rows)
+    kernel_top2(torch, gen, bound_ms, rows)
     return rows
 
 
-def phase_serving(torch):
-    """Full-width bf16 serving of 3 events; returns the launch counts and
-    the kernels' mean device ms per launch on the serving inputs."""
+def kernels_backward(torch, gen, sum_cases, bound_ms, rows):
+    """K3 and K4 against their plain versions on the ragged inputs of the
+    four flagship shapes: K3 with bf16 and f32 data, K4 as the plain gather
+    (the K1 shape) and scaled (the K2 shapes), writing bf16 and f32."""
+    from hierarchicalgnn_torch.ops.kernels import sddmm, sorted_agg as sa
+
+    dev = torch.device("cuda")
+    d = 256
+    for kernel, label, e, n in sum_cases:
+        s, r, m = ragged_receivers(torch, e, n, gen)
+        plan = sa.build_sorted_plan(s.to(dev), r.to(dev), m.to(dev), n)
+        n_valid = int(plan.row_ptr[-1])
+        recv = plan.receivers_sorted
+        g = torch.randn(n, d, generator=gen).to(dev)
+        scale = None if kernel == "K1" else plan.sort(torch.randn(e, generator=gen).to(dev))
+        tail = slice(n_valid, None)
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype)[6:]
+            if kernel == "K2":  # K3 is d_w of K2 only
+                data = plan.sort(torch.randn(e, d, generator=gen).to(dev, dtype))
+                fn = lambda: sddmm.sorted_sddmm(data, g, plan)
+                plain = lambda: sddmm.sorted_sddmm_plain(data, g, plan)
+                d32 = data.float()
+                library = lambda: (d32 * g[recv]).sum(-1)
+                out, ref = fn(), plain()
+                torch.cuda.synchronize()
+                err = (out - ref).abs()
+                abs_sum = sddmm.sorted_sddmm_plain(data.abs(), g.abs(), plan)
+                assert not out[tail].any(), "K3 wrote to an invalid slot"
+                if not bool((err <= DOT_TOL * abs_sum + 1e-6).all()):
+                    raise AssertionError(f"K3 {label} {dtype} disagrees with its plain "
+                                         f"version beyond {DOT_TOL} of |terms|")
+                ms, plain_ms, lib_ms = (time_ms(torch, fn), time_ms(torch, plain),
+                                        time_ms(torch, library))
+                b_ms, b_by = bound_ms(n_valid * d * data.element_size() + 4 * n * d
+                                      + 4 * n_valid + 4 * (n + 1) + 4 * e, 2 * n_valid * d)
+                log(f"K3 {label} {name} E={e} N={n} D={d}: max_abs_err "
+                    f"{float(err.max()):.3e} ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                    f"library_ms {lib_ms:.4f} [gather + (a*b).sum(-1), f32 copy of the "
+                    f"data] bound_ms {b_ms:.4f} ({b_by})")
+                if "K3" not in rows:
+                    rows["K3"] = {"max_abs_err": float(err.max()), "ms": ms,
+                                  "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                  "library_ms": lib_ms,
+                                  "shape": f"{label} {name} E={e} N={n} D={d}"}
+            fn = lambda: sddmm.scaled_gather(scale, g, plan, out_dtype=dtype)
+            plain = lambda: sddmm.scaled_gather_plain(scale, g, plan, out_dtype=dtype)
+            if scale is None:
+                library = lambda: g.index_select(0, recv).to(dtype)
+                library_call = "index_select"
+            else:
+                library = lambda: (g.index_select(0, recv) * scale[:, None]).to(dtype)
+                library_call = "index_select * scale"
+            out, ref = fn(), plain()
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs()
+            assert not out[tail].any(), "K4 wrote to an invalid slot"
+            if not bool((err <= DOT_TOL * ref.float().abs()).all()):
+                raise AssertionError(f"K4 {label} {dtype} disagrees with its plain version")
+            ms, plain_ms, lib_ms = (time_ms(torch, fn), time_ms(torch, plain),
+                                    time_ms(torch, library))
+            b_ms, b_by = bound_ms(4 * n * d + 4 * n_valid + 4 * (n + 1)
+                                  + (0 if scale is None else 4 * n_valid)
+                                  + e * d * out.element_size(),
+                                  0 if scale is None else n_valid * d)
+            how = "gather" if scale is None else "scaled"
+            log(f"K4 {how} {label} -> {name} E={e} N={n} D={d}: max_abs_err "
+                f"{float(err.max()):.3e} ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                f"library_ms {lib_ms:.4f} [{library_call}] bound_ms {b_ms:.4f} ({b_by})")
+            if "K4" not in rows and scale is not None:
+                rows["K4"] = {"max_abs_err": float(err.max()), "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                              "library_ms": lib_ms,
+                              "shape": f"scaled, {label} -> {name} E={e} N={n} D={d}"}
+
+
+def kernel_top2(torch, gen, bound_ms, rows):
+    """K6 against its plain version, exactly, at the auction's two sweep
+    shapes, with planted ties and a row of all NEG."""
+    from hierarchicalgnn_torch.ops.kernels import top2
+
+    dev = torch.device("cuda")
+    c = 3072
+    for p, label in ((4096, "full sweep"), (256, "tail sweep")):
+        a = torch.rand(p, c, generator=gen) * 40.0
+        a[torch.rand(p, c, generator=gen) < 0.99] = top2.NEG  # ~30 candidates a row
+        a[0] = top2.NEG                       # a row of all NEG
+        a[1, 7] = a[1, 2900] = 77.0           # equal best in two columns
+        a[2] = top2.NEG
+        a[2, 5] = 1.0                         # a single candidate
+        a[3, 3071] = a[3, 0] = 88.0           # a tie between the row's two ends
+        prices = torch.rand(c, generator=gen) * 3.0
+        prices[7] = prices[2900] = prices[0] = prices[3071] = 0.5
+        a, prices = a.to(dev), prices.to(dev)
+        fn = lambda: top2.row_top2(a, prices)
+        plain = lambda: top2.row_top2_plain(a, prices)
+        library = lambda: torch.topk(a - prices[None, :], 2)
+        (v1, j1, v2), (r1, rj, r2) = fn(), plain()
+        torch.cuda.synchronize()
+        if not (torch.equal(v1, r1) and torch.equal(j1, rj) and torch.equal(v2, r2)):
+            raise AssertionError(f"K6 {label} differs from its plain version: "
+                                 f"{int((j1 != rj).sum())} j1, {int((v1 != r1).sum())} v1, "
+                                 f"{int((v2 != r2).sum())} v2 of {p} rows")
+        assert int(j1[1]) == 7 and float(v2[1]) == float(v1[1]) == 76.5, "K6 tie"
+        assert int(j1[3]) == 0 and float(v2[3]) == float(v1[3]) == 87.5, "K6 tie"
+        assert int(j1[0]) == 0 and float(v1[0]) == float(v2[0]), "K6 all-NEG row"
+        ms, plain_ms, lib_ms = (time_ms(torch, fn), time_ms(torch, plain),
+                                time_ms(torch, library))
+        b_ms, b_by = bound_ms(4 * p * c + 4 * c + 12 * p, 3 * p * c)
+        log(f"K6 {label} f32 P={p} C={c}: exact (ties and the all-NEG row included), "
+            f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
+            f"[torch.topk(a - prices, 2)] bound_ms {b_ms:.4f} ({b_by})")
+        if "K6" not in rows:
+            rows["K6"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                          "shape": f"{label} f32 P={p} C={c}"}
+
+
+def flagship_events():
+    """The synthetic events both main paths run: 3000 particles, seeds 0-2."""
     import numpy as np
 
-    from hierarchicalgnn_torch.data.event import preprocess_event
     from hierarchicalgnn_torch.data.synthetic import generate_event
+
+    return [generate_event(np.random.default_rng(seed), n_particles=N_PARTICLES)
+            for seed in range(3)]
+
+
+def phase_serving(torch, events):
+    """Full-width bf16 serving of 2 events (after a warm-up on a third);
+    returns the launch counts and the kernels' mean device ms per launch on
+    the serving inputs."""
+    from hierarchicalgnn_torch.data.event import preprocess_event
     from hierarchicalgnn_torch.inference import InferenceEngine
     from hierarchicalgnn_torch.models.models import build_model
     from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
@@ -218,14 +372,12 @@ def phase_serving(torch):
             hp["n_hierarchical_graph_iters"], hp["compute_dtype"]) == (
         256, 512, 6, 6, "bfloat16"), hp
     engine = InferenceEngine(hp, build_model(hp, seed=0))
-    events = [generate_event(np.random.default_rng(seed), n_particles=N_PARTICLES)
-              for seed in range(3)]
-    engine.reconstruct(events[0])  # warm-up (cuBLAS handles, allocator)
+    engine.reconstruct(events[2])  # warm-up (cuBLAS handles, allocator)
     torch.cuda.synchronize()
 
     sa.reset_launches()
     event_ms = []
-    for seed, raw in enumerate(events):
+    for seed, raw in enumerate(events[:2]):
         before = dict(sa.LAUNCHES)
         t0 = time.perf_counter()
         cands, metrics = engine.reconstruct(raw, return_metrics=True)
@@ -243,10 +395,13 @@ def phase_serving(torch):
         assert counts["K2"] == 19, counts
         assert counts["K5"] >= 2, counts
     totals = dict(sa.LAUNCHES)
-    log(f"serving launches over 3 events: {totals}; peak memory "
+    log(f"serving launches over 2 events: {totals}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for kernel in ("K1", "K2", "K5"):
+        assert totals[kernel] > 0, f"serving never launched {kernel}"
 
-    per_launch = profile_forward(torch, engine, events[0], event_ms[0])
+    per_launch, _ = profile_call(torch, lambda: engine.reconstruct(events[0]),
+                                 event_ms[0], "one reconstruct", ("K1", "K2", "K5"))
 
     # outputs of one event: finite, of the expected shapes
     hp_n, cap = hp["n_nodes_max"], hp["n_nodes_max"] * hp["bipartitegraph_sparsity"]
@@ -257,40 +412,43 @@ def phase_serving(torch):
     return totals, per_launch
 
 
-def profile_forward(torch, engine, raw, wall_ms):
-    """Device time by kernel over one reconstruct (torch.profiler), against
-    ``wall_ms``, the same reconstruct's host-clock time without the
-    profiler; returns {kernel: mean device ms per launch on the serving
-    inputs}."""
+def profile_call(torch, fn, wall_ms, what, kernels):
+    """Device time by kernel over one call of ``fn`` (torch.profiler),
+    against ``wall_ms``, the same call's host-clock time without the
+    profiler.  Returns ({kernel: mean device ms per launch}, the trace's
+    device events)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.reconstruct(raw)
+        fn()
         torch.cuda.synchronize()
+    # device activities only: a host-side annotation (the optimizer's
+    # "Optimizer.step#..." span) is mirrored onto the device timeline and
+    # would count the kernels under it twice
     events = [ev for ev in prof.key_averages()
-              if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA]
+              if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA
+              and not getattr(ev, "is_user_annotation", False)
+              and not ev.key.startswith("Optimizer.")]
     dev_us = lambda ev: getattr(ev, "self_device_time_total",
                                 getattr(ev, "self_cuda_time_total", 0.0))
     busy_ms = sum(dev_us(ev) for ev in events) / 1e3
     if busy_ms == 0.0:
-        log("profile: the profiler saw no device time (not measured)")
-        return {}
-    log(f"profile of one reconstruct: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms "
+        log(f"profile of {what}: the profiler saw no device time (not measured)")
+        return {}, []
+    log(f"profile of {what}: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms "
         f"unprofiled host clock (idle share {100 * (1 - busy_ms / wall_ms):.1f}%), "
         f"{len(events)} kernel names, {sum(ev.count for ev in events)} launches")
     for ev in sorted(events, key=dev_us, reverse=True)[:15]:
         log(f"  {dev_us(ev) / 1e3:8.3f} ms  x{ev.count:<5d} {ev.key[:110]}")
     per_launch = {}
-    for kernel, tag in (("K1", "csr_sum_kernel<__nv_bfloat16, false>"),
-                        ("K2", "csr_sum_kernel<__nv_bfloat16, true>"),
-                        ("K5", "csr_min_i32_kernel")):
-        hits = [ev for ev in events if tag in ev.key]
+    for kernel in kernels:
+        hits = [ev for ev in events if PROFILE_TAGS[kernel] in ev.key]
         n = sum(ev.count for ev in hits)
         if n:
             per_launch[kernel] = sum(dev_us(ev) for ev in hits) / 1e3 / n
             log(f"  {kernel}: {n} launches, {per_launch[kernel]:.4f} ms per launch")
-    return per_launch
+    return per_launch, [(ev.key, ev.count, dev_us(ev) / 1e3) for ev in events]
 
 
 def phase_parity(torch):
@@ -339,6 +497,288 @@ def phase_parity(torch):
             f"{kern[0].receivers.numel()} receiver slots (kNN near-ties)")
 
 
+def phase_gradients(torch):
+    """Each kernel-backed Function against autograd through its plain
+    version, in f32, on ragged inputs of the flagship shapes.  Sums (the
+    gather's backward, d_rows) within SUM_TOL of the sum of |terms|; K3/K4
+    outputs (d_w, d_data) within DOT_TOL."""
+    from hierarchicalgnn_torch.ops.kernels import sddmm, sorted_agg as sa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4321)
+    d = 256
+
+    def grads(fn, inputs, cot):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        out = out if isinstance(out, tuple) else (out,)
+        return torch.autograd.grad(sum((o * c).sum() for o, c in zip(out, cot)), leaves)
+
+    def check(name, got, want, bound, tol):
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        ok = bool((err <= tol * bound + 1e-6).all())
+        log(f"gradient {name}: max_abs_err {float(err.max()):.3e} "
+            f"(tolerance {tol} of the sum of |terms|)")
+        if not ok:
+            raise AssertionError(f"gradient {name} disagrees with autograd of the "
+                                 f"plain version")
+
+    for label, e, n in (("flat", 98304, 24576), ("bipartite b1", 122880, 3072)):
+        s, r, m = ragged_receivers(torch, e, n, gen)
+        s, r, m = s.to(dev), r.to(dev), m.to(dev)
+        plan = sa.build_sorted_plan(s, r, m, n)
+        plan_t, r2s = sa.build_transposed_plan(plan, s, r, m, n)
+        data = plan.sort(torch.randn(e, d, generator=gen).to(dev))
+        w = plan.sort(torch.rand(e, 1, generator=gen).to(dev) + 0.1)
+        rows = torch.randn(n, d, generator=gen).to(dev)
+        nodes = torch.randn(n, d, generator=gen).to(dev)
+        cot_n = torch.randn(n, d, generator=gen).to(dev)
+        cot_e = torch.randn(e, generator=gen).to(dev)
+        cot_s = torch.randn(e, d, generator=gen).to(dev)
+        cot_r = torch.randn(e, d, generator=gen).to(dev)
+        mask = plan.edge_mask_sorted[:, None]
+        recv_cot = cot_n.abs()[plan.receivers_sorted] * mask
+        before = dict(sa.LAUNCHES)
+
+        (got,) = grads(lambda x: sa.sorted_aggregate(x, plan), [data], [cot_n])
+        (want,) = grads(lambda x: sa.sorted_aggregate_plain(x, plan), [data], [cot_n])
+        check(f"K1 {label} d_data (K4)", got, want, recv_cot, DOT_TOL)
+
+        got = grads(lambda x, ww: sa.sorted_aggregate_weighted(x, ww, plan),
+                    [data, w], [cot_n])
+        want = grads(lambda x, ww: sa.sorted_aggregate_weighted_plain(x, ww, plan),
+                     [data, w], [cot_n])
+        check(f"K2 {label} d_data (K4)", got[0], want[0], recv_cot * w, DOT_TOL)
+        check(f"K2 {label} d_w (K3)", got[1], want[1],
+              (data.abs() * recv_cot).sum(-1, keepdim=True), DOT_TOL)
+
+        got = grads(lambda x, y: sddmm.sorted_sddmm(x, y, plan), [data, rows], [cot_e])
+        want = grads(lambda x, y: sddmm.sorted_sddmm_plain(x, y, plan), [data, rows],
+                     [cot_e])
+        check(f"K3 {label} d_data (K4)", got[0], want[0],
+              cot_e.abs()[:, None] * rows.abs()[plan.receivers_sorted], DOT_TOL)
+        check(f"K3 {label} d_rows (K2)", got[1], want[1],
+              sa.sorted_aggregate_weighted_plain(data.abs(), cot_e.abs(), plan), SUM_TOL)
+
+        (got,) = grads(lambda x: sa.gather_edge_endpoints(x, plan, plan_t, r2s), [nodes],
+                       [cot_s, cot_r])
+        # the plain gather also scatters the invalid slots' cotangents (to
+        # node 0, where their indices point): mask them as the Function does
+        (want,) = grads(lambda x: sa.gather_edge_endpoints(x, plan), [nodes],
+                        [cot_s * mask, cot_r * mask])
+        bound = torch.zeros(n, d, device=dev).index_add_(
+            0, plan.senders_sorted, cot_s.abs() * mask).index_add_(
+            0, plan.receivers_sorted, cot_r.abs() * mask)
+        check(f"endpoint gather {label} d_nodes (K1 twice)", got, want, bound, SUM_TOL)
+        used = {k: sa.LAUNCHES[k] - before[k] for k in sa.LAUNCHES}
+        assert (used["K1"], used["K2"], used["K3"], used["K4"]) == (3, 2, 2, 3), used
+
+
+def warm_like_instance(np, seed=0, p=3001, c=2633, p_max=4096, c_max=3072,
+                       draws=120000):
+    """A sparse pair-score matrix of the warm flagship matching's shape: each
+    particle's candidates lie near a home column, as the hits of one track
+    fall into a few neighbouring clusters; ~80k non-zeros, scores to ~40."""
+    rng = np.random.default_rng(seed)
+    scores = np.zeros((p_max, c_max), np.float32)
+    rows = rng.integers(0, p, draws)
+    home = rng.integers(0, c, p)
+    cols = (home[rows] + rng.integers(-24, 25, draws)) % c
+    np.add.at(scores, (rows, cols), rng.gamma(1.2, 2.2, draws).astype(np.float32))
+    return scores, p, c
+
+
+def phase_auction(torch):
+    """The auction on the card (kernel K6 every round) against scipy's exact
+    matching on the host: every row assigned, objective within 0.1%."""
+    import numpy as np
+
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+    from hierarchicalgnn_torch.train import auction, matching
+
+    scores, p, c = warm_like_instance(np)
+    rows, cols, valid = matching.host_matching(scores, p, c, scores.shape[0])
+    real = valid & (cols < c)
+    oracle = float(scores[rows[real], cols[real]].sum())
+    dev_scores = torch.from_numpy(scores).to(torch.device("cuda"))
+    auction.auction_match(dev_scores, p, c, eps_scale=1e-2)  # warm-up
+    torch.cuda.synchronize()
+    stats, before = {}, sa.LAUNCHES["K6"]
+    t0 = time.perf_counter()
+    col_match, matched, iters, n_un = auction.auction_match(
+        dev_scores, p, c, eps_scale=1e-2, return_iters=True, stats=stats)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    col_match, matched = col_match.cpu().numpy(), matched.cpu().numpy()
+    hit = np.nonzero(matched)[0]
+    objective = float(scores[hit, col_match[hit]].sum())
+    used = col_match[hit]
+    gap = (oracle - objective) / oracle
+    log(f"auction P={p} C={c} nnz={int((scores > 0).sum())} max score "
+        f"{float(scores.max()):.1f}: {int(iters)} rounds ({stats['auction_rounds_launched']} "
+        f"launched), {stats['host_syncs']} host syncs, {ms:.1f} ms host clock, "
+        f"{int(matched.sum())} matched (scipy {int(real.sum())}), objective {objective:.3f} "
+        f"vs scipy {oracle:.3f} (gap {100 * gap:.4f}%), unassigned {int(n_un)}")
+    assert int(n_un) == 0, "the auction left rows unassigned"
+    assert len(set(used.tolist())) == len(used), "a candidate was matched twice"
+    assert abs(gap) <= 1e-3, f"auction objective off scipy's by {gap}"
+    assert sa.LAUNCHES["K6"] - before == stats["auction_rounds_launched"]
+
+
+def flagship_trainer(overrides):
+    from hierarchicalgnn_torch.models.models import build_model
+    from hierarchicalgnn_torch.train.pipelines import BipartitePipeline
+    from hierarchicalgnn_torch.train.trainer import Trainer
+    from hierarchicalgnn_torch.utils.config import load_config
+
+    hp = load_config("bc_hgnn_gmm", {**FLAGSHIP, **overrides})
+    model = build_model(hp, seed=0)
+    trainer = Trainer(hp, model, BipartitePipeline(model, hp))
+    trainer.init_state(seed=0)
+    return hp, trainer
+
+
+def phase_training(torch, events):
+    """3 steps of the flagship (full width and depth, bf16) through
+    ``Trainer.train_step``.  Returns the launch counts of the 3 steps and
+    the kernels' mean device ms per launch on the training inputs."""
+    import math
+
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+
+    hp, trainer = flagship_trainer({})
+    assert (hp["latent"], hp["hidden"], hp["n_interaction_graph_iters"],
+            hp["n_hierarchical_graph_iters"], hp["compute_dtype"], hp["remat"]) == (
+        256, 512, 6, 6, "bfloat16", False), hp
+    model = trainer.model
+    trainset, _, _ = trainer.make_datasets(events)
+    assert len(trainset) == 3
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    n_iters = hp["n_interaction_graph_iters"], hp["n_hierarchical_graph_iters"]
+    # K1: one per cell forward; in the backward two per endpoint gather that
+    # gets a gradient (every IN cell's; the superedge init's; every
+    # hierarchical cell's flat and super gather but the last cell's, whose
+    # edge and superedge updates feed nothing) and one per row gather (the
+    # supernode init's, two per hierarchical cell, two for the score head)
+    gathers = n_iters[0] + 1 + 2 * (n_iters[1] - 1)
+    row_gathers = 1 + 2 * n_iters[1] + 2
+    expect = {"K1": sum(n_iters) + 2 * gathers + row_gathers, "K2": 1 + 3 * n_iters[1],
+              "K3": 1 + 3 * n_iters[1], "K4": sum(n_iters) + 1 + 3 * n_iters[1]}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sa.reset_launches()
+    step_ms = []
+    for step, (_, _, batch) in enumerate(trainset):
+        before = dict(sa.LAUNCHES)
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch, TRAIN_EPOCH)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        counts = {k: sa.LAUNCHES[k] - before[k] for k in sa.LAUNCHES}
+        stats = trainer.last_stats
+        log(f"train step {step}: {step_ms[-1]:.1f} ms (host clock), metrics={metrics}, "
+            f"auction rounds launched {stats['auction_rounds_launched']}, "
+            f"host_syncs={stats['host_syncs']}, launches={counts}")
+        assert all(math.isfinite(v) for v in metrics.values()), metrics
+        assert metrics["score_cut"] < SCORE_CUT_CLAMP, metrics
+        assert metrics["clusters"] >= 1 and metrics["grad_norm"] > 0
+        for kernel, n in expect.items():
+            assert counts[kernel] == n, (kernel, counts, expect)
+        assert counts["K6"] == stats["auction_rounds_launched"] >= 1, counts
+        assert counts["K5"] >= 2, counts
+    totals = dict(sa.LAUNCHES)
+    log(f"training launches over 3 steps: {totals}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # the state after 3 steps: finite, and every tensor moved
+    end = model.state_dict()
+    buffers = {name for name, _ in model.named_buffers()}
+    unchanged = [k for k in end if torch.equal(end[k], start[k])]
+    for k, v in end.items():
+        assert bool(torch.isfinite(v).all()), f"{k} is not finite"
+    assert not [k for k in unchanged if k in buffers], unchanged
+    # a parameter stays only where it is 0 and gets no gradient, as the
+    # biases of the two networks the loss does not reach (decay moves the rest)
+    assert all(not end[k].any() for k in unchanged), unchanged
+    log(f"after 3 steps: {len(end) - len(unchanged)} of {len(end)} tensors changed, "
+        f"all finite; score_cut {float(end['hgnn.score_cut']):.4f}, knn_radius "
+        f"{float(end['hgnn.super_graph_construction.knn_radius']):.4f} / "
+        f"{float(end['hgnn.bipartite_graph_construction.knn_radius']):.4f}")
+
+    batch = trainset[0][2]
+    per_launch, trace = profile_call(
+        torch, lambda: trainer.train_step(batch, TRAIN_EPOCH), step_ms[-1],
+        "one train step", ("K1", "K2", "K3", "K4", "K5", "K6"))
+    scatter = [(key, count) for key, count, _ in trace
+               if any(word in key.lower() for word in ("index", "scatter", "atomic"))]
+    log("indexing and scatter kernels in the step's trace (the K1/K2 backward and "
+        "the flat and super endpoint gathers' backward are not among them: they ran "
+        "as sddmm_kernel, scaled_gather_kernel and csr_sum_kernel above):")
+    for key, count in scatter:
+        log(f"  x{count:<5d} {key[:120]}")
+    return totals, per_launch
+
+
+def phase_training_parity(torch, events):
+    """One f32 training step at depth 2 + 2 (full width and capacities)
+    through the kernels and through the plain versions with autograd's own
+    backward: loss within 1e-5 relative, gradient global norm within 1e-4.
+    Where a near-tie (a kNN neighbour, an edge on the GMM cut) gave the two
+    runs different clusters or bipartite graphs, they computed the losses of
+    different graphs and are held to 1e-2 / 1e-1 only."""
+    from unittest import mock
+
+    from hierarchicalgnn_torch.models import blocks
+    from hierarchicalgnn_torch.ops import connected
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa, top2
+    from hierarchicalgnn_torch.train import auction
+
+    overrides = {"compute_dtype": None, "n_interaction_graph_iters": 2,
+                 "n_hierarchical_graph_iters": 2}
+
+    def one_step():
+        _, trainer = flagship_trainer(overrides)
+        seen = {}
+        trainer.model.register_forward_hook(
+            lambda mod, args, out: seen.update(receivers=out[0].receivers,
+                                               clusters=out[3]["clusters"]))
+        batch = trainer.make_datasets(events[:1])[0][0][2]
+        return trainer.train_step(batch, TRAIN_EPOCH), seen
+
+    kern, kern_seen = one_step()
+    plain_gather = lambda nodes, plan, *_: (
+        nodes[plan.senders_sorted], nodes[plan.receivers_sorted])
+    with mock.patch.object(blocks, "sorted_aggregate", sa.sorted_aggregate_plain), \
+            mock.patch.object(blocks, "sorted_aggregate_weighted",
+                              sa.sorted_aggregate_weighted_plain), \
+            mock.patch.object(blocks, "gather_edge_endpoints", plain_gather), \
+            mock.patch.object(blocks, "gather_senders",
+                              lambda nodes, plan, *_: nodes[plan.senders_sorted]), \
+            mock.patch.object(blocks, "gather_receivers",
+                              lambda nodes, plan, *_: nodes[plan.receivers_sorted]), \
+            mock.patch.object(connected, "sorted_segment_min_i32",
+                              sa.sorted_segment_min_i32_plain), \
+            mock.patch.object(auction, "row_top2", top2.row_top2_plain):
+        before = dict(sa.LAUNCHES)
+        plain, plain_seen = one_step()
+        assert sa.LAUNCHES == before, "the plain run launched a kernel"
+    same = (torch.equal(kern_seen["clusters"], plain_seen["clusters"])
+            and torch.equal(kern_seen["receivers"], plain_seen["receivers"]))
+    loss_err = abs(kern["training_loss"] / plain["training_loss"] - 1)
+    norm_err = abs(kern["grad_norm"] / plain["grad_norm"] - 1)
+    log(f"training parity f32 (2 + 2): loss {kern['training_loss']:.6f} vs "
+        f"{plain['training_loss']:.6f} (rel {loss_err:.2e}), grad norm "
+        f"{kern['grad_norm']:.6f} vs {plain['grad_norm']:.6f} (rel {norm_err:.2e}), "
+        f"clusters {kern['clusters']:.0f} vs {plain['clusters']:.0f}, "
+        f"{'same' if same else 'different'} clusters and bipartite graph")
+    loss_tol, norm_tol = (1e-5, 1e-4) if same else (1e-2, 1e-1)
+    if loss_err > loss_tol or norm_err > norm_tol:
+        raise AssertionError(f"kernel and plain training steps differ: loss {loss_err}, "
+                             f"gradient norm {norm_err}")
+
+
 def main():
     if not (Path(__file__).resolve().parent / "hierarchicalgnn_torch").is_dir():
         raise SystemExit("hierarchicalgnn_torch/ is not beside chip_smoke.py: "
@@ -348,12 +788,22 @@ def main():
     phase_device(torch)
     phase_build()
     rows = phase_kernels(torch)
-    launches, per_launch = phase_serving(torch)
+    events = flagship_events()
+    serving, serving_ms = phase_serving(torch, events)
     phase_parity(torch)
-    table = [{"name": NAMES[k], "route": "cuda", "source": SOURCE,
-              "replaces": REPLACES[k], "launches": launches[k], **rows[k],
-              "main_path_ms_per_launch": per_launch.get(k)}
-             for k in ("K1", "K2", "K5")]
+    phase_gradients(torch)
+    phase_auction(torch)
+    training, training_ms = phase_training(torch, events)
+    phase_training_parity(torch, events)
+    for kernel in NAMES:
+        assert training[kernel] > 0, f"training never launched {kernel}"
+    table = [{"name": NAMES[k], "route": "cuda", "source": CSRC + SOURCES[k],
+              "replaces": REPLACES[k], "launches": serving[k] + training[k],
+              "launches_serving_2_events": serving[k],
+              "launches_training_3_steps": training[k], **rows[k],
+              "main_path_ms_per_launch": serving_ms.get(k, training_ms.get(k)),
+              "training_ms_per_launch": training_ms.get(k)}
+             for k in NAMES]
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

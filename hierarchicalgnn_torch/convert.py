@@ -7,7 +7,9 @@ names (``InteractionGNNBlock_0/InteractionGNNCell_k/CheckpointMLP_j/Dense_i``,
 ...) and fills the torch model: a Dense ``kernel[in, out]`` becomes a Linear
 ``weight[out, in]``, a LayerNorm ``scale``/``bias`` a ``weight``/``bias``.
 It raises on any key left unmatched on either side.  This is the reverse of
-``tests/test_parity_torch.py::copy_mlp_params``.
+``tests/test_parity_torch.py::copy_mlp_params``.  ``to_jax_variables(model)``
+goes the other way: the torch model's parameters and buffers as the
+flax-shaped nested dict of numpy arrays.
 """
 
 from __future__ import annotations
@@ -78,6 +80,20 @@ def load_jax_variables(model, variables: dict):
     return _fill(_targets(model), variables, model)
 
 
+def to_jax_variables(model) -> dict:
+    """The parameters and buffers of ``model`` (a ``BipartiteClassifierHGNN``)
+    as the flax variables dict: nested plain dicts of numpy arrays."""
+    out: dict = {}
+    for path, tensor, transpose in _targets(model):
+        value = tensor.detach().cpu().numpy()
+        node = out
+        *parents, leaf = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = np.array(value.T if transpose else value)
+    return out
+
+
 def load_jax_mlp(mlp: MLP, params: dict):
     """Fill one ``MLP`` from the flax params of one ``MLP`` module."""
     return _fill(_mlp_targets(mlp, "p"), {"p": params}, mlp)
@@ -96,5 +112,5 @@ def _fill(target_iter, variables, module):
             if tuple(value.shape) != tuple(tensor.shape):
                 raise ValueError(f"{path}: flax shape {value.shape} -> torch "
                                  f"{tuple(tensor.shape)}")
-            tensor.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+            tensor.copy_(torch.from_numpy(np.array(value)))
     return module

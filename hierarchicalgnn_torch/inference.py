@@ -8,7 +8,7 @@ bipartite (hit, track) candidates above the score cut.
     tracks = engine.reconstruct(raw_event)             # [2, M] int32
 
 Loading a trained run (``from_run``) waits for a torch checkpoint format,
-which comes with the training slice.
+which comes with the checkpoint slice.
 """
 
 from __future__ import annotations

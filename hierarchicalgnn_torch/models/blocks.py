@@ -2,10 +2,14 @@
 
 Counterpart of ``hierarchicalgnn_tpu/models/blocks.py`` on its single-device
 sorted-native branch (``use_pallas``, ``blocks.py:343-350`` and
-``:414-460``), eval mode.  Every graph is receiver-sorted once per forward
+``:414-460``).  Every graph is receiver-sorted once per forward
 (:class:`SortedPlan`) and each aggregation is a kernel: K1 for the flat
 edge->node sums, K2 for the weighted bipartite and super-graph
 convolutions, K5 for the connected-components hop of the GMM pooling.
+In training the flat and super graphs also get a transposed plan, so the
+endpoint gathers' backward runs K1 (``gather_edge_endpoints``); the two
+bipartite plans are each other's transposes, so the bipartite row gathers'
+backward runs K1 too; and the pooling updates the ``score_cut`` EMA.
 
 f32 islands on the bf16 path: the embedding head, the edge likelihood and
 the GMM stay f32, as in the JAX package.
@@ -20,10 +24,13 @@ from hierarchicalgnn_torch.ops import gmm as gmm_ops
 from hierarchicalgnn_torch.ops.connected import cluster_labels_sorted, count_host_sync
 from hierarchicalgnn_torch.ops.graph import Graph
 from hierarchicalgnn_torch.ops.kernels.sorted_agg import (
-    build_sorted_plan, sorted_aggregate, sorted_aggregate_weighted)
+    build_sorted_plan, build_transposed_plan, cross_permutation,
+    gather_edge_endpoints, gather_receivers, gather_senders, sorted_aggregate,
+    sorted_aggregate_weighted)
 from hierarchicalgnn_torch.ops.sddmm import cosine_from_endpoints, normalize_unit_f32
 from hierarchicalgnn_torch.ops.segment import segment_mean
-from hierarchicalgnn_torch.models.cells import HierarchicalGNNCell, InteractionGNNCell
+from hierarchicalgnn_torch.models.cells import (
+    HierarchicalGNNCell, InteractionGNNCell, plain_gather)
 from hierarchicalgnn_torch.models.dynamic_graph import DynamicGraphConstruction
 from hierarchicalgnn_torch.models.mlp import MLP
 from hierarchicalgnn_torch.utils.config import ArchConfig
@@ -41,20 +48,33 @@ def l1_normalize(x, dim=-1, eps=1e-12):
     return x / torch.clamp(n, min=eps)
 
 
-def sorted_graph_mode(graph: Graph, num_segments: int):
-    """Receiver-sort a graph.  Returns (work_graph, agg, plan): the graph in
-    sorted order, its K1 aggregator, and the plan."""
+def endpoint_gather(plan, graph: Graph, num_segments: int, transposed: bool):
+    """``x -> (x[senders], x[receivers])`` over ``plan`` (built from
+    ``graph``).  With ``transposed`` it carries the K1 backward, at the
+    price of one more sort of the edges."""
+    plan_t = r2s = None
+    if transposed:
+        plan_t, r2s = build_transposed_plan(plan, graph.senders, graph.receivers,
+                                            graph.edge_mask, num_segments)
+    return lambda x: gather_edge_endpoints(x, plan, plan_t, r2s)
+
+
+def sorted_graph_mode(graph: Graph, num_segments: int, transposed: bool = False):
+    """Receiver-sort a graph.  Returns (work_graph, agg, gather, plan): the
+    graph in sorted order, its K1 aggregator, its endpoint gather
+    (:func:`endpoint_gather`) and the plan."""
     plan = build_sorted_plan(graph.senders, graph.receivers, graph.edge_mask,
                              num_segments)
     work = Graph(plan.senders_sorted, plan.receivers_sorted, plan.edge_mask_sorted)
-    return work, (lambda d: sorted_aggregate(d, plan)), plan
+    gather = endpoint_gather(plan, graph, num_segments, transposed)
+    return work, (lambda d: sorted_aggregate(d, plan)), gather, plan
 
 
 def _mlp(cfg: ArchConfig, input_size, output_size, layers, hidden_act,
-         output_act, compute_dtype):
+         output_act, compute_dtype, remat=False):
     return MLP(input_size, cfg.hidden, output_size, layers,
                hidden_activation=hidden_act, output_activation=output_act,
-               layer_norm=cfg.layernorm, compute_dtype=compute_dtype)
+               layer_norm=cfg.layernorm, compute_dtype=compute_dtype, remat=remat)
 
 
 class InteractionGNNBlock(nn.Module):
@@ -65,26 +85,30 @@ class InteractionGNNBlock(nn.Module):
         self.cfg = cfg
         act = cfg.hidden_activation
         self.node_encoder = _mlp(cfg, cfg.spatial_channels, cfg.latent,
-                                 cfg.nb_node_layer, act, act, cfg.compute_dtype)
+                                 cfg.nb_node_layer, act, act, cfg.compute_dtype,
+                                 cfg.remat)
         self.edge_encoder = _mlp(cfg, 2 * cfg.spatial_channels, cfg.latent,
-                                 cfg.nb_edge_layer, act, act, cfg.compute_dtype)
+                                 cfg.nb_edge_layer, act, act, cfg.compute_dtype,
+                                 cfg.remat)
         self.cells = nn.ModuleList(InteractionGNNCell(cfg) for _ in range(iterations))
         # The embedding head computes in f32 on the bf16 path too: bf16-valued
         # embeddings collide once same-track hits converge (blocks.py:140-150).
+        # Like the JAX package's, it is never recomputed.
         self.output_layer = _mlp(cfg, cfg.latent, cfg.emb_dim, cfg.output_layers,
                                  cfg.hidden_output_activation, None,
                                  cfg.emb_head_dtype)
 
-    def forward(self, x, graph: Graph, agg):
-        """``graph``: receiver-sorted work graph; ``agg``: its K1 aggregator.
-        Returns (embeddings f32, nodes, edges)."""
+    def forward(self, x, graph: Graph, agg, gather=None):
+        """``graph``: receiver-sorted work graph; ``agg``: its K1 aggregator;
+        ``gather``: its endpoint gather.  Returns (embeddings f32, nodes,
+        edges)."""
         nodes = self.node_encoder(x)
         edges = self.edge_encoder(torch.cat([x[graph.senders], x[graph.receivers]], -1))
         dtype = torch_dtype(self.cfg.compute_dtype)
         if dtype is not None:
             nodes, edges = nodes.to(dtype), edges.to(dtype)
         for cell in self.cells:
-            nodes, edges = cell(nodes, edges, graph, agg)
+            nodes, edges = cell(nodes, edges, graph, agg, gather)
         embeddings = l2_normalize(self.output_layer(nodes).float())
         return embeddings, nodes, edges
 
@@ -103,9 +127,11 @@ class HierarchicalGNNBlock(nn.Module):
         # midpoint (blocks.py:212-220)
         self.register_buffer("score_cut", torch.full((1,), float("inf")))
         self.supernode_encoder = _mlp(cfg, cfg.latent, cfg.latent - cfg.emb_dim,
-                                      cfg.nb_node_layer, act, act, cfg.compute_dtype)
+                                      cfg.nb_node_layer, act, act, cfg.compute_dtype,
+                                      cfg.remat)
         self.superedge_encoder = _mlp(cfg, 2 * cfg.latent, cfg.latent,
-                                      cfg.nb_edge_layer, act, act, cfg.compute_dtype)
+                                      cfg.nb_edge_layer, act, act, cfg.compute_dtype,
+                                      cfg.remat)
         self.super_graph_construction = DynamicGraphConstruction(
             "sigmoid", k=cfg.supergraph_sparsity, sym=True, norm=True,
             knn_block_size=cfg.knn_block_size)
@@ -115,21 +141,34 @@ class HierarchicalGNNBlock(nn.Module):
         self.cells = nn.ModuleList(HierarchicalGNNCell(cfg)
                                    for _ in range(cfg.n_hierarchical_graph_iters))
 
-    def clustering(self, embeddings, graph: Graph, node_mask, plan, stats=None):
+    @torch.no_grad()
+    def clustering(self, embeddings, graph: Graph, node_mask, plan, stats=None,
+                   training: bool = False):
         """GMM edge cut + connected components over the sorted flat graph
-        (reference ``HGNN_GMM.py:184-238``), eval mode.  Returns
-        (clusters int32[N] with -1 fill, n_clusters as a Python int)."""
+        (reference ``HGNN_GMM.py:184-238``), gradient-free.  Training fits
+        the GMM, moves the ``score_cut`` EMA (momentum 0.95; its first value
+        is the GMM means' midpoint; a fit without a valid cut leaves it) and
+        cuts at the new value (``blocks.py:212-220``).  Returns (clusters
+        int32[N] with -1 fill, n_clusters as a Python int)."""
         cfg = self.cfg
-        unit = normalize_unit_f32(embeddings)
+        unit = normalize_unit_f32(embeddings.detach())
         likelihood = cosine_from_endpoints(unit[graph.senders], unit[graph.receivers],
                                            mask=graph.edge_mask)
         sc = self.score_cut[0]
-        count_host_sync(stats)
-        if bool(torch.isinf(sc)):
-            # eval cuts at the buffer value; solve_cut only feeds the training
-            # EMA, so eval fits the GMM for its means alone
+        if training:
             gmm = gmm_ops.fit_gmm2(likelihood, graph.edge_mask, iters=cfg.gmm_iters)
-            sc = torch.mean(gmm.means)
+            sc = torch.where(torch.isinf(sc), torch.mean(gmm.means), sc)
+            cut, valid = gmm_ops.solve_cut(gmm, cfg.cluster_granularity)
+            sc = torch.where(valid, 0.95 * sc + (1 - 0.95) * cut, sc)
+            self.score_cut.copy_(sc[None])
+        else:
+            count_host_sync(stats)
+            if bool(torch.isinf(sc)):
+                # eval cuts at the buffer value; solve_cut only feeds the
+                # training EMA, so eval fits the GMM for its means alone
+                gmm = gmm_ops.fit_gmm2(likelihood, graph.edge_mask,
+                                       iters=cfg.gmm_iters)
+                sc = torch.mean(gmm.means)
         keep = graph.edge_mask & (likelihood >= sc)
         n = embeddings.shape[0]
 
@@ -147,13 +186,15 @@ class HierarchicalGNNBlock(nn.Module):
         return clusters, n_clusters
 
     def forward(self, embeddings, nodes, edges, graph: Graph, node_mask, agg,
-                plan, stats=None):
-        """``graph``: sorted flat work graph with K1 aggregator ``agg`` and
-        plan ``plan``.  Returns (nodes, supernodes, (bgraph, bweights), aux)."""
+                plan, stats=None, gather=None, training: bool = False):
+        """``graph``: sorted flat work graph with K1 aggregator ``agg``,
+        endpoint gather ``gather`` and plan ``plan``.  Returns (nodes,
+        supernodes, (bgraph, bweights), aux, head_gather); ``head_gather(nodes,
+        supernodes)`` gives the rows at the bipartite edges' two ends."""
         cfg = self.cfg
         n = nodes.shape[0]
         clusters, n_clusters = self.clustering(embeddings, graph, node_mask, plan,
-                                               stats)
+                                               stats, training)
         in_cluster = clusters >= 0
         seg = torch.where(in_cluster, clusters, 0).long()
         means = l2_normalize(segment_mean(embeddings, seg, cfg.max_clusters,
@@ -162,14 +203,16 @@ class HierarchicalGNNBlock(nn.Module):
         means = torch.where(cluster_valid[:, None], means, 0.0)
 
         super_graph, super_weights = self.super_graph_construction(
-            means, means, src_mask=cluster_valid, dst_mask=cluster_valid)
+            means, means, training, src_mask=cluster_valid, dst_mask=cluster_valid)
         bipartite_graph, bipartite_weights, _ = self.bipartite_graph_construction(
-            embeddings, means, src_mask=node_mask, dst_mask=cluster_valid)
+            embeddings, means, training, src_mask=node_mask, dst_mask=cluster_valid)
 
         # one receiver-sorted plan per direction, shared by the init and
         # every hierarchical iteration
         s_plan = build_sorted_plan(super_graph.senders, super_graph.receivers,
                                    super_graph.edge_mask, cfg.max_clusters)
+        gather_super = endpoint_gather(s_plan, super_graph, cfg.max_clusters,
+                                       transposed=training)
         super_graph = Graph(s_plan.senders_sorted, s_plan.receivers_sorted,
                             s_plan.edge_mask_sorted)
         super_weights = s_plan.sort(super_weights)
@@ -181,6 +224,19 @@ class HierarchicalGNNBlock(nn.Module):
         w2 = b2.sort(bipartite_weights)
         bipartite_graph = Graph(b1.senders_sorted, b1.receivers_sorted,
                                 b1.edge_mask_sorted)
+        # b1 (sorted by cluster) and b2 (sorted by node) hold the same edges:
+        # each is the other's transposed plan, so in training the row gathers
+        # by b1's senders (nodes) and by b2's senders (clusters) get a K1
+        # backward for the price of two index gathers
+        b1_of_b2 = cross_permutation(b1, b2) if training else None
+        b2_of_b1 = cross_permutation(b2, b1) if training else None
+        t1, t2 = (b2, b1) if training else (None, None)
+        gathers = {
+            "graph": gather or plain_gather(graph),
+            "super": gather_super,
+            "bip_to_super": lambda x: gather_senders(x, b1, t1, b1_of_b2),
+            "bip_to_node": lambda x: gather_senders(x, b2, t2, b2_of_b1),
+        }
         aggs = {
             "edge_to_node": agg,
             "bip_to_super": (lambda d: sorted_aggregate_weighted(d, w1, b1),
@@ -191,17 +247,23 @@ class HierarchicalGNNBlock(nn.Module):
                                                                   s_plan),
         }
 
-        agg_to_super, b_send = aggs["bip_to_super"]
-        agg_init = agg_to_super(l1_normalize(nodes)[b_send]).to(nodes.dtype)
+        agg_to_super, _ = aggs["bip_to_super"]
+        agg_init = agg_to_super(
+            gathers["bip_to_super"](l1_normalize(nodes))).to(nodes.dtype)
         supernodes = torch.cat([means.to(nodes.dtype),
                                 self.supernode_encoder(agg_init)], -1)
-        superedges = self.superedge_encoder(torch.cat(
-            [supernodes[super_graph.senders], supernodes[super_graph.receivers]], -1))
+        superedges = self.superedge_encoder(torch.cat(gather_super(supernodes), -1))
 
         for cell in self.cells:
             nodes, edges, supernodes, superedges = cell(
-                nodes, edges, supernodes, superedges, graph, super_graph, aggs)
+                nodes, edges, supernodes, superedges, graph, super_graph, aggs,
+                gathers)
 
+        # a copy: the buffer is updated in place by the next training forward
         aux = {"clusters": clusters, "n_clusters": n_clusters,
-               "cluster_valid": cluster_valid, "score_cut": self.score_cut[0]}
-        return nodes, supernodes, (bipartite_graph, w1), aux
+               "cluster_valid": cluster_valid,
+               "score_cut": self.score_cut[0].clone()}
+        # the score head's inputs: rows by the bipartite graph's endpoints
+        head_gather = lambda x, sn: (gathers["bip_to_super"](x),
+                                     gather_receivers(sn, b1))
+        return nodes, supernodes, (bipartite_graph, w1), aux, head_gather

@@ -1,10 +1,11 @@
-"""Weighted dynamic kNN graph construction (eval mode).
+"""Differentiably weighted dynamic kNN graph construction.
 
 Counterpart of ``hierarchicalgnn_tpu/models/dynamic_graph.py``: a kNN graph
-between two embedding sets, then per-edge weights from the endpoint dot
-products through a batch norm and a sigmoid or exp.  ``knn_radius`` and
-the batch-norm statistics are registered buffers.  The training-mode
-radius EMA comes with the training slice.
+between two embedding sets, built from detached embeddings, then
+differentiable per-edge weights from the endpoint dot products through a
+batch norm and a sigmoid or exp.  ``knn_radius`` and the batch-norm
+statistics are registered buffers; training mode updates them in place
+(``r <- 0.9 r + 0.11 sqrt(max d2)``, ``dynamic_graph.py:70-79``).
 """
 
 from __future__ import annotations
@@ -36,14 +37,20 @@ class DynamicGraphConstruction(nn.Module):
         self.register_buffer("knn_radius", torch.ones(1))
         self.weight_normalization = MaskedBatchNorm()
 
-    def forward(self, src_embeddings, dst_embeddings, src_mask=None,
-                dst_mask=None):
+    def forward(self, src_embeddings, dst_embeddings, training: bool = False,
+                src_mask=None, dst_mask=None):
         """Returns (Graph, weights[E, 1][, logits[E]]); capacity Q*k
         (2*Q*k when ``sym``), padded slots masked with zero weight."""
-        idx, d2 = knn(src_embeddings, dst_embeddings, self.k,
-                      self.knn_radius[0], q_mask=src_mask, p_mask=dst_mask,
-                      block_size=self.knn_block_size)
-        graph = Graph(*knn_to_edges(idx))
+        with torch.no_grad():
+            idx, d2 = knn(src_embeddings, dst_embeddings, self.k,
+                          self.knn_radius[0], q_mask=src_mask, p_mask=dst_mask,
+                          block_size=self.knn_block_size)
+            graph = Graph(*knn_to_edges(idx))
+            if training:
+                # EMA of the largest neighbour distance, from the kNN's own
+                # d2 (symmetric, so the symmetrized graph has the same max)
+                max_d2 = torch.max(torch.where(graph.edge_mask, d2.reshape(-1), 0.0))
+                self.knn_radius.mul_(0.9).add_(0.11 * torch.sqrt(max_d2))
         if self.sym:
             graph = symmetrize(graph)
             likelihood = edge_dot(src_embeddings, dst_embeddings,
@@ -52,7 +59,7 @@ class DynamicGraphConstruction(nn.Module):
             likelihood = edge_dot_from_knn(
                 src_embeddings, dst_embeddings, graph.senders,
                 graph.receivers, graph.edge_mask, d2.reshape(-1))
-        logits = self.weight_normalization(likelihood)
+        logits = self.weight_normalization(likelihood, graph.edge_mask, training)
         if self.weighting_function == "sigmoid":
             weights = torch.sigmoid(logits)
         else:

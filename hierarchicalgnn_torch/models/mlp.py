@@ -1,7 +1,8 @@
-"""NN primitives: the MLP factory and the masked batch norm (eval mode).
+"""NN primitives: the MLP factory and the masked batch norm.
 
 Counterpart of ``hierarchicalgnn_tpu/models/mlp.py``.  Numerics follow the
-JAX package: exact (erf) GELU, LayerNorm eps 1e-5, BatchNorm eps 1e-5.
+JAX package: exact (erf) GELU, LayerNorm eps 1e-5, BatchNorm momentum 0.1 /
+eps 1e-5 with unbiased running variance.
 Initialisation follows the reference's ``kaiming_init``: zero biases,
 N(0, 1/sqrt(fan_in)) for each MLP's first layer and N(0, sqrt(2)/sqrt(fan_in))
 for the rest, drawn from an explicit ``torch.Generator``.
@@ -9,6 +10,7 @@ for the rest, drawn from an explicit ``torch.Generator``.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -36,6 +38,25 @@ def activation(name: str):
         raise ValueError(f"Unknown activation {name!r}") from None
 
 
+def _save_matmuls_context():
+    """Selective-checkpoint context for ``remat: "dots"``: matmul outputs are
+    saved, the elementwise tail (LayerNorm, activation) is recomputed."""
+    from torch.utils import checkpoint as ckpt
+
+    if not hasattr(ckpt, "create_selective_checkpoint_contexts"):
+        raise NotImplementedError(
+            'remat "dots" needs torch.utils.checkpoint.'
+            "create_selective_checkpoint_contexts, which this torch lacks")
+    aten = torch.ops.aten
+    saved = {aten.mm.default, aten.addmm.default, aten.bmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (ckpt.CheckpointPolicy.MUST_SAVE if op in saved
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return ckpt.create_selective_checkpoint_contexts(policy)
+
+
 class MLP(nn.Module):
     """``Linear -> [LayerNorm] -> act`` x (L-1) -> ``Linear [-> LN -> act]``.
 
@@ -44,13 +65,22 @@ class MLP(nn.Module):
     ("bfloat16"), weights and activations are cast to it and the result
     returns in the input's dtype (``mlp.py:105-129``); without it the MLP
     computes and returns f32.
+
+    ``remat`` (the JAX package's ``maybe_remat``): ``True`` recomputes the
+    whole MLP in the backward pass (``torch.utils.checkpoint``), ``"dots"``
+    saves the matmul outputs and recomputes the rest, ``False`` saves
+    everything.  It changes memory and time, never the result.
     """
 
     def __init__(self, input_size: int, hidden_size: int, output_size: int,
                  hidden_layers: int, hidden_activation: str = "GELU",
                  output_activation: Optional[str] = "GELU",
-                 layer_norm: bool = False, compute_dtype: Optional[str] = None):
+                 layer_norm: bool = False, compute_dtype: Optional[str] = None,
+                 remat: bool | str = False):
         super().__init__()
+        if remat not in (True, False, "dots"):
+            raise ValueError(f"remat must be True, False or 'dots', got {remat!r}")
+        self.remat = remat
         sizes = [input_size] + [hidden_size] * (hidden_layers - 1) + [output_size]
         self.linears = nn.ModuleList(
             nn.Linear(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
@@ -64,11 +94,13 @@ class MLP(nn.Module):
         self.compute_dtype = torch_dtype(compute_dtype)
 
     def reset_parameters(self, generator: torch.Generator):
+        """Draws on the CPU from ``generator`` and copies to the weights'
+        device, so a seed gives the same weights on any device."""
         for i, lin in enumerate(self.linears):
             scale = 1.0 if i == 0 else math.sqrt(2.0)
             with torch.no_grad():
-                lin.weight.normal_(0.0, scale / math.sqrt(lin.in_features),
-                                   generator=generator)
+                lin.weight.copy_(torch.empty(lin.weight.shape).normal_(
+                    0.0, scale / math.sqrt(lin.in_features), generator=generator))
                 lin.bias.zero_()
         for norm in self.norms:
             nn.init.ones_(norm.weight)
@@ -80,6 +112,15 @@ class MLP(nn.Module):
                             norm.bias.to(dtype), norm.eps)
 
     def forward(self, x):
+        if self.remat and torch.is_grad_enabled():
+            from torch.utils.checkpoint import checkpoint
+
+            kwargs = ({"context_fn": _save_matmuls_context}
+                      if self.remat == "dots" else {})
+            return checkpoint(self._forward, x, use_reentrant=False, **kwargs)
+        return self._forward(x)
+
+    def _forward(self, x):
         in_dtype = x.dtype
         dtype = self.compute_dtype or torch.float32
         x = x.to(dtype)
@@ -98,20 +139,33 @@ class MLP(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm of a 1-D batch of scalars, eval mode: running statistics.
+    """BatchNorm over a masked 1-D batch of scalars (``mlp.py:166-212``).
 
-    The training-mode masked batch statistics and their momentum update
-    come with the training slice.
+    Training mode normalizes with the batch statistics of the unmasked
+    entries and updates the running buffers in place (momentum 0.1,
+    unbiased variance); eval mode uses the running statistics.
     """
 
-    def __init__(self, epsilon: float = 1e-5):
+    def __init__(self, momentum: float = 0.1, epsilon: float = 1e-5):
         super().__init__()
+        self.momentum = momentum
         self.epsilon = epsilon
         self.scale = nn.Parameter(torch.ones(1))
         self.bias = nn.Parameter(torch.zeros(1))
         self.register_buffer("running_mean", torch.zeros(1))
         self.register_buffer("running_var", torch.ones(1))
 
-    def forward(self, x):
-        inv = torch.rsqrt(self.running_var[0] + self.epsilon)
-        return (x - self.running_mean[0]) * inv * self.scale[0] + self.bias[0]
+    def forward(self, x, mask=None, training: bool = False):
+        if training:
+            w = mask.float()
+            n = torch.clamp(torch.sum(w), min=1.0)
+            mean = torch.sum(w * x) / n
+            var = torch.sum(w * torch.square(x - mean)) / n
+            with torch.no_grad():
+                unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+                self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+                self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+        else:
+            mean, var = self.running_mean[0], self.running_var[0]
+        inv = torch.rsqrt(var + self.epsilon)
+        return (x - mean) * inv * self.scale[0] + self.bias[0]

@@ -36,6 +36,18 @@ SIGNATURES = {
         "hgnn_csr_wsum_f32": (_P, _P, _P, _P, _I, _I, _P),
         "hgnn_csr_min_i32": (_P, _P, _P, _I, _P),
     },
+    "sddmm_csr.cu": {
+        # (data, rows, recv, row_ptr, out, n_edges, n_rows, d, stream)
+        "hgnn_sddmm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "hgnn_sddmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+        # (scale or NULL, rows, recv, row_ptr, out, n_edges, n_rows, d, stream)
+        "hgnn_scaled_gather_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "hgnn_scaled_gather_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    },
+    "top2.cu": {
+        # (a, prices, v1, j1, v2, n_rows, n_cols, stream)
+        "hgnn_row_top2_f32": (_P, _P, _P, _P, _P, _I, _I, _P),
+    },
 }
 
 

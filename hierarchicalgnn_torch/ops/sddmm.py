@@ -1,9 +1,9 @@
-"""Per-edge products (forward only).
+"""Per-edge products.
 
-Counterpart of ``hierarchicalgnn_tpu/ops/sddmm.py``.  The serving path
-needs no gradients, so ``edge_dot_from_knn`` is its forward algebra
-(``<s,d> = (|s|^2 + |d|^2 - d2) / 2``, ``sddmm.py:48-53``) without the
-custom VJP; the training slice adds an ``autograd.Function``.
+Counterpart of ``hierarchicalgnn_tpu/ops/sddmm.py``.  ``edge_dot_from_knn``
+computes its forward by algebra on the kNN's distances
+(``<s,d> = (|s|^2 + |d|^2 - d2) / 2``, ``sddmm.py:48-53``) and carries the
+true dot product's gradient (``sddmm.py:56-65``).
 """
 
 from __future__ import annotations
@@ -19,13 +19,38 @@ def edge_dot(src_features, dst_features, senders, receivers, mask=None):
     return out
 
 
+class _EdgeDotFromKnn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, src, dst, senders, receivers, mask, d2):
+        ctx.save_for_backward(src, dst, senders, receivers, mask)
+        sqn_s = torch.sum(torch.square(src.float()), dim=-1)
+        sqn_d = torch.sum(torch.square(dst.float()), dim=-1)
+        out = 0.5 * (sqn_s[senders] + sqn_d[receivers] - d2)
+        return torch.where(mask, out, 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the gradient of <src[s], dst[r]>, not of the distance algebra;
+        # f32 scatter-adds, as the JAX package leaves them to XLA
+        src, dst, senders, receivers, mask = ctx.saved_tensors
+        g = torch.where(mask, g, 0.0)[:, None]
+        d_src = d_dst = None
+        if ctx.needs_input_grad[0]:
+            d_src = torch.zeros(src.shape, dtype=torch.float32, device=src.device)
+            d_src = d_src.index_add_(0, senders, g * dst.float()[receivers]).to(src.dtype)
+        if ctx.needs_input_grad[1]:
+            d_dst = torch.zeros(dst.shape, dtype=torch.float32, device=dst.device)
+            d_dst = d_dst.index_add_(0, receivers, g * src.float()[senders]).to(dst.dtype)
+        return d_src, d_dst, None, None, None, None
+
+
 def edge_dot_from_knn(src_features, dst_features, senders, receivers, mask, d2):
     """Per-edge dot recovered from the kNN's squared distances: two scalar
-    gathers instead of two [E, D] row gathers."""
-    sqn_s = torch.sum(torch.square(src_features.float()), dim=-1)
-    sqn_d = torch.sum(torch.square(dst_features.float()), dim=-1)
-    out = 0.5 * (sqn_s[senders] + sqn_d[receivers] - d2)
-    return torch.where(mask, out, 0.0)
+    gathers instead of two [E, D] row gathers.  ``d2`` must be the kNN's
+    (gradient-free) output for exactly these edges; the gradient is the
+    true dot product's, so it matches :func:`edge_dot`."""
+    return _EdgeDotFromKnn.apply(src_features, dst_features, senders, receivers,
+                                 mask, d2)
 
 
 def normalize_unit_f32(embeddings):

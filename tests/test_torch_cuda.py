@@ -9,13 +9,15 @@ card is present.  Run on a machine with one:
 not need and a machine with a card may not have.)
 
 Tolerance: the kernels and the plain versions accumulate in f32 in
-different orders, so sums agree within 1e-4 of each row's sum of |terms|;
-the int32 min is exact.
+different orders, so sums agree within 1e-4 of each row's sum of |terms|
+and K3's dots within 1e-5 of theirs; K4's single product, the int32 min
+and the top-2 are exact.
 """
 
 import pytest
 import torch
 
+from hierarchicalgnn_torch.ops.kernels import sddmm, top2
 from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
 
 pytestmark = pytest.mark.cuda
@@ -76,3 +78,69 @@ def test_kernels_reject_bad_inputs(dev):
         sa.sorted_aggregate(torch.zeros(999, 32, device=dev), plan)
     with pytest.raises(ValueError, match="int32"):
         sa.sorted_segment_min_i32(torch.zeros(1000, device=dev), plan)
+    with pytest.raises(ValueError, match="rows must be float32"):
+        sddmm.scaled_gather(None, torch.zeros(100, 32, device=dev).bfloat16(), plan)
+    with pytest.raises(ValueError, match="contiguous 2-D float32"):
+        top2.row_top2(torch.zeros(8, 8, device=dev).t()[:, :4], torch.zeros(4, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("e,n,d", [(20000, 3000, 256), (5000, 700, 32)])
+def test_sddmm_and_gather_kernels(dev, dtype, e, n, d):
+    plan, g = _plan(dev, e, n, 3)
+    data = plan.sort(torch.randn(e, d, generator=g).to(dev, dtype))
+    rows = torch.randn(n, d, generator=g).to(dev)
+    scale = plan.sort(torch.randn(e, generator=g).to(dev))
+    before = dict(sa.LAUNCHES)
+    got, want = sddmm.sorted_sddmm(data, rows, plan), sddmm.sorted_sddmm_plain(data, rows, plan)
+    torch.cuda.synchronize()
+    bound = sddmm.sorted_sddmm_plain(data.abs(), rows.abs(), plan)
+    assert got.dtype == torch.float32 and got.shape == (e,)
+    assert ((got - want).abs() <= 1e-5 * bound + 1e-6).all()
+    assert not got[~plan.edge_mask_sorted].any()
+    for sc in (None, scale):
+        got = sddmm.scaled_gather(sc, rows, plan, out_dtype=dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (e, d)
+        assert torch.equal(got, sddmm.scaled_gather_plain(sc, rows, plan, out_dtype=dtype))
+    assert sa.LAUNCHES["K3"] == before["K3"] + 1
+    assert sa.LAUNCHES["K4"] == before["K4"] + 2
+
+
+@pytest.mark.parametrize("p,c", [(4096, 3072), (256, 3072), (37, 100), (5, 3)])
+def test_top2_kernel_exact(dev, p, c):
+    g = torch.Generator().manual_seed(5)
+    a = torch.randn(p, c, generator=g)
+    a[torch.rand(p, c, generator=g) < 0.5] = top2.NEG
+    a[0] = top2.NEG
+    a[1, 0] = a[1, c - 1] = 50.0
+    prices = torch.rand(c, generator=g)
+    prices[0] = prices[c - 1] = 0.5
+    a, prices = a.to(dev), prices.to(dev)
+    before = sa.LAUNCHES["K6"]
+    got, want = top2.row_top2(a, prices), top2.row_top2_plain(a, prices)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert int(got[1][1]) == 0 and float(got[0][1]) == float(got[2][1]) == 49.5
+    assert sa.LAUNCHES["K6"] == before + 1
+
+
+def test_function_gradients_on_the_card(dev):
+    """K1/K2 backward (K4, K3) against autograd through the plain versions."""
+    e, n, d = 20000, 3000, 64
+    plan, g = _plan(dev, e, n, 7)
+    data = plan.sort(torch.randn(e, d, generator=g).to(dev))
+    w = plan.sort(torch.rand(e, generator=g).to(dev) + 0.1)
+    cot = torch.randn(n, d, generator=g).to(dev)
+
+    def grads(fn):
+        x, ww = data.clone().requires_grad_(), w.clone().requires_grad_()
+        return torch.autograd.grad((fn(x, ww, plan) * cot).sum(), (x, ww))
+
+    got = grads(sa.sorted_aggregate_weighted)
+    want = grads(sa.sorted_aggregate_weighted_plain)
+    torch.cuda.synchronize()
+    recv_cot = cot.abs()[plan.receivers_sorted]
+    assert ((got[0] - want[0]).abs() <= 1e-5 * recv_cot * w[:, None] + 1e-6).all()
+    assert ((got[1] - want[1]).abs() <= 1e-5 * (data.abs() * recv_cot).sum(-1) + 1e-6).all()

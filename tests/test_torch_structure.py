@@ -2,6 +2,7 @@
 
 import inspect
 import os
+import re
 import subprocess
 import sys
 
@@ -11,7 +12,7 @@ import torch
 
 from hierarchicalgnn_torch.inference import InferenceEngine
 from hierarchicalgnn_torch.models.models import build_model
-from hierarchicalgnn_torch.ops.kernels import build, sorted_agg
+from hierarchicalgnn_torch.ops.kernels import build, sddmm, sorted_agg, top2
 from hierarchicalgnn_torch.utils.config import load_config
 
 from _torch_parity import SMALL
@@ -38,7 +39,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _PURITY], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    assert int(out.stdout.split()[-1]) >= 28  # the training modules among them
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -62,6 +63,15 @@ def test_wrappers_never_fall_back_off_the_cpu():
         sorted_agg.sorted_aggregate_weighted(torch.ones(3, 8), meta[:, 0], plan)
     with pytest.raises(ValueError, match="unsupported or mixed"):
         sorted_agg.sorted_segment_min_i32(meta[:, 0].int(), plan)
+    rows = torch.ones(2, 8)
+    with pytest.raises(ValueError, match="unsupported or mixed"):
+        sddmm.sorted_sddmm(meta, rows, plan)
+    with pytest.raises(ValueError, match="unsupported or mixed"):
+        sddmm.scaled_gather(None, meta[:2], plan)
+    with pytest.raises(ValueError, match="unsupported or mixed"):
+        sddmm.scaled_gather(meta[:, 0], rows, plan)
+    with pytest.raises(ValueError, match="unsupported or mixed"):
+        top2.row_top2(meta, torch.ones(8))
 
 
 def test_plan_csr_rows():
@@ -82,10 +92,41 @@ def test_plan_csr_rows():
 
 
 def test_kernel_sources_and_build_flags():
-    """Every entry point the wrappers call is declared, and the build
-    targets sm_90a."""
-    src = (build.CSRC_DIR / "segment_csr.cu").read_text()
-    for name in build.SIGNATURES["segment_csr.cu"]:
-        assert f"int {name}(" in src
+    """Every CUDA source has its signatures, every entry point the wrappers
+    call is declared in its source and holds a ``__global__`` kernel, and
+    the build targets sm_90a."""
+    sources = sorted(path.name for path in build.CSRC_DIR.glob("*.cu"))
+    assert sources == sorted(build.SIGNATURES) == [
+        "sddmm_csr.cu", "segment_csr.cu", "top2.cu"]
+    for source, entries in build.SIGNATURES.items():
+        src = (build.CSRC_DIR / source).read_text()
+        assert "__global__" in src and 'extern "C"' in src
+        for name in entries:
+            assert f"int {name}(" in src, (source, name)
+        assert build.library_path(source).parent == build.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    assert build.library_path("segment_csr.cu").parent == build.BUILD_DIR
+    # the wrappers name entry points that exist
+    for module, source in ((sorted_agg, "segment_csr.cu"), (sddmm, "sddmm_csr.cu"),
+                           (top2, "top2.cu")):
+        text = inspect.getsource(module)
+        assert all(name in text for name in build.SIGNATURES[source]), source
+
+
+def test_every_kernel_wrapper_has_a_plain_sibling_and_a_counter():
+    """K1-K6: wrapper, plain version in the same module, launch counter; and
+    no ``try`` around a build or a launch."""
+    wrappers = {"K1": (sorted_agg, "sorted_aggregate"),
+                "K2": (sorted_agg, "sorted_aggregate_weighted"),
+                "K5": (sorted_agg, "sorted_segment_min_i32"),
+                "K3": (sddmm, "sorted_sddmm"), "K4": (sddmm, "scaled_gather"),
+                "K6": (top2, "row_top2")}
+    assert set(sorted_agg.LAUNCHES) == set(wrappers)
+    for kernel, (module, name) in wrappers.items():
+        assert callable(getattr(module, name)) and callable(getattr(module, name + "_plain"))
+        text = inspect.getsource(module)
+        assert f'LAUNCHES["{kernel}"] += 1' in text, kernel
+        assert not re.search(r"^\s*(try|except)\b", text, re.M), module.__name__
+    assert not re.search(r"^\s*try\b", inspect.getsource(build.library), re.M)
+    sorted_agg.LAUNCHES["K3"] += 1
+    sorted_agg.reset_launches()
+    assert not any(sorted_agg.LAUNCHES.values())
