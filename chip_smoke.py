@@ -8,10 +8,14 @@ these phases and fails if any of them fails:
 
   1. device   the card's name and power limit (nvidia-smi);
   2. build    nvcc builds every CUDA source of the port for sm_90a;
-  3. kernels  each kernel against its plain PyTorch version at the
-              flagship shapes (ragged rows, empty rows, a row of degree
+  3. kernels  each kernel (K1-K7) against its plain PyTorch version at the
+              shapes the models give it (the flagship's at latent 256, the
+              other models' at latent 128 and bipartite k 8, the mined-pair
+              hinge's at width 8; ragged rows, empty rows, a row of degree
               > 4096), in bf16 and f32, with times beside the bytes bound
-              and one PyTorch library call;
+              and one PyTorch library call; K7 also at widths that are no
+              whole 16-byte vectors; ``make_aggregator`` six times over one
+              gather layout (K7's entry point);
   4. serving  the BC-HGNN-GMM flagship (latent 256, hidden 512, 6 + 6
               iterations, bf16, capacities 24576/49152/3072/4096, seeded
               weights) reconstructs 2 synthetic events of 3000 particles
@@ -20,8 +24,8 @@ these phases and fails if any of them fails:
   5. parity   the same forward in f32 through the kernels and through the
               plain versions on the card: IN-block embeddings agree and
               the clusters are equal;
-  6. gradients  each kernel-backed ``autograd.Function`` against autograd
-              through its plain version, f32, at the flagship shapes;
+  6. gradients  each kernel-backed ``autograd.Function`` (K7's too) against
+              autograd through its plain version, f32, at the flagship shapes;
   7. auction  a seeded sparse matching instance of the warm flagship shape
               (3001 x 2633 of 4096 x 3072) on the card with kernel K6,
               against scipy's exact matching on the host;
@@ -30,7 +34,15 @@ these phases and fails if any of them fails:
               through the kernels, clip, AdamW-amsgrad, buffer updates);
               the launch counts per step are asserted;
   9. training parity  one f32 step at depth 2 + 2 through the kernels and
-              through the plain versions: loss and gradient norm agree.
+              through the plain versions: loss and gradient norm agree;
+ 10. models   EC-IN, Embedding-IN, Embedding-HGNN-GMM and gMRT from
+              ``model_selector`` at their shipped configs (bf16) and the
+              flagship capacities: one served event and 2 training steps
+              each, launch counts asserted, and the mined-pair hinge
+              through the sorted plan beside autograd's index backward;
+ 11. models parity  the f32 forward of Embedding-HGNN-GMM at depth 2 + 2
+              through the kernels and through the plain versions, on one
+              super and bipartite graph.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -54,7 +66,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM non-tensor f32
 CSRC = "hierarchicalgnn_torch/csrc/"
 SOURCES = {"K1": "segment_csr.cu", "K2": "segment_csr.cu", "K5": "segment_csr.cu",
-           "K3": "sddmm_csr.cu", "K4": "sddmm_csr.cu", "K6": "top2.cu"}
+           "K3": "sddmm_csr.cu", "K4": "sddmm_csr.cu", "K6": "top2.cu",
+           "K7": "segment_gather.cu"}
 REPLACES = {
     "K1": "hierarchicalgnn_tpu/ops/pallas/sorted_agg.py:148",
     "K2": "hierarchicalgnn_tpu/ops/pallas/sorted_agg.py:252",
@@ -62,18 +75,21 @@ REPLACES = {
     "K3": "hierarchicalgnn_tpu/ops/pallas/sddmm_kernel.py:63",
     "K4": "hierarchicalgnn_tpu/ops/pallas/sddmm_kernel.py:133",
     "K6": "hierarchicalgnn_tpu/ops/pallas/top2.py:31",
+    "K7": "hierarchicalgnn_tpu/ops/pallas/segment_kernel.py:114",
 }
 NAMES = {"K1": "K1 sorted_aggregate", "K2": "K2 sorted_aggregate_weighted",
          "K5": "K5 sorted_segment_min_i32", "K3": "K3 sorted_sddmm",
-         "K4": "K4 scaled_gather", "K6": "K6 row_top2"}
+         "K4": "K4 scaled_gather", "K6": "K6 row_top2", "K7": "K7 csr_segment_sum"}
 # the kernels' names in a profiler trace
 PROFILE_TAGS = {"K1": "csr_sum_kernel<__nv_bfloat16, false>",
                 "K2": "csr_sum_kernel<__nv_bfloat16, true>",
                 "K5": "csr_min_i32_kernel", "K3": "sddmm_kernel<",
-                "K4": "scaled_gather_kernel<", "K6": "row_top2_kernel"}
+                "K4": "scaled_gather_kernel<", "K6": "row_top2_kernel",
+                "K7": "csr_gather_sum_kernel<"}
 SUM_TOL = 1e-4  # f32 accumulation in another order: 1e-4 of the row's sum of |terms|
-DOT_TOL = 1e-5  # K3's 256-term f32 dot, K4's single product: 1e-5 of the sum of |terms|
+DOT_TOL = 1e-5  # K3's f32 dot of up to 256 terms, K4's single product: 1e-5 of the sum of |terms|
 TRAIN_EPOCH = 50  # of emb_epoch 100: both losses carry weight on the sine schedule
+MODELS_EPOCH = 15  # of intermediate_epoch 30: the same for the hierarchical embedding loss
 SCORE_CUT_CLAMP = 8.38  # atanh(1 - 1e-7): a score_cut there means collapsed clustering
 
 
@@ -143,18 +159,29 @@ def phase_kernels(torch):
         by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
         return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
-    # (kernel, name of the shape, E, N, D): the flagship serving shapes
-    sum_cases = [("K1", "flat edges->nodes", 98304, 24576),
-                 ("K2", "bipartite nodes->clusters (b1)", 122880, 3072),
-                 ("K2", "bipartite clusters->nodes (b2)", 122880, 24576),
-                 ("K2", "super graph", 61440, 3072)]
-    d = 256
-    for kernel, label, e, n in sum_cases:
+    # (kernel, name of the shape, E, N, D, types): the flagship's serving
+    # shapes first (the first bf16 row of a kernel goes into the table), then
+    # the shapes the latent-128 models give the same kernels: their flat graph,
+    # Embedding-HGNN-GMM's bipartite graph of k 8, its super graph
+    both = (torch.bfloat16, torch.float32)
+    sum_cases = [("K1", "flat edges->nodes", 98304, 24576, 256, both),
+                 ("K2", "bipartite nodes->clusters (b1)", 122880, 3072, 256, both),
+                 ("K2", "bipartite clusters->nodes (b2)", 122880, 24576, 256, both),
+                 ("K2", "super graph", 61440, 3072, 256, both),
+                 ("K1", "flat edges->nodes, latent 128", 98304, 24576, 128, both),
+                 ("K2", "bipartite k 8 nodes->clusters, latent 128", 196608, 3072, 128, both),
+                 ("K2", "bipartite k 8 clusters->nodes, latent 128", 196608, 24576, 128, both),
+                 ("K2", "super graph, latent 128", 61440, 3072, 128, both)]
+    # the embedding pipeline's mined pairs (k 100 per hit and the doubled
+    # truth edges) over the f32 embeddings of width 8: K1 is their gathers' backward
+    hinge_case = ("K1", "mined-pair hinge plan, emb 8", 24576 * 100 + 2 * 49152, 24576, 8,
+                  (torch.float32,))
+    for kernel, label, e, n, d, dtypes in sum_cases + [hinge_case]:
         s, r, m = ragged_receivers(torch, e, n, gen)
         plan = sa.build_sorted_plan(s.to(dev), r.to(dev), m.to(dev), n)
         n_valid = int(plan.row_ptr[-1])
         w = plan.sort(torch.rand(e, generator=gen).to(dev) * 2.9 + 0.1)
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             data = plan.sort(torch.randn(e, d, generator=gen).to(dev, dtype))
             if kernel == "K1":
                 fn = lambda: sa.sorted_aggregate(data, plan)
@@ -226,18 +253,19 @@ def phase_kernels(torch):
                   "shape": f"CC hop int32 E={e} N={n}"}
     kernels_backward(torch, gen, sum_cases, bound_ms, rows)
     kernel_top2(torch, gen, bound_ms, rows)
+    kernel_gather_sum(torch, gen, bound_ms, rows)
     return rows
 
 
 def kernels_backward(torch, gen, sum_cases, bound_ms, rows):
     """K3 and K4 against their plain versions on the ragged inputs of the
-    four flagship shapes: K3 with bf16 and f32 data, K4 as the plain gather
-    (the K1 shape) and scaled (the K2 shapes), writing bf16 and f32."""
+    flagship's four shapes and the latent-128 models' four: K3 with bf16 and
+    f32 data, K4 as the plain gather (the K1 shapes) and scaled (the K2
+    shapes), writing bf16 and f32."""
     from hierarchicalgnn_torch.ops.kernels import sddmm, sorted_agg as sa
 
     dev = torch.device("cuda")
-    d = 256
-    for kernel, label, e, n in sum_cases:
+    for kernel, label, e, n, d, dtypes in sum_cases:
         s, r, m = ragged_receivers(torch, e, n, gen)
         plan = sa.build_sorted_plan(s.to(dev), r.to(dev), m.to(dev), n)
         n_valid = int(plan.row_ptr[-1])
@@ -245,7 +273,7 @@ def kernels_backward(torch, gen, sum_cases, bound_ms, rows):
         g = torch.randn(n, d, generator=gen).to(dev)
         scale = None if kernel == "K1" else plan.sort(torch.randn(e, generator=gen).to(dev))
         tail = slice(n_valid, None)
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             name = str(dtype)[6:]
             if kernel == "K2":  # K3 is d_w of K2 only
                 data = plan.sort(torch.randn(e, d, generator=gen).to(dev, dtype))
@@ -347,6 +375,90 @@ def kernel_top2(torch, gen, bound_ms, rows):
                           "shape": f"{label} f32 P={p} C={c}"}
 
 
+def kernel_gather_sum(torch, gen, bound_ms, rows):
+    """K7 against its plain version on unsorted edge rows of the flagship
+    flat graph (ragged rows, empty rows, the hot row, invalid edges), in
+    bf16 and f32: D 256 and 128 (16-byte vector loads) and D 100 and 3, whose
+    rows are no whole number of vectors (element loads)."""
+    from hierarchicalgnn_torch.ops.kernels import segment_gather as sg
+
+    dev = torch.device("cuda")
+    e, n = 98304, 24576
+    _, r, m = ragged_receivers(torch, e, n, gen)
+    r, m = r.to(dev), m.to(dev)
+    layout = sg.make_csr_layout(r, m, n)
+    n_valid = int(layout.row_ptr[-1])
+    valid = m.nonzero()[:, 0]
+    recv = r[valid]
+    for d in (256, 128, 100, 3):
+        for dtype in (torch.bfloat16, torch.float32):
+            data = torch.randn(e, d, generator=gen).to(dev, dtype)
+            fn = lambda: sg.csr_segment_sum(data, layout)
+            plain = lambda: sg.csr_segment_sum_plain(data, layout)
+            d32 = data.float()[valid]
+            library = lambda: torch.zeros((n, d), device=dev).index_add_(0, recv, d32)
+            out, ref = fn(), plain()
+            torch.cuda.synchronize()
+            err = (out - ref).abs()
+            abs_sum = sg.csr_segment_sum_plain(data.abs(), layout)
+            assert (out[3::7] == 0).all(), "K7 wrote to an empty row"
+            if not bool((err <= SUM_TOL * abs_sum + 1e-6).all()):
+                raise AssertionError(f"K7 D={d} {dtype} disagrees with its plain version "
+                                     f"beyond {SUM_TOL} of |terms|")
+            ms, plain_ms, lib_ms = (time_ms(torch, fn), time_ms(torch, plain),
+                                    time_ms(torch, library))
+            b_ms, b_by = bound_ms(n_valid * d * data.element_size() + 4 * n_valid
+                                  + 4 * (n + 1) + 4 * n * d, n_valid * d)
+            label = f"flat edges->nodes, unsorted {str(dtype)[6:]} E={e} N={n} D={d}"
+            log(f"K7 {label}: max_abs_err {float(err.max()):.3e} ms {ms:.4f} plain_ms "
+                f"{plain_ms:.4f} library_ms {lib_ms:.4f} [index_add_ (f32 copy of the "
+                f"valid rows)] bound_ms {b_ms:.4f} ({b_by})")
+            if "K7" not in rows:
+                rows["K7"] = {"max_abs_err": float(err.max()), "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                              "library_ms": lib_ms, "shape": label}
+
+
+def phase_aggregator(torch):
+    """K7's entry point: ``make_aggregator(use_pallas=True)`` builds one
+    layout of the flagship flat graph and sums six edge tensors over it (one
+    per iteration of a six-cell stack).  Returns the launch counts."""
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+    from hierarchicalgnn_torch.ops.segment import make_aggregator, segment_sum
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(77)
+    e, n, d = 98304, 24576, 256
+    _, r, m = ragged_receivers(torch, e, n, gen)
+    r, m = r.to(dev), m.to(dev)
+    sa.reset_launches()
+    agg = make_aggregator(r, m, n, use_pallas=True)
+    edges = torch.randn(e, d, generator=gen).to(dev, torch.bfloat16)
+    for _ in range(6):
+        out = agg(edges)
+        edges = (edges + out[r].to(edges.dtype)) * 0.5
+    torch.cuda.synchronize()
+    assert sa.LAUNCHES["K7"] == 6, sa.LAUNCHES
+    totals = dict(sa.LAUNCHES)  # the entry point's own launches; the checks below add theirs
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+    ref = segment_sum(edges.float(), r, n, mask=m)
+    err = (agg(edges) - ref).abs()
+    bound = segment_sum(edges.float().abs(), r, n, mask=m)
+    assert bool((err <= SUM_TOL * bound + 1e-6).all()), "aggregator disagrees"
+    # a width that is no whole number of 16-byte vectors launches the kernel too
+    thin = torch.randn(e, 3, generator=gen).to(dev)
+    narrow = agg(thin)
+    assert narrow.shape == (n, 3) and sa.LAUNCHES["K7"] == totals["K7"] + 2
+    thin_err = (narrow - segment_sum(thin, r, n, mask=m)).abs()
+    thin_bound = segment_sum(thin.abs(), r, n, mask=m)
+    assert bool((thin_err <= SUM_TOL * thin_bound + 1e-6).all()), "aggregator, width 3"
+    log(f"aggregator: make_aggregator(use_pallas=True) over one layout, launches "
+        f"{ {k: v for k, v in totals.items() if v} } (6 in the loop), "
+        f"max_abs_err {float(err.max()):.3e}; width 3 launched K7 as well, "
+        f"max_abs_err {float(thin_err.max()):.3e}")
+    return totals
+
+
 def flagship_events():
     """The synthetic events both main paths run: 3000 particles, seeds 0-2."""
     import numpy as np
@@ -400,8 +512,8 @@ def phase_serving(torch, events):
     for kernel in ("K1", "K2", "K5"):
         assert totals[kernel] > 0, f"serving never launched {kernel}"
 
-    per_launch, _ = profile_call(torch, lambda: engine.reconstruct(events[0]),
-                                 event_ms[0], "one reconstruct", ("K1", "K2", "K5"))
+    per_launch, _, _ = profile_call(torch, lambda: engine.reconstruct(events[0]),
+                                    event_ms[0], "one reconstruct", ("K1", "K2", "K5"))
 
     # outputs of one event: finite, of the expected shapes
     hp_n, cap = hp["n_nodes_max"], hp["n_nodes_max"] * hp["bipartitegraph_sparsity"]
@@ -412,11 +524,11 @@ def phase_serving(torch, events):
     return totals, per_launch
 
 
-def profile_call(torch, fn, wall_ms, what, kernels):
+def profile_call(torch, fn, wall_ms, what, kernels, top=15):
     """Device time by kernel over one call of ``fn`` (torch.profiler),
     against ``wall_ms``, the same call's host-clock time without the
     profiler.  Returns ({kernel: mean device ms per launch}, the trace's
-    device events)."""
+    device events, the device's busy ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -435,11 +547,11 @@ def profile_call(torch, fn, wall_ms, what, kernels):
     busy_ms = sum(dev_us(ev) for ev in events) / 1e3
     if busy_ms == 0.0:
         log(f"profile of {what}: the profiler saw no device time (not measured)")
-        return {}, []
+        return {}, [], None
     log(f"profile of {what}: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms "
         f"unprofiled host clock (idle share {100 * (1 - busy_ms / wall_ms):.1f}%), "
         f"{len(events)} kernel names, {sum(ev.count for ev in events)} launches")
-    for ev in sorted(events, key=dev_us, reverse=True)[:15]:
+    for ev in sorted(events, key=dev_us, reverse=True)[:top]:
         log(f"  {dev_us(ev) / 1e3:8.3f} ms  x{ev.count:<5d} {ev.key[:110]}")
     per_launch = {}
     for kernel in kernels:
@@ -448,7 +560,7 @@ def profile_call(torch, fn, wall_ms, what, kernels):
         if n:
             per_launch[kernel] = sum(dev_us(ev) for ev in hits) / 1e3 / n
             log(f"  {kernel}: {n} launches, {per_launch[kernel]:.4f} ms per launch")
-    return per_launch, [(ev.key, ev.count, dev_us(ev) / 1e3) for ev in events]
+    return per_launch, [(ev.key, ev.count, dev_us(ev) / 1e3) for ev in events], busy_ms
 
 
 def phase_parity(torch):
@@ -502,7 +614,8 @@ def phase_gradients(torch):
     version, in f32, on ragged inputs of the flagship shapes.  Sums (the
     gather's backward, d_rows) within SUM_TOL of the sum of |terms|; K3/K4
     outputs (d_w, d_data) within DOT_TOL."""
-    from hierarchicalgnn_torch.ops.kernels import sddmm, sorted_agg as sa
+    from hierarchicalgnn_torch.ops.kernels import sddmm, segment_gather as sg
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(4321)
@@ -573,6 +686,15 @@ def phase_gradients(torch):
         check(f"endpoint gather {label} d_nodes (K1 twice)", got, want, bound, SUM_TOL)
         used = {k: sa.LAUNCHES[k] - before[k] for k in sa.LAUNCHES}
         assert (used["K1"], used["K2"], used["K3"], used["K4"]) == (3, 2, 2, 3), used
+
+        # K7: unsorted rows through the gather layout
+        layout = sg.make_csr_layout(r, m, n)
+        raw_rows = torch.randn(e, d, generator=gen).to(dev)
+        (got,) = grads(lambda x: sg.csr_segment_sum(x, layout), [raw_rows], [cot_n])
+        (want,) = grads(lambda x: sg.csr_segment_sum_plain(x, layout), [raw_rows], [cot_n])
+        check(f"K7 {label} d_data (gather)", got, want, cot_n.abs()[r] * m[:, None],
+              DOT_TOL)
+        assert sa.LAUNCHES["K7"] - before["K7"] == 1, sa.LAUNCHES
 
 
 def warm_like_instance(np, seed=0, p=3001, c=2633, p_max=4096, c_max=3072,
@@ -708,7 +830,7 @@ def phase_training(torch, events):
         f"{float(end['hgnn.bipartite_graph_construction.knn_radius']):.4f}")
 
     batch = trainset[0][2]
-    per_launch, trace = profile_call(
+    per_launch, trace, _ = profile_call(
         torch, lambda: trainer.train_step(batch, TRAIN_EPOCH), step_ms[-1],
         "one train step", ("K1", "K2", "K3", "K4", "K5", "K6"))
     scatter = [(key, count) for key, count, _ in trace
@@ -779,6 +901,249 @@ def phase_training_parity(torch, events):
                              f"gradient norm {norm_err}")
 
 
+# Launches of each of the four later models: per eval forward, and per
+# training step (K1 = the forward's cells + 2 per endpoint gather that gets a
+# gradient + 1 per row gather + 2 per hinge of the embedding pipeline; K4 = one
+# per K1 and K2 of the forward; K3 = K2).  K5 and K6 depend on the data.
+MODEL_LAUNCHES = {
+    "EC-IN": ({"K1": 14, "K2": 0}, {"K1": 42, "K2": 0, "K3": 0, "K4": 14}),
+    "Embedding-IN": ({"K1": 12, "K2": 0}, {"K1": 36, "K2": 0, "K3": 0, "K4": 12}),
+    "Embedding-HGNN-GMM": ({"K1": 14, "K2": 25}, {"K1": 77, "K2": 25, "K3": 25, "K4": 39}),
+    "gMRT": ({"K1": 6, "K2": 19}, {"K1": 43, "K2": 19, "K3": 19, "K4": 25}),
+}
+MODEL_WIDTHS = {  # (latent, hidden, IN iterations, hierarchical iterations or None)
+    "EC-IN": (128, 256, 14, None), "Embedding-IN": (128, 256, 12, None),
+    "Embedding-HGNN-GMM": (128, 256, 6, 8), "gMRT": (256, 512, 6, 6),
+}
+
+
+def phase_models(torch, events):
+    """EC-IN, Embedding-IN, Embedding-HGNN-GMM and gMRT at their shipped
+    configs and the flagship capacities: one served event and 2 training
+    steps each (after a warm-up call), with the launch counts asserted.
+    Returns the summed launch counts and one record per model."""
+    import math
+
+    from hierarchicalgnn_torch.data.event import preprocess_event
+    from hierarchicalgnn_torch.inference import InferenceEngine
+    from hierarchicalgnn_torch.models.registry import model_selector
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+    from hierarchicalgnn_torch.train.trainer import Trainer
+
+    totals = {k: 0 for k in sa.LAUNCHES}
+    records = {}
+    for name, (fwd_expect, step_expect) in MODEL_LAUNCHES.items():
+        hp, model, pipeline = model_selector(name, FLAGSHIP)
+        assert (hp["latent"], hp["hidden"], hp["n_interaction_graph_iters"],
+                hp.get("n_hierarchical_graph_iters")) == MODEL_WIDTHS[name], hp
+        assert hp["compute_dtype"] == "bfloat16" and hp["remat"] is False, hp
+        hier = name in ("Embedding-HGNN-GMM", "gMRT")
+        rec = records[name] = {}
+
+        # ---- serving
+        engine = InferenceEngine(hp, model)
+        if name.startswith("Embedding"):
+            # the embedding models build their candidates with HDBSCAN from
+            # scikit-learn, which a machine with only the port's requirements
+            # lacks: serve the embeddings
+            serve = lambda raw: engine.forward(preprocess_event(raw, hp, stage="test"))
+            served = "InferenceEngine.forward (embeddings; candidates need scikit-learn)"
+        else:
+            serve = engine.reconstruct
+            served = "InferenceEngine.reconstruct"
+        serve(events[2])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sa.reset_launches()
+        t0 = time.perf_counter()
+        out = serve(events[0])
+        torch.cuda.synchronize()
+        rec["serve_ms"] = 1e3 * (time.perf_counter() - t0)
+        counts = dict(sa.LAUNCHES)
+        rec["serve_launches"] = counts
+        rec["serve_host_syncs"] = engine.last_stats.get("host_syncs", 0)
+        rec["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"{name} serve event seed=0 through {served}: {rec['serve_ms']:.1f} ms (host "
+            f"clock), host_syncs={rec['serve_host_syncs']}, launches="
+            f"{ {k: v for k, v in counts.items() if v} }, peak memory "
+            f"{rec['serve_peak_gib']:.2f} GiB, stats={engine.last_stats}")
+        for kernel, n in fwd_expect.items():
+            assert counts[kernel] == n, (name, kernel, counts)
+        assert (counts["K5"] >= 2) == (name != "Embedding-IN"), (name, counts)
+        assert not any(counts[k] for k in ("K3", "K4", "K6", "K7")), (name, counts)
+        for k in totals:
+            totals[k] += counts[k]
+        # outputs: finite, embeddings of unit norm, scores in [0, 1]
+        batch = preprocess_event(events[0], hp, stage="test")
+        fwd = engine.forward(batch)
+        node_mask = torch.as_tensor(batch.node_mask, device=engine.device)
+        scores, embs = {"EC-IN": (fwd, ()), "Embedding-IN": (None, (fwd,)),
+                        "Embedding-HGNN-GMM": (None, fwd[:2]),
+                        "gMRT": (fwd[1], fwd[2:3])}[name]
+        if scores is not None:
+            assert bool(torch.isfinite(scores).all()), name
+            assert bool(((scores >= 0) & (scores <= 1)).all()) and float(scores.max()) > 0
+        for emb in embs:
+            assert emb.shape == (hp["n_nodes_max"], hp["emb_dim"]), emb.shape
+            assert emb.dtype == torch.float32
+            norms = torch.linalg.vector_norm(emb[node_mask], dim=1)
+            assert bool(((norms - 1).abs() < 1e-4).all()), (name, float(norms.min()))
+        if name in ("EC-IN", "gMRT"):
+            # seeded weights may put no bipartite score above the cut; the edge
+            # classifier's candidates then keep every edge
+            assert out.shape[0] == 2 and (out.shape[1] > 0 or name == "gMRT"), out.shape
+            log(f"{name}: {out.shape[1]} (hit, track) candidates")
+        _, _, rec["serve_busy_ms"] = profile_call(
+            torch, lambda: serve(events[0]), rec["serve_ms"], f"{name}: one served event",
+            (), top=0)
+
+        # ---- training
+        trainer = Trainer(hp, model, pipeline)
+        trainer.init_state(seed=0)
+        trainset, _, _ = trainer.make_datasets(events)
+        trainer.train_step(trainset[2][2], MODELS_EPOCH)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = []
+        for step in range(2):
+            sa.reset_launches()
+            t0 = time.perf_counter()
+            metrics = trainer.train_step(trainset[step][2], MODELS_EPOCH)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            counts, stats = dict(sa.LAUNCHES), trainer.last_stats
+            log(f"{name} train step {step}: {step_ms[-1]:.1f} ms (host clock), "
+                f"metrics={metrics}, stats={stats}, launches="
+                f"{ {k: v for k, v in counts.items() if v} }")
+            assert all(math.isfinite(v) for v in metrics.values()), (name, metrics)
+            assert metrics["training_loss"] > 0 and metrics["grad_norm"] > 0, metrics
+            for kernel, n in step_expect.items():
+                assert counts[kernel] == n, (name, kernel, counts, step_expect)
+            if hier:
+                assert metrics["score_cut"] < SCORE_CUT_CLAMP and metrics["clusters"] >= 1
+                assert counts["K5"] >= 2, (name, counts)
+            if name == "gMRT":
+                assert counts["K6"] == stats["auction_rounds_launched"] >= 1, counts
+            else:
+                assert counts["K6"] == 0, (name, counts)
+            assert counts["K7"] == 0, (name, counts)
+            for k in totals:
+                totals[k] += counts[k]
+        rec.update(step_ms=step_ms, step_launches=counts,
+                   step_host_syncs=trainer.last_stats.get("host_syncs", 0),
+                   step_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        batch = trainset[1][2]
+        _, _, rec["step_busy_ms"] = profile_call(
+            torch, lambda: trainer.train_step(batch, MODELS_EPOCH), step_ms[-1],
+            f"{name}: one train step", tuple(k for k in ("K1", "K2", "K3", "K4", "K5", "K6")
+                                            if counts[k]), top=5)
+        log(f"{name}: peak memory over the 2 steps {rec['step_peak_gib']:.2f} GiB")
+        if name == "Embedding-IN":
+            hinge_compare(torch, trainer, batch)
+        del engine, trainer, model, pipeline, trainset, batch, fwd, out, scores, embs
+        torch.cuda.empty_cache()
+    log("models " + json.dumps(records))
+    return totals, records
+
+
+def hinge_compare(torch, trainer, batch):
+    """The mined-pair hinge of the embedding pipeline, forward + backward
+    over one event's real pair list: through the sorted plan with K1 as the
+    gathers' backward (what ``EmbeddingPipeline._hinge`` does under
+    autograd) beside plain indexing with autograd's own index backward."""
+    from hierarchicalgnn_torch.train import losses
+
+    pipeline, hp = trainer.pipeline, trainer.hparams
+    trainer.model.eval()
+    with torch.no_grad():
+        emb = trainer.model(batch.x, batch.graph, batch.node_mask)
+        s, r, y, mask = pipeline._training_samples(emb, batch)
+
+    def plain(e):
+        w = losses.edge_pt_weights(batch.pt, s, r, y, mask, hp)
+        return losses.squared_hinge_loss(losses.hinge_distances(e, s, r), y, w,
+                                         hp["train_r"])
+
+    def run(fn):
+        e = emb.clone().requires_grad_()
+        loss = fn(e)
+        (g,) = torch.autograd.grad(loss, e)
+        return loss.detach(), g
+
+    sorted_fn = lambda e: pipeline._hinge(e, s, r, y, mask, batch)
+    (loss_a, g_a), (loss_b, g_b) = run(sorted_fn), run(plain)
+    torch.cuda.synchronize()
+    err = float((g_a - g_b).abs().max())
+    scale = float(g_b.abs().max())
+    sorted_ms = time_ms(torch, lambda: run(sorted_fn), iters=5)
+    plain_ms = time_ms(torch, lambda: run(plain), iters=3)
+    log(f"hinge over {int(mask.sum())} valid of {mask.numel()} pairs (k={hp['knn']}), "
+        f"forward + backward: sorted plan + K1 {sorted_ms:.3f} ms, plain indexing + "
+        f"autograd's index backward {plain_ms:.3f} ms; loss {float(loss_a):.6f} vs "
+        f"{float(loss_b):.6f}, gradient max_abs_err {err:.3e} of max {scale:.3e}")
+    assert abs(float(loss_a) / float(loss_b) - 1) < 1e-4, (loss_a, loss_b)
+    assert err <= 1e-4 * scale, (err, scale)
+
+
+def phase_models_parity(torch):
+    """The f32 forward of Embedding-HGNN-GMM at depth 2 + 2 (full width and
+    capacities) through the kernels and through the plain versions.  The
+    plain run is given the kernel run's kNN results, so both build the same
+    super and bipartite graphs whatever a near-tie would have picked, and
+    the hierarchical cells (K2 at latent 128) are compared on one graph:
+    IN-block and final embeddings within 1e-4, equal clusters."""
+    from unittest import mock
+
+    import numpy as np
+
+    from hierarchicalgnn_torch.data.event import preprocess_event
+    from hierarchicalgnn_torch.data.synthetic import generate_event
+    from hierarchicalgnn_torch.inference import InferenceEngine
+    from hierarchicalgnn_torch.models import blocks, dynamic_graph
+    from hierarchicalgnn_torch.models.registry import model_selector
+    from hierarchicalgnn_torch.ops import connected
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+
+    hp, model, _ = model_selector("Embedding-HGNN-GMM", {
+        **FLAGSHIP, "compute_dtype": None, "n_interaction_graph_iters": 2,
+        "n_hierarchical_graph_iters": 2})
+    engine = InferenceEngine(hp, model)
+    batch = preprocess_event(generate_event(np.random.default_rng(0),
+                                            n_particles=N_PARTICLES), hp, stage="test")
+    found, knn = [], dynamic_graph.knn
+
+    def recording_knn(*args, **kwargs):
+        found.append(knn(*args, **kwargs))
+        return found[-1]
+
+    before = dict(sa.LAUNCHES)
+    with mock.patch.object(dynamic_graph, "knn", recording_knn):
+        kern = engine.forward(batch)
+    assert sa.LAUNCHES["K1"] - before["K1"] == 4 and sa.LAUNCHES["K2"] - before["K2"] == 7
+    assert len(found) == 2, "one kNN each for the super and the bipartite graph"
+    replay = iter(found)
+    with mock.patch.object(blocks, "sorted_aggregate", sa.sorted_aggregate_plain), \
+            mock.patch.object(blocks, "sorted_aggregate_weighted",
+                              sa.sorted_aggregate_weighted_plain), \
+            mock.patch.object(connected, "sorted_segment_min_i32",
+                              sa.sorted_segment_min_i32_plain), \
+            mock.patch.object(dynamic_graph, "knn", lambda *args, **kwargs: next(replay)):
+        before = dict(sa.LAUNCHES)
+        plain = engine.forward(batch)
+        assert sa.LAUNCHES == before, "the plain run launched a kernel"
+    inter_err = float((kern[1] - plain[1]).abs().max())
+    emb_err = float((kern[0] - plain[0]).abs().max())
+    log(f"models parity f32 Embedding-HGNN-GMM (2 + 2), one graph for both runs: "
+        f"IN-block embeddings max_abs_err {inter_err:.3e}, final embeddings "
+        f"{emb_err:.3e}, n_clusters {kern[2]['n_clusters']} vs {plain[2]['n_clusters']}")
+    if inter_err > 1e-4:
+        raise AssertionError(f"IN-block embeddings differ by {inter_err}")
+    if not torch.equal(kern[2]["clusters"], plain[2]["clusters"]):
+        raise AssertionError("clusters differ between the kernel and plain paths")
+    if emb_err > 1e-4:
+        raise AssertionError(f"final embeddings differ by {emb_err}")
+
+
 def main():
     if not (Path(__file__).resolve().parent / "hierarchicalgnn_torch").is_dir():
         raise SystemExit("hierarchicalgnn_torch/ is not beside chip_smoke.py: "
@@ -788,6 +1153,7 @@ def main():
     phase_device(torch)
     phase_build()
     rows = phase_kernels(torch)
+    aggregator = phase_aggregator(torch)
     events = flagship_events()
     serving, serving_ms = phase_serving(torch, events)
     phase_parity(torch)
@@ -795,12 +1161,21 @@ def main():
     phase_auction(torch)
     training, training_ms = phase_training(torch, events)
     phase_training_parity(torch, events)
+    models, _ = phase_models(torch, events)
+    phase_models_parity(torch)
     for kernel in NAMES:
-        assert training[kernel] > 0, f"training never launched {kernel}"
+        # K7's main path is its entry point make_aggregator; no model calls it
+        ran = aggregator[kernel] if kernel == "K7" else training[kernel]
+        assert ran > 0, f"the main path never launched {kernel}"
+        if kernel != "K7":
+            assert models[kernel] > 0, f"the four models never launched {kernel}"
     table = [{"name": NAMES[k], "route": "cuda", "source": CSRC + SOURCES[k],
-              "replaces": REPLACES[k], "launches": serving[k] + training[k],
+              "replaces": REPLACES[k],
+              "launches": serving[k] + training[k] + models[k] + aggregator[k],
               "launches_serving_2_events": serving[k],
-              "launches_training_3_steps": training[k], **rows[k],
+              "launches_training_3_steps": training[k],
+              "launches_four_models": models[k],
+              "launches_aggregator": aggregator[k], **rows[k],
               "main_path_ms_per_launch": serving_ms.get(k, training_ms.get(k)),
               "training_ms_per_launch": training_ms.get(k)}
              for k in NAMES]

@@ -1,11 +1,12 @@
-"""Weights from the JAX package's BC-HGNN-GMM into the torch model.
+"""Weights from the JAX package's five models into the torch models.
 
 ``load_jax_variables(model, variables)`` takes the flax variables as a
 nested dict of numpy arrays -- ``params``, ``buffers`` (``score_cut``,
 ``knn_radius``) and ``batch_stats`` (``mean``, ``var``) -- walks the flax
 names (``InteractionGNNBlock_0/InteractionGNNCell_k/CheckpointMLP_j/Dense_i``,
-...) and fills the torch model: a Dense ``kernel[in, out]`` becomes a Linear
-``weight[out, in]``, a LayerNorm ``scale``/``bias`` a ``weight``/``bias``.
+``GMRTEncoders_0/CheckpointMatchDims_j/Dense_0``, ...) and fills the torch
+model: a Dense ``kernel[in, out]`` becomes a Linear ``weight[out, in]``, a
+LayerNorm ``scale``/``bias`` a ``weight``/``bias``.
 It raises on any key left unmatched on either side.  This is the reverse of
 ``tests/test_parity_torch.py::copy_mlp_params``.  ``to_jax_variables(model)``
 goes the other way: the torch model's parameters and buffers as the
@@ -19,7 +20,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from hierarchicalgnn_torch.models.mlp import MLP
+from hierarchicalgnn_torch.models.blocks import GMRTEncoders
+from hierarchicalgnn_torch.models.mlp import MLP, MatchDims
 
 
 def _flatten(tree, prefix=()):
@@ -42,22 +44,40 @@ def _mlp_targets(mlp: MLP, prefix: str):
         yield f"{prefix}/LayerNorm_{i}/bias", norm.bias, False
 
 
-def _targets(model):
-    """(flax path, torch tensor, transpose) for every parameter and buffer
-    of a ``BipartiteClassifierHGNN``, in the flax module naming."""
-    ib, hb = model.ignn, model.hgnn
-    p, b, s = "params", "buffers", "batch_stats"
-    yield from _mlp_targets(ib.node_encoder, f"{p}/InteractionGNNBlock_0/CheckpointMLP_0")
-    yield from _mlp_targets(ib.edge_encoder, f"{p}/InteractionGNNBlock_0/CheckpointMLP_1")
-    yield from _mlp_targets(ib.output_layer, f"{p}/InteractionGNNBlock_0/MLP_0")
-    for k, cell in enumerate(ib.cells):
-        cp = f"{p}/InteractionGNNBlock_0/InteractionGNNCell_{k}"
+def _match_dims_targets(layer: MatchDims, prefix: str):
+    yield f"{prefix}/Dense_0/kernel", layer.linear.weight, True
+    yield f"{prefix}/Dense_0/bias", layer.linear.bias, False
+    if layer.norm is not None:
+        yield f"{prefix}/LayerNorm_0/scale", layer.norm.weight, False
+        yield f"{prefix}/LayerNorm_0/bias", layer.norm.bias, False
+
+
+def _interaction_targets(ib, p):
+    bp = f"{p}/InteractionGNNBlock_0"
+    yield from _mlp_targets(ib.node_encoder, f"{bp}/CheckpointMLP_0")
+    yield from _mlp_targets(ib.edge_encoder, f"{bp}/CheckpointMLP_1")
+    if ib.output_layer is not None:
+        yield from _mlp_targets(ib.output_layer, f"{bp}/MLP_0")
+    for k, cell in enumerate(ib.cells):  # one cell under share_weight
+        cp = f"{bp}/InteractionGNNCell_{k}"
         yield from _mlp_targets(cell.node_network, f"{cp}/CheckpointMLP_0")
         yield from _mlp_targets(cell.edge_network, f"{cp}/CheckpointMLP_1")
+
+
+def _gmrt_encoder_targets(enc, p):
+    bp = f"{p}/GMRTEncoders_0"
+    yield from _match_dims_targets(enc.node_encoder, f"{bp}/CheckpointMatchDims_0")
+    yield from _match_dims_targets(enc.edge_encoder, f"{bp}/CheckpointMatchDims_1")
+    yield from _match_dims_targets(enc.output_layer, f"{bp}/MatchDims_0")
+
+
+def _hierarchical_targets(hb, p, b, s):
     hp = "HierarchicalGNNBlock_0"
     yield from _mlp_targets(hb.supernode_encoder, f"{p}/{hp}/CheckpointMLP_0")
     yield from _mlp_targets(hb.superedge_encoder, f"{p}/{hp}/CheckpointMLP_1")
-    for k, cell in enumerate(hb.cells):
+    if hb.output_layer is not None:
+        yield from _mlp_targets(hb.output_layer, f"{p}/{hp}/MLP_0")
+    for k, cell in enumerate(hb.cells):  # one cell under share_weight
         cp = f"{p}/{hp}/HierarchicalGNNCell_{k}"
         for j, net in enumerate((cell.node_network, cell.edge_network,
                                  cell.supernode_network, cell.superedge_network)):
@@ -72,17 +92,42 @@ def _targets(model):
         yield f"{b}/{dp}/knn_radius", dgc.knn_radius, False
         yield f"{s}/{dp}/MaskedBatchNorm_0/mean", bn.running_mean, False
         yield f"{s}/{dp}/MaskedBatchNorm_0/var", bn.running_var, False
-    yield from _mlp_targets(model.bipartite_output_layer, f"{p}/CheckpointMLP_0")
+
+
+def _targets(model):
+    """(flax path, torch tensor, transpose) for every parameter and buffer
+    of one of the five models, in the flax module naming.  flax numbers a
+    class's instances in creation order and names a remat-wrapped class
+    ``Checkpoint<class>`` whatever ``remat`` says."""
+    p, b, s = "params", "buffers", "batch_stats"
+    if isinstance(model.ignn, GMRTEncoders):
+        yield from _gmrt_encoder_targets(model.ignn, p)
+    else:
+        yield from _interaction_targets(model.ignn, p)
+    if hasattr(model, "hgnn"):
+        yield from _hierarchical_targets(model.hgnn, p, b, s)
+    if hasattr(model, "bipartite_output_layer"):  # BC, gMRT
+        yield from _mlp_targets(model.bipartite_output_layer, f"{p}/CheckpointMLP_0")
+    if hasattr(model, "edge_classifier"):  # EC-IN: a plain, never recomputed MLP
+        yield from _mlp_targets(model.edge_classifier, f"{p}/MLP_0")
+
+
+def param_targets(model):
+    """The parameters alone, their paths without the ``params/`` prefix."""
+    for path, tensor, transpose in _targets(model):
+        if path.startswith("params/"):
+            yield path[len("params/"):], tensor, transpose
 
 
 def load_jax_variables(model, variables: dict):
-    """Fill ``model`` (a ``BipartiteClassifierHGNN``) from flax variables."""
+    """Fill ``model`` (any of the five) from its JAX counterpart's flax
+    variables."""
     return _fill(_targets(model), variables, model)
 
 
 def to_jax_variables(model) -> dict:
-    """The parameters and buffers of ``model`` (a ``BipartiteClassifierHGNN``)
-    as the flax variables dict: nested plain dicts of numpy arrays."""
+    """The parameters and buffers of ``model`` (any of the five) as the flax
+    variables dict: nested plain dicts of numpy arrays."""
     out: dict = {}
     for path, tensor, transpose in _targets(model):
         value = tensor.detach().cpu().numpy()

@@ -1,11 +1,12 @@
 """Serving: raw event -> track candidates.
 
-Counterpart of ``hierarchicalgnn_tpu/inference.py`` for the BC model:
-preprocess the raw event, one eval forward on the device, then the
-bipartite (hit, track) candidates above the score cut.
+Counterpart of ``hierarchicalgnn_tpu/inference.py``: preprocess the raw
+event, one eval forward on the device, then the (hit, track) candidates of
+the model's own candidate function (``evaluation/candidates.py``).
 
-    engine = InferenceEngine(hparams, model)          # device="cuda"
-    tracks = engine.reconstruct(raw_event)             # [2, M] int32
+    hparams, model, _ = model_selector("BC-HGNN-GMM")
+    engine = InferenceEngine(hparams, model)           # device="cuda"
+    tracks = engine.reconstruct(raw_event)             # [2, M]
 
 Loading a trained run (``from_run``) waits for a torch checkpoint format,
 which comes with the checkpoint slice.
@@ -17,19 +18,16 @@ import numpy as np
 import torch
 
 from hierarchicalgnn_torch.data.event import preprocess_event
-from hierarchicalgnn_torch.evaluation.candidates import bipartite_candidates
 from hierarchicalgnn_torch.evaluation.tracking import eval_metrics
-from hierarchicalgnn_torch.ops.graph import Graph, graph_to
+from hierarchicalgnn_torch.ops.graph import graph_to
 from hierarchicalgnn_torch.utils.device import resolve_device
 
 
 class InferenceEngine:
-    """``hparams``: a loaded config; ``model``: a ``BipartiteClassifierHGNN``.
+    """``hparams``, ``model``: as ``model_selector`` returns them.
     ``device`` defaults to the card and raises without one."""
 
     def __init__(self, hparams: dict, model, device: str | torch.device = "cuda"):
-        if hparams["model"] != "BC-HGNN-GMM":
-            raise ValueError(f"model {hparams['model']!r} is not ported yet")
         self.hparams = hparams
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
@@ -37,29 +35,28 @@ class InferenceEngine:
 
     @torch.no_grad()
     def forward(self, batch):
-        """One eval forward of a preprocessed event.  ``last_stats`` then
-        holds the run's host syncs and its cluster count."""
+        """One eval forward of a preprocessed event; returns the model's
+        output.  ``last_stats`` then holds the run's host syncs and, for a
+        hierarchical model, its cluster count."""
         self.last_stats = {}
         x = torch.as_tensor(batch.x, device=self.device)
         node_mask = torch.as_tensor(batch.node_mask, device=self.device)
         out = self.model(x, graph_to(batch.graph, self.device), node_mask,
                          stats=self.last_stats)
-        self.last_stats["n_clusters"] = out[3]["n_clusters"]
+        if isinstance(out, tuple):  # the hierarchical models end in their aux
+            self.last_stats["n_clusters"] = out[-1]["n_clusters"]
         return out
 
     def reconstruct(self, raw_event: dict, return_metrics: bool = False):
         """Full reconstruction of one raw event.
 
-        Returns the bipartite (hit, track) assignment in the event's
-        original hit indices; optionally tracking metrics vs its truth.
+        Returns the (hit, track) assignment in the event's original hit
+        indices; optionally tracking metrics vs its truth.
         """
         hp = self.hparams
         batch = preprocess_event(raw_event, hp, stage="test")
-        bgraph, scores, _, _ = self.forward(batch)
-        host = Graph(bgraph.senders.cpu().numpy().astype(np.int32),
-                     bgraph.receivers.cpu().numpy().astype(np.int32),
-                     bgraph.edge_mask.cpu().numpy())
-        bipartite = bipartite_candidates(host, scores.cpu().numpy(), batch, hp)
+        bipartite = self.model.candidates(self.forward(batch), batch, hp,
+                                          stats=self.last_stats)
         if not return_metrics:
             return bipartite
         pid = np.asarray(raw_event["pid"])

@@ -11,8 +11,12 @@ endpoint gathers' backward runs K1 (``gather_edge_endpoints``); the two
 bipartite plans are each other's transposes, so the bipartite row gathers'
 backward runs K1 too; and the pooling updates the ``score_cut`` EMA.
 
-f32 islands on the bf16 path: the embedding head, the edge likelihood and
-the GMM stay f32, as in the JAX package.
+f32 islands on the bf16 path: both embedding heads, the edge likelihood
+and the GMM stay f32, as in the JAX package.  Each block exists once,
+parameterized by the models' deltas: the IN block with or without its
+embedding head, the hierarchical block with or without the 1-norm before
+the supernode init and the final embedding head, and ``share_weight``
+(one cell applied at every iteration).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from hierarchicalgnn_torch.ops.segment import segment_mean
 from hierarchicalgnn_torch.models.cells import (
     HierarchicalGNNCell, InteractionGNNCell, plain_gather)
 from hierarchicalgnn_torch.models.dynamic_graph import DynamicGraphConstruction
-from hierarchicalgnn_torch.models.mlp import MLP
+from hierarchicalgnn_torch.models.mlp import MLP, MatchDims
 from hierarchicalgnn_torch.utils.config import ArchConfig
 from hierarchicalgnn_torch.utils.device import torch_dtype
 
@@ -77,12 +81,34 @@ def _mlp(cfg: ArchConfig, input_size, output_size, layers, hidden_act,
                layer_norm=cfg.layernorm, compute_dtype=compute_dtype, remat=remat)
 
 
-class InteractionGNNBlock(nn.Module):
-    """Node/edge encoders + N interaction cells + the f32 embedding head."""
+def _embedding_head(cfg: ArchConfig):
+    """The f32 embedding head.  It computes in f32 on the bf16 path too:
+    bf16-valued embeddings collide once same-track hits converge
+    (blocks.py:140-150).  Like the JAX package's, it is never recomputed."""
+    return _mlp(cfg, cfg.latent, cfg.emb_dim, cfg.output_layers,
+                cfg.hidden_output_activation, None, cfg.emb_head_dtype)
 
-    def __init__(self, cfg: ArchConfig, iterations: int):
+
+def _cells(cell_cls, cfg: ArchConfig, iterations: int):
+    """``iterations`` cells, or one cell under ``share_weight``."""
+    return nn.ModuleList(cell_cls(cfg)
+                         for _ in range(1 if cfg.share_weight else iterations))
+
+
+def _schedule(cells, iterations: int):
+    """The cell of each iteration: the shared one every time, or each once."""
+    return [cells[i % len(cells)] for i in range(iterations)]
+
+
+class InteractionGNNBlock(nn.Module):
+    """Node/edge encoders + N interaction cells [+ the f32 embedding head].
+    ``emb=False`` (the edge classifier) owns no head and returns (nodes,
+    edges)."""
+
+    def __init__(self, cfg: ArchConfig, iterations: int, emb: bool = True):
         super().__init__()
         self.cfg = cfg
+        self.iterations = iterations
         act = cfg.hidden_activation
         self.node_encoder = _mlp(cfg, cfg.spatial_channels, cfg.latent,
                                  cfg.nb_node_layer, act, act, cfg.compute_dtype,
@@ -90,38 +116,42 @@ class InteractionGNNBlock(nn.Module):
         self.edge_encoder = _mlp(cfg, 2 * cfg.spatial_channels, cfg.latent,
                                  cfg.nb_edge_layer, act, act, cfg.compute_dtype,
                                  cfg.remat)
-        self.cells = nn.ModuleList(InteractionGNNCell(cfg) for _ in range(iterations))
-        # The embedding head computes in f32 on the bf16 path too: bf16-valued
-        # embeddings collide once same-track hits converge (blocks.py:140-150).
-        # Like the JAX package's, it is never recomputed.
-        self.output_layer = _mlp(cfg, cfg.latent, cfg.emb_dim, cfg.output_layers,
-                                 cfg.hidden_output_activation, None,
-                                 cfg.emb_head_dtype)
+        self.cells = _cells(InteractionGNNCell, cfg, iterations)
+        self.output_layer = _embedding_head(cfg) if emb else None
 
     def forward(self, x, graph: Graph, agg, gather=None):
         """``graph``: receiver-sorted work graph; ``agg``: its K1 aggregator;
         ``gather``: its endpoint gather.  Returns (embeddings f32, nodes,
-        edges)."""
+        edges), or (nodes, edges) without the head."""
         nodes = self.node_encoder(x)
         edges = self.edge_encoder(torch.cat([x[graph.senders], x[graph.receivers]], -1))
         dtype = torch_dtype(self.cfg.compute_dtype)
         if dtype is not None:
             nodes, edges = nodes.to(dtype), edges.to(dtype)
-        for cell in self.cells:
+        for cell in _schedule(self.cells, self.iterations):
             nodes, edges = cell(nodes, edges, graph, agg, gather)
+        if self.output_layer is None:
+            return nodes, edges
         embeddings = l2_normalize(self.output_layer(nodes).float())
         return embeddings, nodes, edges
 
 
 class HierarchicalGNNBlock(nn.Module):
-    """GMM pooling -> dynamic super/bipartite graphs -> N hierarchical cells,
-    in its BC form: node features are 1-norm normalized before the
-    supernode init aggregation (reference BC ``HGNN_GMM.py:269``).
+    """GMM pooling -> dynamic super/bipartite graphs -> N hierarchical cells.
+
+    ``l1_norm_supernode_init``: BC and gMRT normalize the node features with
+    a 1-norm before the supernode init aggregation (reference BC
+    ``HGNN_GMM.py:269``); the embedding model does not.  ``emb_output``: the
+    embedding model adds a final f32 embedding head and returns
+    (embeddings, aux); BC and gMRT return the nodes, the supernodes and the
+    bipartite graph for their score head.
     """
 
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, l1_norm_supernode_init: bool = True,
+                 emb_output: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.l1_norm_supernode_init = l1_norm_supernode_init
         act = cfg.hidden_activation
         # +inf until the first training fit; eval then cuts at the GMM means'
         # midpoint (blocks.py:212-220)
@@ -138,8 +168,8 @@ class HierarchicalGNNBlock(nn.Module):
         self.bipartite_graph_construction = DynamicGraphConstruction(
             "exp", k=cfg.bipartitegraph_sparsity, sym=False, norm=True,
             return_logits=True, knn_block_size=cfg.knn_block_size)
-        self.cells = nn.ModuleList(HierarchicalGNNCell(cfg)
-                                   for _ in range(cfg.n_hierarchical_graph_iters))
+        self.cells = _cells(HierarchicalGNNCell, cfg, cfg.n_hierarchical_graph_iters)
+        self.output_layer = _embedding_head(cfg) if emb_output else None
 
     @torch.no_grad()
     def clustering(self, embeddings, graph: Graph, node_mask, plan, stats=None,
@@ -190,7 +220,8 @@ class HierarchicalGNNBlock(nn.Module):
         """``graph``: sorted flat work graph with K1 aggregator ``agg``,
         endpoint gather ``gather`` and plan ``plan``.  Returns (nodes,
         supernodes, (bgraph, bweights), aux, head_gather); ``head_gather(nodes,
-        supernodes)`` gives the rows at the bipartite edges' two ends."""
+        supernodes)`` gives the rows at the bipartite edges' two ends.  With
+        ``emb_output`` it returns (embeddings f32, aux)."""
         cfg = self.cfg
         n = nodes.shape[0]
         clusters, n_clusters = self.clustering(embeddings, graph, node_mask, plan,
@@ -248,13 +279,13 @@ class HierarchicalGNNBlock(nn.Module):
         }
 
         agg_to_super, _ = aggs["bip_to_super"]
-        agg_init = agg_to_super(
-            gathers["bip_to_super"](l1_normalize(nodes))).to(nodes.dtype)
+        init_nodes = l1_normalize(nodes) if self.l1_norm_supernode_init else nodes
+        agg_init = agg_to_super(gathers["bip_to_super"](init_nodes)).to(nodes.dtype)
         supernodes = torch.cat([means.to(nodes.dtype),
                                 self.supernode_encoder(agg_init)], -1)
         superedges = self.superedge_encoder(torch.cat(gather_super(supernodes), -1))
 
-        for cell in self.cells:
+        for cell in _schedule(self.cells, cfg.n_hierarchical_graph_iters):
             nodes, edges, supernodes, superedges = cell(
                 nodes, edges, supernodes, superedges, graph, super_graph, aggs,
                 gathers)
@@ -263,7 +294,36 @@ class HierarchicalGNNBlock(nn.Module):
         aux = {"clusters": clusters, "n_clusters": n_clusters,
                "cluster_valid": cluster_valid,
                "score_cut": self.score_cut[0].clone()}
+        if self.output_layer is not None:
+            return l2_normalize(self.output_layer(nodes).float()), aux
         # the score head's inputs: rows by the bipartite graph's endpoints
         head_gather = lambda x, sn: (gathers["bip_to_super"](x),
                                      gather_receivers(sn, b1))
         return nodes, supernodes, (bipartite_graph, w1), aux, head_gather
+
+
+class GMRTEncoders(nn.Module):
+    """gMRT's minimal encoders: single Dense layers in place of the deep IN
+    block (``blocks.py:539-568`` of the JAX package), all in f32.  The
+    embeddings come from the f32 nodes, before the cast to the compute
+    dtype."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        self.cfg = cfg
+        act = cfg.hidden_activation
+        self.node_encoder = MatchDims(cfg.spatial_channels, cfg.latent, act,
+                                      cfg.layernorm, cfg.remat)
+        self.edge_encoder = MatchDims(2 * cfg.spatial_channels, cfg.latent, act,
+                                      cfg.layernorm, cfg.remat)
+        self.output_layer = MatchDims(cfg.latent, cfg.emb_dim, None, cfg.layernorm)
+
+    def forward(self, x, graph: Graph):
+        """Returns (embeddings f32, nodes, edges) over the sorted work graph."""
+        nodes = self.node_encoder(x)
+        edges = self.edge_encoder(torch.cat([x[graph.senders], x[graph.receivers]], -1))
+        embeddings = l2_normalize(self.output_layer(nodes).float())
+        dtype = torch_dtype(self.cfg.compute_dtype)
+        if dtype is not None:
+            nodes, edges = nodes.to(dtype), edges.to(dtype)
+        return embeddings, nodes, edges

@@ -1,4 +1,5 @@
-"""NN primitives: the MLP factory and the masked batch norm.
+"""NN primitives: the MLP factory, the dim-matching layer and the masked
+batch norm.
 
 Counterpart of ``hierarchicalgnn_tpu/models/mlp.py``.  Numerics follow the
 JAX package: exact (erf) GELU, LayerNorm eps 1e-5, BatchNorm momentum 0.1 /
@@ -10,7 +11,6 @@ for the rest, drawn from an explicit ``torch.Generator``.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Optional
 
@@ -57,6 +57,22 @@ def _save_matmuls_context():
     return ckpt.create_selective_checkpoint_contexts(policy)
 
 
+def _check_remat(remat):
+    if remat not in (True, False, "dots"):
+        raise ValueError(f"remat must be True, False or 'dots', got {remat!r}")
+    return remat
+
+
+def _apply_remat(fn, x, remat):
+    """``fn(x)``, recomputed in the backward pass per ``remat``."""
+    if remat and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+
+        kwargs = {"context_fn": _save_matmuls_context} if remat == "dots" else {}
+        return checkpoint(fn, x, use_reentrant=False, **kwargs)
+    return fn(x)
+
+
 class MLP(nn.Module):
     """``Linear -> [LayerNorm] -> act`` x (L-1) -> ``Linear [-> LN -> act]``.
 
@@ -78,9 +94,7 @@ class MLP(nn.Module):
                  layer_norm: bool = False, compute_dtype: Optional[str] = None,
                  remat: bool | str = False):
         super().__init__()
-        if remat not in (True, False, "dots"):
-            raise ValueError(f"remat must be True, False or 'dots', got {remat!r}")
-        self.remat = remat
+        self.remat = _check_remat(remat)
         sizes = [input_size] + [hidden_size] * (hidden_layers - 1) + [output_size]
         self.linears = nn.ModuleList(
             nn.Linear(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
@@ -112,13 +126,7 @@ class MLP(nn.Module):
                             norm.bias.to(dtype), norm.eps)
 
     def forward(self, x):
-        if self.remat and torch.is_grad_enabled():
-            from torch.utils.checkpoint import checkpoint
-
-            kwargs = ({"context_fn": _save_matmuls_context}
-                      if self.remat == "dots" else {})
-            return checkpoint(self._forward, x, use_reentrant=False, **kwargs)
-        return self._forward(x)
+        return _apply_remat(self._forward, x, self.remat)
 
     def _forward(self, x):
         in_dtype = x.dtype
@@ -136,6 +144,41 @@ class MLP(nn.Module):
                 x = self._norm(last, x, dtype)
             x = self.output_act(x)
         return x.to(in_dtype) if self.compute_dtype is not None else x
+
+
+class MatchDims(nn.Module):
+    """One ``Linear -> [LayerNorm] -> [activation]`` in f32: the gMRT cheap
+    encoder (``mlp.py:147-163`` of the JAX package).  It has no compute
+    dtype; its weight draws like an MLP's first layer."""
+
+    def __init__(self, input_size: int, output_size: int,
+                 output_activation: Optional[str] = "GELU",
+                 layer_norm: bool = False, remat: bool | str = False):
+        super().__init__()
+        self.remat = _check_remat(remat)
+        self.linear = nn.Linear(input_size, output_size)
+        self.norm = nn.LayerNorm(output_size, eps=1e-5) if layer_norm else None
+        self.output_act = (activation(output_activation)
+                           if output_activation is not None else None)
+
+    def reset_parameters(self, generator: torch.Generator):
+        """Seeded like :meth:`MLP.reset_parameters` (drawn on the CPU)."""
+        with torch.no_grad():
+            self.linear.weight.copy_(torch.empty(self.linear.weight.shape).normal_(
+                0.0, 1.0 / math.sqrt(self.linear.in_features), generator=generator))
+            self.linear.bias.zero_()
+        if self.norm is not None:
+            nn.init.ones_(self.norm.weight)
+            nn.init.zeros_(self.norm.bias)
+
+    def forward(self, x):
+        return _apply_remat(self._forward, x, self.remat)
+
+    def _forward(self, x):
+        x = self.linear(x)
+        if self.norm is not None:
+            x = self.norm(x)
+        return self.output_act(x) if self.output_act is not None else x
 
 
 class MaskedBatchNorm(nn.Module):

@@ -1,13 +1,23 @@
-"""The flagship model: the hierarchical bipartite classifier, BC-HGNN-GMM.
+"""The five pipeline models.
 
-Counterpart of ``hierarchicalgnn_tpu/models/models.py::BipartiteClassifierHGNN``
-(reference ``Modules/BipartiteClassification/Models/HGNN_GMM.py:300-346``),
-single device (``spmd is None``).  ``model.train()`` / ``model.eval()``
-select the mode: training fits the pooling GMM every forward, updates the
-buffers (``score_cut``, ``knn_radius``, batch-norm statistics) in place and
-builds the transposed plans whose K1 backward the endpoint gathers use.
-The other four models and the graph-partitioned branches come in later
-slices.
+Counterpart of ``hierarchicalgnn_tpu/models/models.py``, single device
+(``spmd is None``).  Each is a module over (x, undirected Graph, node_mask):
+
+  * EdgeClassifierIN        -- EC-IN: scores of the input edges
+  * EmbeddingIN             -- Embedding-IN: hit embeddings
+  * EmbeddingHGNNGMM        -- Embedding-HGNN-GMM: (embeddings, IN-block
+                               embeddings, clustering aux)
+  * BipartiteClassifierHGNN -- BC-HGNN-GMM, the flagship: (bipartite graph,
+                               scores, IN-block embeddings, aux)
+  * GMRT                    -- gMRT: BC with single-layer encoders
+
+``model.candidates(out, host_batch, hparams)`` turns the eval output ``out``
+into the [2, M] (hit, track) candidates of the model's kind.
+``model.train()`` / ``model.eval()`` select the mode: training fits the
+pooling GMM every forward, updates the buffers (``score_cut``,
+``knn_radius``, batch-norm statistics) in place and builds the transposed
+plans whose K1 backward the endpoint gathers use.  The graph-partitioned
+branches are not ported.
 """
 
 from __future__ import annotations
@@ -15,34 +25,37 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from hierarchicalgnn_torch.evaluation import candidates
 from hierarchicalgnn_torch.ops.graph import Graph, bidirectionalize
 from hierarchicalgnn_torch.models.blocks import (
-    HierarchicalGNNBlock, InteractionGNNBlock, sorted_graph_mode)
-from hierarchicalgnn_torch.models.mlp import MLP, MaskedBatchNorm
+    GMRTEncoders, HierarchicalGNNBlock, InteractionGNNBlock, sorted_graph_mode)
+from hierarchicalgnn_torch.models.dynamic_graph import DynamicGraphConstruction
+from hierarchicalgnn_torch.models.mlp import MLP, MaskedBatchNorm, MatchDims
 from hierarchicalgnn_torch.utils.config import ArchConfig
 
 
-class BipartiteClassifierHGNN(nn.Module):
-    """Hierarchical bipartite hit<->supernode classifier (BC-HGNN-GMM)."""
+def _score_head(cfg: ArchConfig, remat):
+    """The f32-output score MLP over a pair of latent rows."""
+    return MLP(2 * cfg.latent, cfg.hidden, 1, cfg.output_layers,
+               hidden_activation=cfg.hidden_output_activation,
+               output_activation=None, layer_norm=cfg.layernorm,
+               compute_dtype=cfg.compute_dtype, remat=remat)
+
+
+class _Model(nn.Module):
+    """What the five models share: the config, the seeded init and the
+    sorted work graph of a forward."""
 
     def __init__(self, cfg: ArchConfig):
         super().__init__()
-        if cfg.share_weight:
-            raise NotImplementedError("share_weight is not ported yet")
         self.cfg = cfg
-        self.ignn = InteractionGNNBlock(cfg, cfg.n_interaction_graph_iters)
-        self.hgnn = HierarchicalGNNBlock(cfg)
-        self.bipartite_output_layer = MLP(
-            2 * cfg.latent, cfg.hidden, 1, cfg.output_layers,
-            hidden_activation=cfg.hidden_output_activation,
-            output_activation=None, layer_norm=cfg.layernorm,
-            compute_dtype=cfg.compute_dtype, remat=cfg.remat)
 
     def reset_parameters(self, generator: torch.Generator):
-        """Seeded kaiming init of every MLP (``models/mlp.py``); batch-norm
-        affine parameters and every buffer return to their defaults."""
+        """Seeded kaiming init of every MLP and dim-matching layer
+        (``models/mlp.py``), in module order; batch-norm affine parameters
+        and every buffer return to their defaults."""
         for module in self.modules():
-            if isinstance(module, MLP):
+            if isinstance(module, (MLP, MatchDims)):
                 module.reset_parameters(generator)
             elif isinstance(module, MaskedBatchNorm):
                 with torch.no_grad():
@@ -50,36 +63,151 @@ class BipartiteClassifierHGNN(nn.Module):
                     module.bias.zero_()
                     module.running_mean.zero_()
                     module.running_var.fill_(1.0)
-        with torch.no_grad():
-            self.hgnn.score_cut.fill_(float("inf"))
-            self.hgnn.super_graph_construction.knn_radius.fill_(1.0)
-            self.hgnn.bipartite_graph_construction.knn_radius.fill_(1.0)
+            elif isinstance(module, DynamicGraphConstruction):
+                with torch.no_grad():
+                    module.knn_radius.fill_(1.0)
+            elif isinstance(module, HierarchicalGNNBlock):
+                with torch.no_grad():
+                    module.score_cut.fill_(float("inf"))
+
+    def _work_graph(self, x, graph: Graph, node_mask):
+        """(node_mask, work graph, K1 aggregator, endpoint gather, plan) of
+        the bidirected input graph, receiver-sorted."""
+        if node_mask is None:
+            node_mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+        return (node_mask,) + sorted_graph_mode(
+            bidirectionalize(graph), x.shape[0], transposed=self.training)
+
+
+class EdgeClassifierIN(_Model):
+    """Flat interaction-network edge classifier (EC-IN): each undirected
+    edge is scored from the concat of its two directed copies' features
+    (reference ``IN.py:118-128``)."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__(cfg)
+        self.ignn = InteractionGNNBlock(cfg, cfg.n_interaction_graph_iters, emb=False)
+        self.edge_classifier = _score_head(cfg, remat=False)
+
+    def forward(self, x, graph: Graph, node_mask=None, stats=None):
+        """Returns the f32 scores of the input edges (0 on padded slots)."""
+        _, work, agg, gather, plan = self._work_graph(x, graph, node_mask)
+        _, edges = self.ignn(x, work, agg, gather)
+        # back to input order: the plan holds exactly the 2e directed edges,
+        # so the halves pair the two copies of each undirected edge
+        edges = plan.unsort(edges)
+        e = graph.senders.shape[0]
+        logits = self.edge_classifier(torch.cat([edges[:e], edges[e:]], -1))[:, 0]
+        return torch.where(graph.edge_mask, torch.sigmoid(logits.float()), 0.0)
+
+    def candidates(self, out, host_batch, hparams, stats=None):
+        return candidates.ec_candidates(out, host_batch, hparams, stats=stats)
+
+
+class EmbeddingIN(_Model):
+    """Flat metric-learning embedding model (Embedding-IN)."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__(cfg)
+        self.ignn = InteractionGNNBlock(cfg, cfg.n_interaction_graph_iters)
+
+    def forward(self, x, graph: Graph, node_mask=None, stats=None):
+        """Returns the unit-norm f32 embeddings [N, emb_dim]."""
+        _, work, agg, gather, _ = self._work_graph(x, graph, node_mask)
+        return self.ignn(x, work, agg, gather)[0]
+
+    def candidates(self, out, host_batch, hparams, stats=None):
+        return candidates.embedding_candidates(out, host_batch, hparams)
+
+
+class EmbeddingHGNNGMM(_Model):
+    """Hierarchical embedding model (Embedding-HGNN-GMM)."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__(cfg)
+        self.ignn = InteractionGNNBlock(cfg, cfg.n_interaction_graph_iters)
+        self.hgnn = HierarchicalGNNBlock(cfg, l1_norm_supernode_init=False,
+                                         emb_output=True)
+
+    def forward(self, x, graph: Graph, node_mask=None, stats=None):
+        """Returns (embeddings, IN-block embeddings, aux).  ``stats``:
+        optional dict that collects ``host_syncs``."""
+        node_mask, work, agg, gather, plan = self._work_graph(x, graph, node_mask)
+        intermediate, nodes, edges = self.ignn(x, work, agg, gather)
+        embeddings, aux = self.hgnn(
+            intermediate, nodes, edges, work, node_mask, agg, plan, stats,
+            gather=gather, training=self.training)
+        return embeddings, intermediate, aux
+
+    def candidates(self, out, host_batch, hparams, stats=None):
+        return candidates.embedding_candidates(out[0], host_batch, hparams)
+
+
+class _BipartiteScorer(_Model):
+    """BC and gMRT: an encoder, the hierarchical block and the bipartite
+    score head.  A subclass passes its encoder and says how to call it."""
+
+    def __init__(self, cfg: ArchConfig, encoder: nn.Module):
+        super().__init__(cfg)
+        self.ignn = encoder
+        self.hgnn = HierarchicalGNNBlock(cfg)
+        self.bipartite_output_layer = _score_head(cfg, remat=cfg.remat)
 
     def forward(self, x, graph: Graph, node_mask=None, stats=None):
         """Forward over one padded event, in the module's mode.
 
         Returns (bgraph, scores, embeddings, aux) like the JAX model: the
         receiver-sorted bipartite graph, its f32 edge scores (0 on padded
-        slots), the IN-block embeddings and the clustering aux.  ``stats``:
+        slots), the encoder's embeddings and the clustering aux.  ``stats``:
         optional dict that collects ``host_syncs``.
         """
-        training = self.training
-        if node_mask is None:
-            node_mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
-        work, agg, gather, plan = sorted_graph_mode(
-            bidirectionalize(graph), x.shape[0], transposed=training)
-        embeddings, nodes, edges = self.ignn(x, work, agg, gather)
+        node_mask, work, agg, gather, plan = self._work_graph(x, graph, node_mask)
+        embeddings, nodes, edges = self._encode(x, work, agg, gather)
         nodes, supernodes, (bgraph, _), aux, head_gather = self.hgnn(
             embeddings, nodes, edges, work, node_mask, agg, plan, stats,
-            gather=gather, training=training)
+            gather=gather, training=self.training)
         logits = self.bipartite_output_layer(torch.cat(
             head_gather(nodes, supernodes), -1))[:, 0]
         scores = torch.where(bgraph.edge_mask, torch.sigmoid(logits.float()), 0.0)
         return bgraph, scores, embeddings, aux
 
+    def candidates(self, out, host_batch, hparams, stats=None):
+        return candidates.bipartite_candidates(out[0], out[1], host_batch, hparams)
 
-def build_model(hparams: dict, seed: int = 0) -> BipartiteClassifierHGNN:
-    """BC model of a config with seeded random weights (on the CPU)."""
-    model = BipartiteClassifierHGNN(ArchConfig.from_hparams(hparams))
+
+class BipartiteClassifierHGNN(_BipartiteScorer):
+    """Hierarchical bipartite hit<->supernode classifier (BC-HGNN-GMM)."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__(cfg, InteractionGNNBlock(cfg, cfg.n_interaction_graph_iters))
+
+    def _encode(self, x, work, agg, gather):
+        return self.ignn(x, work, agg, gather)
+
+
+class GMRT(_BipartiteScorer):
+    """gMRT: BC with single-layer encoders in place of the IN stack."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__(cfg, GMRTEncoders(cfg))
+
+    def _encode(self, x, work, agg, gather):
+        return self.ignn(x, work)
+
+
+MODELS = {"EC-IN": EdgeClassifierIN, "Embedding-IN": EmbeddingIN,
+          "Embedding-HGNN-GMM": EmbeddingHGNNGMM,
+          "BC-HGNN-GMM": BipartiteClassifierHGNN, "gMRT": GMRT}
+
+
+def build_model(hparams: dict, seed: int = 0):
+    """The model that ``hparams["model"]`` names, with seeded random weights
+    (on the CPU), in eval mode."""
+    try:
+        model_cls = MODELS[hparams["model"]]
+    except KeyError:
+        raise ValueError(f"Can't find model name {hparams['model']!r}! "
+                         f"Available: {sorted(MODELS)}") from None
+    model = model_cls(ArchConfig.from_hparams(hparams))
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.eval()

@@ -1,12 +1,14 @@
 """Connected components and cluster labelling over a receiver-sorted plan.
 
-Counterpart of ``hierarchicalgnn_tpu/ops/connected.py`` (the sorted
-variant the flagship runs): min-label propagation whose hop is the K5
-segment-min kernel, with pointer jumping.  The loop keeps the JAX version's
-shape exactly -- two hops per body, three pointer jumps per hop, at most
-``max_iters // 2`` bodies -- so the labels match.  ``lax.while_loop``
-becomes a Python loop that reads one flag per body back to the host
-(``host_syncs`` counts them).
+Counterpart of ``hierarchicalgnn_tpu/ops/connected.py``: min-label
+propagation whose hop is the K5 segment-min kernel, with pointer jumping.
+The sorted variant (the hierarchical models' pooling) keeps the JAX
+version's shape exactly -- two hops per body, three pointer jumps per hop,
+at most ``max_iters // 2`` bodies -- so the labels match.
+``lax.while_loop`` becomes a Python loop that reads one flag per body back
+to the host (``host_syncs`` counts them).  :func:`cluster_labels` serves
+an unsorted graph (the edge classifier's track building) by sorting it
+first.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from hierarchicalgnn_torch.ops.kernels.sorted_agg import (
-    INT32_MAX, sorted_segment_min_i32)
+    INT32_MAX, build_sorted_plan, sorted_segment_min_i32)
 from hierarchicalgnn_torch.ops.segment import segment_sum
 
 
@@ -77,3 +79,24 @@ def cluster_labels_sorted(plan, keep_sorted, num_nodes, min_cluster_size=1,
     sizes = segment_sum(nm.int(), labels.long(), num_nodes)
     keep_nodes = nm & (sizes[labels.long()] >= min_cluster_size)
     return compact_labels(labels, keep_nodes)
+
+
+def cluster_labels(senders, receivers, edge_mask, num_nodes, min_cluster_size=1,
+                   node_mask=None, stats=None):
+    """Connected components of an unsorted graph -> dense cluster ids, as
+    ``cluster_labels`` of the JAX package (``connected.py:147-162``).
+
+    The JAX function hops with two scatter-mins over the unsorted edges.
+    Here the graph is doubled, receiver-sorted once, and goes through
+    :func:`cluster_labels_sorted` and K5.  A converged label is the least
+    node index of its component whatever the hop schedule, so the labels
+    equal the JAX function's exactly (both loops allow 64 hops).
+    """
+    senders, receivers = senders.long(), receivers.long()
+    senders, receivers = (torch.cat([senders, receivers]),
+                          torch.cat([receivers, senders]))
+    edge_mask = torch.cat([edge_mask, edge_mask])
+    plan = build_sorted_plan(senders, receivers, edge_mask, num_nodes)
+    return cluster_labels_sorted(plan, plan.edge_mask_sorted, num_nodes,
+                                 min_cluster_size=min_cluster_size,
+                                 node_mask=node_mask, stats=stats)

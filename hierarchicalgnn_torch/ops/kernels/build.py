@@ -44,6 +44,11 @@ SIGNATURES = {
         "hgnn_scaled_gather_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
         "hgnn_scaled_gather_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
+    "segment_gather.cu": {
+        # (data, perm, row_ptr, out, n_rows, d, stream)
+        "hgnn_csr_gather_sum_bf16": (_P, _P, _P, _P, _I, _I, _P),
+        "hgnn_csr_gather_sum_f32": (_P, _P, _P, _P, _I, _I, _P),
+    },
     "top2.cu": {
         # (a, prices, v1, j1, v2, n_rows, n_cols, stream)
         "hgnn_row_top2_f32": (_P, _P, _P, _P, _P, _I, _I, _P),

@@ -35,8 +35,9 @@ from hierarchicalgnn_torch.ops.kernels.build import library
 INT32_MAX = 2**31 - 1
 
 # Kernel launches since the last reset, by kernel (K3/K4 are counted by
-# ops/kernels/sddmm.py, K6 by ops/kernels/top2.py).
-LAUNCHES = {"K1": 0, "K2": 0, "K5": 0, "K3": 0, "K4": 0, "K6": 0}
+# ops/kernels/sddmm.py, K6 by ops/kernels/top2.py, K7 by
+# ops/kernels/segment_gather.py).
+LAUNCHES = {"K1": 0, "K2": 0, "K5": 0, "K3": 0, "K4": 0, "K6": 0, "K7": 0}
 
 
 def reset_launches():

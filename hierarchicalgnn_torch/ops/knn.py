@@ -72,3 +72,12 @@ def knn_to_edges(idx):
     mask = receivers >= 0
     receivers = torch.where(mask, receivers, 0)
     return senders, receivers, mask
+
+
+def knn_graph(embeddings, r, k, mask=None, block_size=1024):
+    """kNN graph of a point set against itself as padded COO edges:
+    (senders, receivers, edge_mask, d2), each of capacity N*k."""
+    idx, d2 = knn(embeddings, embeddings, k, r, q_mask=mask, p_mask=mask,
+                  block_size=block_size)
+    senders, receivers, emask = knn_to_edges(idx)
+    return senders, receivers, emask, d2.reshape(-1)

@@ -1,8 +1,9 @@
-"""Masked segment reductions in plain PyTorch.
+"""Masked segment reductions in plain PyTorch, and the aggregator factory.
 
-Counterpart of ``hierarchicalgnn_tpu/ops/segment.py``.  These are XLA ops
-in JAX, not Pallas kernels; here they are ``index_add_`` and
-``scatter_reduce_``.  As with ``jax.ops.segment_*``, segment ids outside
+Counterpart of ``hierarchicalgnn_tpu/ops/segment.py``.  The reductions are
+XLA ops in JAX, not Pallas kernels; here they are ``index_add_`` and
+``scatter_reduce_``.  :func:`make_aggregator` is the entry point of the
+gather-layout kernel K7.  As with ``jax.ops.segment_*``, segment ids outside
 ``[0, num_segments)`` are dropped, padded edges contribute the identity,
 and empty segments receive it.
 """
@@ -54,3 +55,36 @@ def segment_min(data, segment_ids, num_segments, mask=None, empty_value=0):
     out.scatter_reduce_(0, _expand(ids, vals).expand_as(vals), vals, "amin")
     return torch.where(out == neutral, torch.full((), empty_value, dtype=out.dtype,
                                                   device=out.device), out)
+
+
+def gather_segment_sum(values, gather_ids, segment_ids, num_segments,
+                       weights=None, mask=None):
+    """scatter_add(w_e * values[gather_ids[e]]) into segments: the bipartite
+    weighted-graph-convolution message (gather rows by one endpoint, scale
+    by the per-edge weight, reduce to the other endpoint)."""
+    msgs = values[gather_ids]
+    if weights is not None:
+        msgs = msgs * weights.reshape(weights.shape + (1,) * (msgs.ndim - weights.ndim))
+    return segment_sum(msgs, segment_ids, num_segments, mask)
+
+
+def make_aggregator(receivers, edge_mask, num_segments, use_pallas=False):
+    """Returns ``agg(data) -> [num_segments, D]`` for repeated masked segment
+    sums over a fixed edge structure, with ``data`` in the edges' own
+    (unsorted) order.
+
+    With ``use_pallas`` (the JAX package's name for its kernel path, kept so
+    one call reads the same in both packages) the CSR layout is built once
+    here and every call runs the K7 kernel
+    (``ops/kernels/segment_gather.py``) on ``[E, D]`` bf16 or f32 rows of
+    any width and returns f32.  (The JAX package sends widths that are not
+    lane-aligned to XLA; the CUDA kernel needs no such rule.)
+    """
+    if not use_pallas:
+        return lambda data: segment_sum(data, receivers, num_segments, mask=edge_mask)
+
+    from hierarchicalgnn_torch.ops.kernels.segment_gather import (
+        csr_segment_sum, make_csr_layout)
+
+    layout = make_csr_layout(receivers, edge_mask, num_segments)
+    return lambda data: csr_segment_sum(data, layout)

@@ -65,10 +65,14 @@ def squared_hinge_loss(dist, y, weights, margin):
     return torch.sum(loss * weights)
 
 
+def endpoint_distances(e_s, e_r, eps: float = 1e-12):
+    """sqrt(||e_s - e_r||^2 + eps) per pair of gathered rows."""
+    return torch.sqrt(torch.sum(torch.square(e_s - e_r), -1) + eps)
+
+
 def hinge_distances(embeddings, senders, receivers, eps: float = 1e-12):
     """sqrt(||e_s - e_r||^2 + eps) per pair."""
-    d = embeddings[senders] - embeddings[receivers]
-    return torch.sqrt(torch.sum(torch.square(d), -1) + eps)
+    return endpoint_distances(embeddings[senders], embeddings[receivers], eps)
 
 
 def sine_loss_schedule(epoch, schedule_epochs, override=None):

@@ -1,14 +1,16 @@
-"""Training loop of the BC-HGNN-GMM model on one device.
+"""Training loop of the five models on one device.
 
 Counterpart of ``hierarchicalgnn_tpu/train/trainer.py``:
   * deterministic dataset split: seed-42 shuffle, then seed-0 split
-  * a train step: forward in training mode (buffer updates), the matching
-    truth, the loss, backward through the kernels, clip, AdamW(amsgrad)
+  * a train step: forward in training mode (buffer updates), the
+    pipeline's loss (for BC and gMRT with the matching truth), backward
+    through the kernels, clip, AdamW(amsgrad)
   * gradient accumulation (an int, or an ``{epoch: k}`` schedule)
   * per-epoch validation with the tracking metrics
 
-    trainer = Trainer(hparams, model, BipartitePipeline(model, hparams))
-    trainer.init_state(seed=0)                       # device="cuda"
+    hparams, model, pipeline = model_selector("BC-HGNN-GMM")
+    trainer = Trainer(hparams, model, pipeline)      # device="cuda"
+    trainer.init_state(seed=0)
     history = trainer.fit(raw_events, max_epochs=2)
 
 The model holds the parameters and buffers and the optimizer its moments,
@@ -26,9 +28,7 @@ import numpy as np
 import torch
 
 from hierarchicalgnn_torch.data.event import Event, preprocess_event
-from hierarchicalgnn_torch.evaluation.candidates import bipartite_candidates
 from hierarchicalgnn_torch.evaluation.tracking import eval_metrics
-from hierarchicalgnn_torch.ops.graph import Graph
 from hierarchicalgnn_torch.train.optim import make_optimizer
 from hierarchicalgnn_torch.train.pipelines import event_to
 from hierarchicalgnn_torch.utils.device import resolve_device
@@ -49,14 +49,11 @@ def split_dataset(events: Sequence, train_split: Sequence[int],
 
 
 class Trainer:
-    """``hparams``: a loaded config; ``model``: a ``BipartiteClassifierHGNN``;
-    ``pipeline``: its ``BipartitePipeline``.  ``device`` defaults to the card
-    and raises without one."""
+    """``hparams``, ``model``, ``pipeline``: as ``model_selector`` returns
+    them.  ``device`` defaults to the card and raises without one."""
 
     def __init__(self, hparams: dict, model, pipeline,
                  device: str | torch.device = "cuda"):
-        if hparams["model"] != "BC-HGNN-GMM":
-            raise ValueError(f"model {hparams['model']!r} is not ported yet")
         self.hparams = hparams
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -122,9 +119,10 @@ class Trainer:
         return dict(zip(names, vec.tolist()))
 
     def train_step(self, batch: Event, epoch) -> dict:
-        """One optimizer step on one event; returns its metrics
-        (``training_loss``, ``embedding_loss``, ``assignment_loss``,
-        ``score_cut``, ``clusters``, ``grad_norm``)."""
+        """One optimizer step on one event; returns the pipeline's metrics
+        (``training_loss`` and, by model, ``embedding_loss``,
+        ``assignment_loss`` or ``intermediate_loss``, ``score_cut``,
+        ``clusters``) and ``grad_norm``."""
         if self.optimizer is None:
             raise RuntimeError("call init_state() before train_step()")
         grads, metrics = self._forward_backward(batch, epoch)
@@ -140,15 +138,12 @@ class Trainer:
         return self.model(batch.x, batch.graph, batch.node_mask)
 
     def evaluate_event(self, raw: dict, host_batch: Event, batch: Event, out=None):
-        """Tracking metrics against the unmodified raw event."""
+        """Tracking metrics against the unmodified raw event, from the
+        candidates of the model's own kind."""
         hp = self.hparams
         if out is None:
             out = self._val_forward(batch)
-        bgraph, scores = out[0], out[1]
-        host = Graph(bgraph.senders.cpu().numpy().astype(np.int32),
-                     bgraph.receivers.cpu().numpy().astype(np.int32),
-                     bgraph.edge_mask.cpu().numpy())
-        bipartite = bipartite_candidates(host, scores.cpu().numpy(), host_batch, hp)
+        bipartite = self.model.candidates(out, host_batch, hp)
         pid = np.asarray(raw["pid"])
         pt = np.asarray(raw["pt"]).copy()
         pt[pid == 0] = 0.0

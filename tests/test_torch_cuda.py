@@ -17,7 +17,7 @@ and the top-2 are exact.
 import pytest
 import torch
 
-from hierarchicalgnn_torch.ops.kernels import sddmm, top2
+from hierarchicalgnn_torch.ops.kernels import sddmm, segment_gather as sg, top2
 from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
 
 pytestmark = pytest.mark.cuda
@@ -58,6 +58,44 @@ def test_sum_kernels(dev, dtype, e, n, d):
         assert (got[2::5] == 0).all()
     assert sa.LAUNCHES["K1"] == before["K1"] + 1
     assert sa.LAUNCHES["K2"] == before["K2"] + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("e,n,d", [(20000, 3000, 256), (5000, 700, 8), (5000, 700, 3),
+                                   (5000, 700, 100)])
+def test_gather_sum_kernel(dev, dtype, e, n, d):
+    """K7 on unsorted edge rows, hot row 0 and empty rows included; bf16
+    rows of 8 values are one 16-byte vector, f32 rows two; rows of 3 and
+    (in bf16) of 100 values are no whole vectors and go element by element,
+    as does a view whose base is off a 16-byte boundary."""
+    g = torch.Generator().manual_seed(11)
+    r = torch.randint(0, n, (e,), generator=g)
+    r = torch.where(r % 5 == 2, 0, r).to(dev)
+    m = (torch.rand(e, generator=g) < 0.95).to(dev)
+    data = torch.randn(e, d, generator=g).to(dev, dtype)
+    layout = sg.make_csr_layout(r, m, n)
+    before = sa.LAUNCHES["K7"]
+    got, want = sg.csr_segment_sum(data, layout), sg.csr_segment_sum_plain(data, layout)
+    torch.cuda.synchronize()
+    bound = sg.csr_segment_sum_plain(data.abs(), layout)
+    assert got.dtype == torch.float32 and got.shape == (n, d)
+    assert ((got - want).abs() <= 1e-4 * bound + 1e-6).all()
+    assert (got[2::5] == 0).all() and got[0].abs().sum() > 0
+    assert sa.LAUNCHES["K7"] == before + 1
+    x = data.clone().requires_grad_()
+    cot = torch.randn(n, d, generator=g).to(dev)
+    (grad,) = torch.autograd.grad((sg.csr_segment_sum(x, layout) * cot).sum(), x)
+    assert grad.dtype == dtype
+    assert torch.equal(grad, torch.where(m[:, None], cot[r], 0.0).to(dtype))
+    shifted = torch.cat([data.new_zeros(1), data.reshape(-1)])[1:].reshape(e, d)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    assert torch.equal(sg.csr_segment_sum(shifted, layout), got)
+    with pytest.raises(ValueError, match="rows"):
+        sg.csr_segment_sum(data[:-1], layout)
+    with pytest.raises(ValueError, match="contiguous"):
+        sg.csr_segment_sum(data.t().contiguous().t(), layout)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        sg.csr_segment_sum(data.double(), layout)
 
 
 def test_min_kernel(dev):

@@ -1,5 +1,6 @@
 """Structure of the port: import purity, device policy, kernel dispatch."""
 
+import dataclasses
 import inspect
 import os
 import re
@@ -12,7 +13,8 @@ import torch
 
 from hierarchicalgnn_torch.inference import InferenceEngine
 from hierarchicalgnn_torch.models.models import build_model
-from hierarchicalgnn_torch.ops.kernels import build, sddmm, sorted_agg, top2
+from hierarchicalgnn_torch.ops.kernels import (
+    build, sddmm, segment_gather, sorted_agg, top2)
 from hierarchicalgnn_torch.utils.config import load_config
 
 from _torch_parity import SMALL
@@ -39,16 +41,18 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _PURITY], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 28  # the training modules among them
+    # the training modules, the registry, the gather kernel's among them
+    assert int(out.stdout.split()[-1]) >= 32
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert inspect.signature(InferenceEngine).parameters["device"].default == "cuda"
-    hp = load_config("bc_hgnn_gmm", SMALL)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        InferenceEngine(hp, build_model(hp))
-    InferenceEngine(hp, build_model(hp), device="cpu")
+    for name in ("bc_hgnn_gmm", "ec_in", "embedding_in", "embedding_hgnn_gmm", "gmrt"):
+        hp = load_config(name, SMALL)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            InferenceEngine(hp, build_model(hp))
+        InferenceEngine(hp, build_model(hp), device="cpu")
 
 
 def test_wrappers_never_fall_back_off_the_cpu():
@@ -72,6 +76,15 @@ def test_wrappers_never_fall_back_off_the_cpu():
         sddmm.scaled_gather(meta[:, 0], rows, plan)
     with pytest.raises(ValueError, match="unsupported or mixed"):
         top2.row_top2(meta, torch.ones(8))
+    layout = segment_gather.make_csr_layout(s, torch.ones(3, dtype=torch.bool), 2)
+    with pytest.raises(ValueError, match="unsupported or mixed"):
+        segment_gather.csr_segment_sum(meta, layout)
+    with pytest.raises(ValueError, match="unsupported or mixed"):
+        segment_gather.csr_segment_sum(torch.ones(3, 8), dataclasses.replace(
+            layout, perm=layout.perm.to("meta")))
+    from hierarchicalgnn_torch.ops.segment import make_aggregator
+    with pytest.raises(ValueError, match="unsupported or mixed"):
+        make_aggregator(s, torch.ones(3, dtype=torch.bool), 2, use_pallas=True)(meta)
 
 
 def test_plan_csr_rows():
@@ -97,7 +110,7 @@ def test_kernel_sources_and_build_flags():
     the build targets sm_90a."""
     sources = sorted(path.name for path in build.CSRC_DIR.glob("*.cu"))
     assert sources == sorted(build.SIGNATURES) == [
-        "sddmm_csr.cu", "segment_csr.cu", "top2.cu"]
+        "sddmm_csr.cu", "segment_csr.cu", "segment_gather.cu", "top2.cu"]
     for source, entries in build.SIGNATURES.items():
         src = (build.CSRC_DIR / source).read_text()
         assert "__global__" in src and 'extern "C"' in src
@@ -107,19 +120,20 @@ def test_kernel_sources_and_build_flags():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     # the wrappers name entry points that exist
     for module, source in ((sorted_agg, "segment_csr.cu"), (sddmm, "sddmm_csr.cu"),
-                           (top2, "top2.cu")):
+                           (top2, "top2.cu"), (segment_gather, "segment_gather.cu")):
         text = inspect.getsource(module)
         assert all(name in text for name in build.SIGNATURES[source]), source
 
 
 def test_every_kernel_wrapper_has_a_plain_sibling_and_a_counter():
-    """K1-K6: wrapper, plain version in the same module, launch counter; and
+    """K1-K7: wrapper, plain version in the same module, launch counter; and
     no ``try`` around a build or a launch."""
     wrappers = {"K1": (sorted_agg, "sorted_aggregate"),
                 "K2": (sorted_agg, "sorted_aggregate_weighted"),
                 "K5": (sorted_agg, "sorted_segment_min_i32"),
                 "K3": (sddmm, "sorted_sddmm"), "K4": (sddmm, "scaled_gather"),
-                "K6": (top2, "row_top2")}
+                "K6": (top2, "row_top2"),
+                "K7": (segment_gather, "csr_segment_sum")}
     assert set(sorted_agg.LAUNCHES) == set(wrappers)
     for kernel, (module, name) in wrappers.items():
         assert callable(getattr(module, name)) and callable(getattr(module, name + "_plain"))

@@ -26,13 +26,14 @@ from hierarchicalgnn_tpu.train.trainer import Trainer as JTrainer
 from hierarchicalgnn_torch import convert
 from hierarchicalgnn_torch.data.synthetic import generate_dataset
 from hierarchicalgnn_torch.models.models import BipartiteClassifierHGNN, build_model
+from hierarchicalgnn_torch.models.registry import available_models, model_selector as t_selector
 from hierarchicalgnn_torch.ops.kernels.sorted_agg import LAUNCHES
 from hierarchicalgnn_torch.train import auction, matching
 from hierarchicalgnn_torch.train.pipelines import BipartitePipeline
 from hierarchicalgnn_torch.train.trainer import Trainer, split_dataset
 from hierarchicalgnn_torch.utils.config import ArchConfig, load_config
 
-from _torch_parity import N, SMALL, T, seeded_variables, to_dict
+from _torch_parity import N, SMALL, T, flax_leaves, seeded_variables, to_dict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN = {**SMALL, "train_split": [4, 2, 2], "warmup": 2, "loss_schedule": 0.5}
@@ -201,15 +202,6 @@ def pair(tmp_path_factory):
     return j_trainer, state, j_batch, trainer, trainset[0][2]
 
 
-def _flax_leaves(tree, prefix=""):
-    for key, value in tree.items():
-        path = f"{prefix}/{key}" if prefix else key
-        if hasattr(value, "items"):
-            yield from _flax_leaves(value, path)
-        else:
-            yield path, np.asarray(value)
-
-
 def test_train_step_f32_matches_jax(pair):
     """One step: the loss and every metric within 1e-4 relative (f32
     matmuls and sums in another order through 2 + 2 iterations, forward and
@@ -237,7 +229,7 @@ def test_train_step_f32_matches_jax(pair):
     assert trainer.last_stats["auction_rounds_launched"] >= 1
 
     by_param = {id(p): g for p, g in zip(trainer.model.parameters(), grads)}
-    flax_grads = dict(_flax_leaves(to_dict(grads_j), "params"))
+    flax_grads = dict(flax_leaves(to_dict(grads_j), "params"))
     n_zero = 0
     for path, tensor, transpose in convert._targets(trainer.model):
         if not path.startswith("params/"):
@@ -289,9 +281,9 @@ def test_three_steps_f32_match_jax(pair):
 
     got_vars = convert.to_jax_variables(trainer.model)
     want_vars = {"params": to_dict(state.params), **to_dict(state.buffers)}
-    got_leaves = dict(_flax_leaves(got_vars))
-    start_leaves = dict(_flax_leaves(start))
-    want_leaves = dict(_flax_leaves(want_vars))
+    got_leaves = dict(flax_leaves(got_vars))
+    start_leaves = dict(flax_leaves(start))
+    want_leaves = dict(flax_leaves(want_vars))
     assert got_leaves.keys() == want_leaves.keys()
     moved = 0
     for path, want in want_leaves.items():
@@ -333,8 +325,11 @@ def test_trainer_defaults_to_cuda_and_raises_without_it(monkeypatch):
     trainer = Trainer(hp, model, BipartitePipeline(model, hp), device="cpu")
     with pytest.raises(RuntimeError, match="init_state"):
         trainer.train_step(None, 0)
-    with pytest.raises(ValueError, match="not ported"):
-        Trainer({**hp, "model": "EC-IN"}, model, None, device="cpu")
+    # every model of the registry is accepted, and defaults to the card too
+    for name in available_models():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Trainer(*t_selector(name, TRAIN))
+        Trainer(*t_selector(name, TRAIN), device="cpu")
 
 
 def test_split_dataset_matches_jax():
