@@ -8,14 +8,24 @@ these phases and fails if any of them fails:
 
   1. device   the card's name and power limit (nvidia-smi);
   2. build    nvcc builds every CUDA source of the port for sm_90a;
-  3. kernels  each kernel (K1-K7) against its plain PyTorch version at the
+  3. kernels  each kernel (K1-K8) against its plain PyTorch version at the
               shapes the models give it (the flagship's at latent 256, the
               other models' at latent 128 and bipartite k 8, the mined-pair
               hinge's at width 8; ragged rows, empty rows, a row of degree
               > 4096), in bf16 and f32, with times beside the bytes bound
-              and one PyTorch library call; K7 also at widths that are no
+              and one PyTorch library call; K1, K2 and K5 also at the shapes
+              one rank of the sharded forwards gives them (receiver-partitioned
+              buffers of 36864 flat edges into 6144 nodes and 23552 superedges
+              into 768 supernodes, with the slack's padding at the tail; the
+              rank's block of the bipartite graph into 3072 and 6144 rows); K7 also at widths that are no
               whole 16-byte vectors; ``make_aggregator`` six times over one
-              gather layout (K7's entry point);
+              gather layout (K7's entry point); K8, the all-gather between
+              the ranks of a shard group, exactly, at P 1, 2, 3, 4 and 8, in
+              f32, bf16, int32 and bool, 2-D and 1-D, at block sizes and bases
+              that are no multiple of 16 bytes, at every block shape the
+              sharded forwards hand it (phases 12-15 record those and fail on
+              one that was not checked here), 50 calls back to back on one
+              set of buffers, and two groups on two streams;
   4. serving  the BC-HGNN-GMM flagship (latent 256, hidden 512, 6 + 6
               iterations, bf16, capacities 24576/49152/3072/4096, seeded
               weights) reconstructs 2 synthetic events of 3000 particles
@@ -42,7 +52,18 @@ these phases and fails if any of them fails:
               through the sorted plan beside autograd's index backward;
  11. models parity  the f32 forward of Embedding-HGNN-GMM at depth 2 + 2
               through the kernels and through the plain versions, on one
-              super and bipartite graph.
+              super and bipartite graph;
+ 12. halo     the flat-IN halo demonstration (``parallel/halo.py``) over 4
+              ranks with K8 as the halo, against the unsharded step;
+ 13. sharded serving  the flagship's graph-partitioned forward
+              (``parallel.graph_shard.make_sharded_forward``: 4 ranks that
+              share the card, pooled space partitioned, ``halo_backend: rdma``)
+              on 2 events, with the launch counts of K1, K2, K5 and K8 asserted;
+ 14. sharded parity  f32 at depth 2 + 2 over 4 ranks against the unsharded
+              forward of the same weights, for both ``shard_pooled`` values,
+              and ``rdma`` against ``xla`` halo bit for bit;
+ 15. sharded models  one sharded event for each of the other four models at
+              its shipped widths, K8 counts asserted.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -51,9 +72,11 @@ package beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -67,7 +90,7 @@ F32_OPS_PER_S = 67e12       # H100 SXM non-tensor f32
 CSRC = "hierarchicalgnn_torch/csrc/"
 SOURCES = {"K1": "segment_csr.cu", "K2": "segment_csr.cu", "K5": "segment_csr.cu",
            "K3": "sddmm_csr.cu", "K4": "sddmm_csr.cu", "K6": "top2.cu",
-           "K7": "segment_gather.cu"}
+           "K7": "segment_gather.cu", "K8": "ring_gather.cu"}
 REPLACES = {
     "K1": "hierarchicalgnn_tpu/ops/pallas/sorted_agg.py:148",
     "K2": "hierarchicalgnn_tpu/ops/pallas/sorted_agg.py:252",
@@ -76,21 +99,34 @@ REPLACES = {
     "K4": "hierarchicalgnn_tpu/ops/pallas/sddmm_kernel.py:133",
     "K6": "hierarchicalgnn_tpu/ops/pallas/top2.py:31",
     "K7": "hierarchicalgnn_tpu/ops/pallas/segment_kernel.py:114",
+    "K8": "hierarchicalgnn_tpu/ops/pallas/ring_gather.py:32",
 }
 NAMES = {"K1": "K1 sorted_aggregate", "K2": "K2 sorted_aggregate_weighted",
          "K5": "K5 sorted_segment_min_i32", "K3": "K3 sorted_sddmm",
-         "K4": "K4 scaled_gather", "K6": "K6 row_top2", "K7": "K7 csr_segment_sum"}
+         "K4": "K4 scaled_gather", "K6": "K6 row_top2", "K7": "K7 csr_segment_sum",
+         "K8": "K8 ring_all_gather"}
 # the kernels' names in a profiler trace
 PROFILE_TAGS = {"K1": "csr_sum_kernel<__nv_bfloat16, false>",
                 "K2": "csr_sum_kernel<__nv_bfloat16, true>",
                 "K5": "csr_min_i32_kernel", "K3": "sddmm_kernel<",
                 "K4": "scaled_gather_kernel<", "K6": "row_top2_kernel",
-                "K7": "csr_gather_sum_kernel<"}
+                "K7": "csr_gather_sum_kernel<", "K8": "all_gather_kernel<"}
 SUM_TOL = 1e-4  # f32 accumulation in another order: 1e-4 of the row's sum of |terms|
 DOT_TOL = 1e-5  # K3's f32 dot of up to 256 terms, K4's single product: 1e-5 of the sum of |terms|
 TRAIN_EPOCH = 50  # of emb_epoch 100: both losses carry weight on the sine schedule
 MODELS_EPOCH = 15  # of intermediate_epoch 30: the same for the hierarchical embedding loss
 SCORE_CUT_CLAMP = 8.38  # atanh(1 - 1e-7): a score_cut there means collapsed clustering
+N_PARTS = 4  # ranks of the sharded phases; they share the one card
+# Per-rank blocks that the sharded forwards of the five models hand K8 at
+# N_PARTS ranks and the flagship capacities (n_local 6144, e_cap 36864, c_local
+# 768): hit features, embeddings, node rows at latent 128 and 256, supernode
+# rows, EC-IN's edge rows, and the 1-D masks, labels and likelihood.  Each is
+# held against torch.cat in all four dtypes; the sharded phases record what
+# they really hand K8 and fail on a (shape, dtype) that was not.
+K8_PATH_SHAPES = ((6144, 3), (6144, 8), (6144, 128), (6144, 256), (768, 128), (768, 256),
+                  (36864, 128), (6144,), (36864,))
+K8_CHECKED = set()  # (shape, dtype) held against torch.cat at N_PARTS ranks
+WATCHDOG_S = 300  # a phase that waits on K8's flags longer than this ends the run
 
 
 def log(msg):
@@ -120,6 +156,18 @@ def ragged_receivers(torch, e, n, gen):
     s = torch.randint(0, n, (e,), generator=gen)
     m = torch.rand(e, generator=gen) >= 0.02
     return s, r, m
+
+
+def partitioned_receivers(torch, e, n, gen, fill=2 / 3):
+    """One rank's buffer as ``parallel.graph_shard.partition_edges`` fills it:
+    about ``fill`` of the ``e`` slots valid (capacity is the slack's 1.5 times
+    the mean share), the valid edges first and receiver-sorted, so that a
+    sorted plan over them is the identity, the padding at the tail; rows as
+    ragged as :func:`ragged_receivers` makes them."""
+    s, r, m = ragged_receivers(torch, e, n, gen)
+    m &= torch.rand(e, generator=gen) < fill
+    order = torch.argsort(torch.where(m, r, n), stable=True)
+    return s[order], r[order], m[order]
 
 
 def phase_device(torch):
@@ -172,14 +220,36 @@ def phase_kernels(torch):
                  ("K2", "bipartite k 8 nodes->clusters, latent 128", 196608, 3072, 128, both),
                  ("K2", "bipartite k 8 clusters->nodes, latent 128", 196608, 24576, 128, both),
                  ("K2", "super graph, latent 128", 61440, 3072, 128, both)]
+    # what one rank of the sharded forwards (4 ranks, the same capacities) gives
+    # the same kernels.  Its flat edges and, with the pooled space partitioned,
+    # its superedges come receiver-partitioned (identity plans, padding at the
+    # tail): e_cap 36864 -> n_local 6144 and 23552 -> c_local 768.  Its block of
+    # the bipartite graph (n_local * k edges in the kNN's order) goes into all
+    # 3072 supernode rows and into its own 6144 node rows.  With the pooled
+    # space replicated the super graph is the unsharded one above.
+    rank_identity = [("K1", "per-rank flat edges->nodes", 36864, 6144, 256, both),
+                     ("K2", "per-rank superedges", 23552, 768, 256, both),
+                     ("K1", "per-rank flat edges->nodes, latent 128", 36864, 6144, 128, both),
+                     ("K2", "per-rank superedges, latent 128", 23552, 768, 128, both)]
+    rank_bipartite = [
+        ("K2", "per-rank bipartite nodes->clusters", 6144 * 5, 3072, 256, both),
+        ("K2", "per-rank bipartite clusters->nodes", 6144 * 5, 6144, 256, both),
+        ("K2", "per-rank bipartite k 8 nodes->clusters, latent 128", 6144 * 8, 3072, 128, both),
+        ("K2", "per-rank bipartite k 8 clusters->nodes, latent 128", 6144 * 8, 6144, 128, both)]
     # the embedding pipeline's mined pairs (k 100 per hit and the doubled
     # truth edges) over the f32 embeddings of width 8: K1 is their gathers' backward
     hinge_case = ("K1", "mined-pair hinge plan, emb 8", 24576 * 100 + 2 * 49152, 24576, 8,
                   (torch.float32,))
-    for kernel, label, e, n, d, dtypes in sum_cases + [hinge_case]:
-        s, r, m = ragged_receivers(torch, e, n, gen)
+    for case in sum_cases + rank_identity + rank_bipartite + [hinge_case]:
+        kernel, label, e, n, d, dtypes = case
+        if case in rank_identity:
+            s, r, m = partitioned_receivers(torch, e, n, gen)
+        else:
+            s, r, m = ragged_receivers(torch, e, n, gen)
         plan = sa.build_sorted_plan(s.to(dev), r.to(dev), m.to(dev), n)
         n_valid = int(plan.row_ptr[-1])
+        if case in rank_identity:
+            assert torch.equal(plan.perm, torch.arange(e, device=dev)) and n_valid < 0.7 * e
         w = plan.sort(torch.rand(e, generator=gen).to(dev) * 2.9 + 0.1)
         for dtype in dtypes:
             data = plan.sort(torch.randn(e, d, generator=gen).to(dev, dtype))
@@ -227,33 +297,39 @@ def phase_kernels(torch):
                                 "bound_by": b_by, "library_ms": lib_ms,
                                 "shape": f"{label} bf16 E={e} N={n} D={d}"}
 
-    e, n = 98304, 24576
-    s, r, m = ragged_receivers(torch, e, n, gen)
-    plan = sa.build_sorted_plan(s.to(dev), r.to(dev), m.to(dev), n)
-    n_valid = int(plan.row_ptr[-1])
-    vals = plan.sort(torch.randint(0, n, (e,), generator=gen, dtype=torch.int32).to(dev))
-    vals = torch.where(plan.edge_mask_sorted, vals, sa.INT32_MAX)
-    fn = lambda: sa.sorted_segment_min_i32(vals, plan)
-    plain = lambda: sa.sorted_segment_min_i32_plain(vals, plan)
-    recv = plan.receivers_sorted[:n_valid]
-    vv = vals[:n_valid].contiguous()
-    library = lambda: torch.full((n,), sa.INT32_MAX, dtype=torch.int32,
-                                 device=dev).scatter_reduce_(0, recv, vv, "amin")
-    out, ref = fn(), plain()
-    torch.cuda.synchronize()
-    if not torch.equal(out, ref):
-        raise AssertionError("K5 disagrees with its plain version")
-    assert (out[3::7] == sa.INT32_MAX).all(), "K5 wrote to an empty row"
-    ms, plain_ms, lib_ms = time_ms(torch, fn), time_ms(torch, plain), time_ms(torch, library)
-    b_ms, b_by = bound_ms(4 * n_valid + 4 * (n + 1) + 4 * n, n_valid)
-    log(f"K5 CC hop int32 E={e} N={n}: exact, ms {ms:.4f} plain_ms {plain_ms:.4f} "
-        f"library_ms {lib_ms:.4f} [scatter_reduce_ amin] bound_ms {b_ms:.4f} ({b_by})")
-    rows["K5"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                  "bound_by": b_by, "library_ms": lib_ms,
-                  "shape": f"CC hop int32 E={e} N={n}"}
+    # the unsharded hop over the whole flat graph, then one rank's hop of the
+    # sharded forward over its receiver-partitioned edges
+    for label, e, n, make in (("CC hop", 98304, 24576, ragged_receivers),
+                              ("per-rank CC hop", 36864, 6144, partitioned_receivers)):
+        s, r, m = make(torch, e, n, gen)
+        plan = sa.build_sorted_plan(s.to(dev), r.to(dev), m.to(dev), n)
+        n_valid = int(plan.row_ptr[-1])
+        vals = plan.sort(torch.randint(0, n, (e,), generator=gen, dtype=torch.int32).to(dev))
+        vals = torch.where(plan.edge_mask_sorted, vals, sa.INT32_MAX)
+        fn = lambda: sa.sorted_segment_min_i32(vals, plan)
+        plain = lambda: sa.sorted_segment_min_i32_plain(vals, plan)
+        recv = plan.receivers_sorted[:n_valid]
+        vv = vals[:n_valid].contiguous()
+        library = lambda: torch.full((n,), sa.INT32_MAX, dtype=torch.int32,
+                                     device=dev).scatter_reduce_(0, recv, vv, "amin")
+        out, ref = fn(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"K5 {label} disagrees with its plain version")
+        assert (out[3::7] == sa.INT32_MAX).all(), "K5 wrote to an empty row"
+        ms, plain_ms, lib_ms = (time_ms(torch, fn), time_ms(torch, plain),
+                                time_ms(torch, library))
+        b_ms, b_by = bound_ms(4 * n_valid + 4 * (n + 1) + 4 * n, n_valid)
+        log(f"K5 {label} int32 E={e} N={n}: exact, ms {ms:.4f} plain_ms {plain_ms:.4f} "
+            f"library_ms {lib_ms:.4f} [scatter_reduce_ amin] bound_ms {b_ms:.4f} ({b_by})")
+        if "K5" not in rows:
+            rows["K5"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                          "shape": f"{label} int32 E={e} N={n}"}
     kernels_backward(torch, gen, sum_cases, bound_ms, rows)
     kernel_top2(torch, gen, bound_ms, rows)
     kernel_gather_sum(torch, gen, bound_ms, rows)
+    phase_ring_gather(torch, rows)
     return rows
 
 
@@ -1144,6 +1220,480 @@ def phase_models_parity(torch):
         raise AssertionError(f"final embeddings differ by {emb_err}")
 
 
+class watchdog:
+    """Ends the process (traceback of every thread, exit code 1) if the body
+    takes longer than ``WATCHDOG_S``: K8's ranks wait on each other's flags,
+    and a wait that never ends must fail the run, not hold the card."""
+
+    def __enter__(self):
+        faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+
+    def __exit__(self, *exc):
+        faulthandler.cancel_dump_traceback_later()
+
+
+def phase_ring_gather(torch, rows):
+    """K8 against its plain version (``torch.cat``), exactly: P 1, 2, 3, 4, 8;
+    f32, bf16, int32, bool; 2-D and 1-D; block sizes and bases that are no
+    multiple of 16 bytes (narrower loads); 50 calls back to back on one set
+    of input buffers with changing data and no host wait between them (the
+    flags' generation counter).  Timed at the flagship halo (P 4, [6144, 256]
+    bf16) and at P 2 and 8 with the same total rows.  Ranks share the one
+    card: the copies ride its HBM, not NVLink."""
+    from hierarchicalgnn_torch.ops.kernels import ring_gather as rg, sorted_agg as sa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(88)
+
+    def make(shape, dtype):
+        if dtype == torch.bool:
+            return torch.rand(shape, generator=gen) < 0.5
+        if dtype == torch.int32:
+            return torch.randint(-2**31, 2**31 - 1, shape, generator=gen, dtype=torch.int64
+                                 ).to(torch.int32)
+        return torch.randn(shape, generator=gen).to(dtype)
+
+    def check(blocks, what):
+        before = sa.LAUNCHES["K8"]
+        outs = rg.ring_all_gather(blocks)
+        ref = rg.ring_all_gather_plain(blocks)
+        torch.cuda.synchronize()
+        assert sa.LAUNCHES["K8"] == before + 1, "one launch serves all ranks"
+        assert len(outs) == len(blocks)
+        if outs[0].numel():  # every rank has an output of its own
+            assert len({o.data_ptr() for o in outs}) == len(outs)
+        for q, (out, want) in enumerate(zip(outs, ref)):
+            if out.dtype != want.dtype or not torch.equal(out, want):
+                raise AssertionError(f"K8 {what}: rank {q}'s output differs from torch.cat")
+
+    n_cases = 0
+    with watchdog():
+        for p in (1, 2, 3, 4, 8):
+            for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.bool):
+                for shape in ((768, 256), (6144,), (1001, 3), (1001,), (0, 8)):
+                    blocks = [make(shape, dtype).to(dev) for _ in range(p)]
+                    check(blocks, f"P={p} {dtype} {shape}")
+                    n_cases += 1
+                # a sliced base: rows 1.. of a [B + 1, 3] array start 3 elements in
+                blocks = [make((1002, 3), dtype).to(dev)[1:] for _ in range(p)]
+                assert dtype != torch.float32 or blocks[0].data_ptr() % 16 == 12
+                check(blocks, f"P={p} {dtype} sliced base")
+                n_cases += 1
+        for shape in K8_PATH_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.bool):
+                check([make(shape, dtype).to(dev) for _ in range(N_PARTS)],
+                      f"P={N_PARTS} {dtype} {shape}")
+                K8_CHECKED.add((shape, dtype))
+                n_cases += 1
+        log(f"K8 exact against torch.cat in {n_cases} cases: P 1/2/3/4/8 x f32/bf16/"
+            f"int32/bool x [768,256], [6144], [1001,3], [1001], [0,8] and a sliced base; "
+            f"P {N_PARTS} x the same types x the sharded forwards' blocks "
+            f"{[list(shape) for shape in K8_PATH_SHAPES]}")
+
+        # 50 calls back to back, the inputs rewritten in place between them,
+        # checked on the device with no host wait in the loop
+        blocks = [make((6144, 256), torch.bfloat16).to(dev) for _ in range(N_PARTS)]
+        bad = torch.zeros((), dtype=torch.int64, device=dev)
+        for call in range(50):
+            for r, b in enumerate(blocks):
+                b.mul_(-1).add_(float(call % 7 + r))
+            outs = rg.ring_all_gather(blocks)
+            want = torch.cat(blocks, 0)
+            for out in outs:
+                bad += (out != want).sum()
+        torch.cuda.synchronize()
+        assert int(bad) == 0, f"K8 reuse: {int(bad)} wrong elements over 50 calls"
+        log("K8 50 calls back to back on one set of input buffers (data rewritten in "
+            "place, no host wait between calls): exact")
+
+        # two groups, each on a stream of its own with flag words of its own,
+        # 30 calls each and nothing ordering one stream against the other
+        streams = [torch.cuda.Stream(dev) for _ in range(2)]
+        groups = [[make((6144, 256), torch.bfloat16).to(dev) for _ in range(N_PARTS)]
+                  for _ in streams]
+        bads = [torch.zeros((), dtype=torch.int64, device=dev) for _ in streams]
+        torch.cuda.synchronize()
+        for call in range(30):
+            for i, (stream, group) in enumerate(zip(streams, groups)):
+                with torch.cuda.stream(stream):
+                    for r, b in enumerate(group):
+                        b.mul_(-1).add_(float(call % 5 + r + i))
+                    want = torch.cat(group, 0)
+                    for out in rg.ring_all_gather(group):
+                        bads[i] += (out != want).sum()
+        torch.cuda.synchronize()
+        assert [int(b) for b in bads] == [0, 0], f"K8 on two streams: {bads}"
+        log("K8 two groups on two streams, 30 calls each, unordered against each other: "
+            "exact")
+
+        # a block that needs a gradient has no kernel yet
+        try:
+            rg.ring_all_gather([b.float().requires_grad_() for b in blocks])
+        except NotImplementedError:
+            pass
+        else:
+            raise AssertionError("K8 took a block that requires grad")
+
+        for p, b in ((4, 6144), (2, 12288), (8, 3072)):
+            blocks = [make((b, 256), torch.bfloat16).to(dev) for _ in range(p)]
+            fn = lambda: rg.ring_all_gather(blocks)
+            plain = lambda: rg.ring_all_gather_plain(blocks)
+            library = lambda: [torch.cat(blocks, 0) for _ in range(p)]
+            ms, plain_ms, lib_ms = (time_ms(torch, fn), time_ms(torch, plain),
+                                    time_ms(torch, library))
+            block_bytes = b * 256 * 2
+            n_bytes = p * block_bytes + p * p * block_bytes  # every input once, every output once
+            b_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+            nvlink_ms = 1e3 * (p - 1) * block_bytes / 450e9
+            log(f"K8 halo bf16 P={p} block [{b}, 256] (ranks on one card, HBM): exact, "
+                f"ms {ms:.4f} plain_ms {plain_ms:.4f} [one torch.cat shared by all ranks] "
+                f"library_ms {lib_ms:.4f} [torch.cat of the P blocks into each of P "
+                f"outputs] bound_ms {b_ms:.4f} (bytes: {n_bytes} over HBM); over NVLink "
+                f"not measured (its bound: {nvlink_ms:.4f} ms to receive "
+                f"{(p - 1) * block_bytes} bytes per rank at 450 GB/s)")
+            if p == N_PARTS:
+                rows["K8"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": b_ms, "bound_by": "bytes", "library_ms": lib_ms,
+                              "shape": f"halo bf16 P={p} block [{b}, 256], ranks on one card"}
+
+
+class recording_k8:
+    """While the body runs, ``seen`` collects the (shape, dtype) of every
+    block that a shard group's all-gather hands K8; on a clean exit every one
+    of them must have been held against ``torch.cat`` by phase 3."""
+
+    def __init__(self, what):
+        self.what, self.seen = what, set()
+
+    def __enter__(self):
+        from unittest import mock
+
+        from hierarchicalgnn_torch.parallel import comm
+
+        launch = comm.ring_all_gather
+
+        def recording(blocks):
+            self.seen.add((tuple(blocks[0].shape), blocks[0].dtype))
+            return launch(blocks)
+
+        self.patch = mock.patch.object(comm, "ring_all_gather", recording)
+        self.patch.start()
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        self.patch.stop()
+        if exc_type is None:
+            unchecked = sorted(str(key) for key in self.seen - K8_CHECKED)
+            log(f"{self.what}: K8 was handed {len(self.seen)} kinds of block, "
+                f"{'all' if not unchecked else 'NOT all'} held against torch.cat before")
+            assert not unchecked, f"{self.what}: K8 blocks never checked: {unchecked}"
+
+
+def phase_halo(torch):
+    """The flat-IN halo demonstration over 4 ranks with K8 as the halo
+    (``rdma_gather``), f32, against the unsharded step: within 1e-4 (the
+    receiver-partitioned segment sums add in another order)."""
+    import numpy as np
+
+    from hierarchicalgnn_torch.models.mlp import MLP
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+    from hierarchicalgnn_torch.parallel import halo
+
+    dev = torch.device("cuda")
+    n, e, latent, hidden, iterations = 24576, 98304, 128, 256, 3
+    rng = np.random.default_rng(5)
+    gen = torch.Generator().manual_seed(5)
+    sizes = (3, 6, 2 * latent, 3 * latent)
+    mlps = [MLP(size, hidden, latent, 2, layer_norm=True,
+                output_activation="Tanh" if i == 3 else "GELU") for i, size in enumerate(sizes)]
+    for mlp in mlps:
+        mlp.reset_parameters(gen)
+        mlp.to(dev)
+    x = rng.normal(size=(n, 3)).astype(np.float32)
+    senders, receivers = rng.integers(0, n, e), rng.integers(0, n, e)
+    mask = rng.random(e) < 0.95
+    parts = [torch.from_numpy(a).to(dev) for a in halo.partition_edges_by_receiver(
+        senders, receivers, mask, n, N_PARTS)]
+    forward = halo.make_halo_flat_forward(halo.make_halo_flat_in(mlps, iterations),
+                                          N_PARTS, rdma_gather=True)
+    xd = torch.from_numpy(x).to(dev)
+    with torch.no_grad(), watchdog(), recording_k8("halo flat-IN"):
+        before = sa.LAUNCHES["K8"]
+        got = forward(xd, *parts)
+        assert sa.LAUNCHES["K8"] - before == 1 + iterations == forward.collectives[
+            "all_gather"], (sa.LAUNCHES, forward.collectives)
+        want = halo.flat_in_reference_step(
+            mlps, xd, torch.from_numpy(senders).to(dev), torch.from_numpy(receivers).to(dev),
+            torch.from_numpy(mask).to(dev), n, iterations)
+        torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    log(f"halo flat-IN P={N_PARTS} N={n} E={e} latent {latent}, {iterations} iterations, "
+        f"K8 as the halo ({1 + iterations} launches): max_abs_err {err:.3e} against the "
+        f"unsharded step")
+    assert got.shape == (n, latent) and err <= 1e-4, err
+
+
+def sharded_expect(hp, counts_k5):
+    """Launches of one sharded eval forward over ``N_PARTS`` ranks, from the
+    code.  K1 and K2: every rank launches what the unsharded forward
+    launches.  K8, one launch per all-gather whatever P: the edge encoder's
+    halo and one per IN cell; for a hierarchical model the embeddings and the
+    node mask, the unit embeddings' halo of the clustering, the likelihood
+    and its mask for the GMM fit (``score_cut`` still inf), one per
+    connected-components hop (each rank's K5 launches), the supernode rows at
+    the init, two per hierarchical cell (supernode rows, node halo) and, for
+    a bipartite scorer, the supernode rows for the score head; EC-IN gathers
+    its edge rows for the paired head."""
+    name = hp["model"]
+    n_in = hp["n_interaction_graph_iters"] if name != "gMRT" else 0
+    n_hier = hp.get("n_hierarchical_graph_iters", 0) if "GMM" in name or name == "gMRT" else 0
+    k1 = n_in + n_hier
+    k2 = (1 + 3 * n_hier) if n_hier else 0
+    k8 = 1 + n_in
+    if name == "EC-IN":
+        k8 += 1
+    if n_hier:
+        assert counts_k5 % N_PARTS == 0, counts_k5
+        k8 += 2 + 1 + 2 + counts_k5 // N_PARTS + 1 + 2 * n_hier
+        k8 += 1 if name in ("BC-HGNN-GMM", "gMRT") else 0
+    return {"K1": N_PARTS * k1, "K2": N_PARTS * k2, "K8": k8}
+
+
+def phase_sharded_serving(torch, events):
+    """The flagship's graph-partitioned forward at full width and depth,
+    bf16, over 4 ranks that share the card, pooled space partitioned, every
+    all-gather through K8: 2 events after a warm-up.  Returns the launch
+    counts of the 2 events and the kernels' mean device ms per launch."""
+    from hierarchicalgnn_torch.data.event import preprocess_event
+    from hierarchicalgnn_torch.models.registry import model_selector
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+    from hierarchicalgnn_torch.parallel.graph_shard import make_sharded_forward
+
+    hp, _, pipeline = model_selector("BC-HGNN-GMM", {**FLAGSHIP, "halo_backend": "rdma"})
+    assert (hp["latent"], hp["hidden"], hp["n_interaction_graph_iters"],
+            hp["n_hierarchical_graph_iters"], hp["compute_dtype"], hp["shard_pooled"]) == (
+        256, 512, 6, 6, "bfloat16", True), hp
+    forward = make_sharded_forward(pipeline, N_PARTS, hp)
+    batches = [preprocess_event(raw, hp, stage="test") for raw in events]
+    with watchdog(), recording_k8("sharded flagship serving"):
+        forward(batches[2])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sa.reset_launches()
+        event_ms = []
+        for seed, batch in enumerate(batches[:2]):
+            before = dict(sa.LAUNCHES)
+            t0 = time.perf_counter()
+            bgraph, scores, emb, aux = forward(batch)
+            torch.cuda.synchronize()
+            event_ms.append(1e3 * (time.perf_counter() - t0))
+            counts = {k: sa.LAUNCHES[k] - before[k] for k in sa.LAUNCHES}
+            stats = forward.last_stats
+            log(f"sharded serve event seed={seed} P={N_PARTS}: {event_ms[-1]:.1f} ms (host "
+                f"clock, forward only), n_clusters={stats['n_clusters']}, host_syncs="
+                f"{stats['host_syncs']} (all ranks), collectives={stats['collectives']}, "
+                f"partition_ok={stats['partition_ok']}, launches="
+                f"{ {k: v for k, v in counts.items() if v} }")
+            assert stats["partition_ok"], "a rank dropped edges (halo_slack too small)"
+            assert counts["K5"] >= 2 * N_PARTS, counts
+            expect = sharded_expect(hp, counts["K5"])
+            for kernel, n in expect.items():
+                assert counts[kernel] == n, (kernel, counts, expect)
+            assert counts["K8"] == stats["collectives"]["all_gather"], (counts, stats)
+            cap = hp["n_nodes_max"] * hp["bipartitegraph_sparsity"]
+            assert scores.shape == (cap,) and emb.shape == (hp["n_nodes_max"], hp["emb_dim"])
+            assert bgraph.senders.shape == (cap,) and bool(bgraph.edge_mask.any())
+            assert bool(torch.isfinite(scores).all()) and bool(torch.isfinite(emb).all())
+            assert bool(((scores >= 0) & (scores <= 1)).all()) and aux["n_clusters"] >= 1
+        totals = dict(sa.LAUNCHES)
+        log(f"sharded serving launches over 2 events: {totals}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        per_launch, _, _ = profile_call(torch, lambda: forward(batches[0]), event_ms[0],
+                                        "one sharded forward", ("K1", "K2", "K5", "K8"))
+    return totals, per_launch
+
+
+def canonical_scores(torch, bgraph, scores, n_clusters_max):
+    """(edge keys, scores) of the valid bipartite edges in key order: the
+    sharded forward returns the kNN's edge order, the unsharded the
+    receiver-sorted one."""
+    valid = bgraph.edge_mask
+    keys = (bgraph.senders * n_clusters_max + bgraph.receivers)[valid]
+    order = torch.argsort(keys)
+    return keys[order], scores[valid][order]
+
+
+def phase_sharded_parity(torch):
+    """f32, depth 2 + 2, full width and capacities, 4 ranks: the sharded
+    forward against the unsharded forward of the same weights, for both
+    ``shard_pooled`` values: clusters equal, the same bipartite edges, scores
+    and IN-block embeddings within 1e-4 (sums over per-rank partitions add in
+    another order).  The sharded runs are given the unsharded run's kNN
+    results, as phase 11 does, so a near-tie cannot give them another graph.
+    Then ``halo_backend: rdma`` against ``xla`` without any replay, under
+    ``torch.use_deterministic_algorithms`` (so that two runs of one backend
+    are equal to begin with, which is checked): every output equal bit for
+    bit."""
+    from unittest import mock
+
+    import numpy as np
+
+    from hierarchicalgnn_torch.data.event import preprocess_event
+    from hierarchicalgnn_torch.data.synthetic import generate_event
+    from hierarchicalgnn_torch.inference import InferenceEngine
+    from hierarchicalgnn_torch.models import dynamic_graph
+    from hierarchicalgnn_torch.models.registry import model_selector
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+    from hierarchicalgnn_torch.parallel.comm import THREAD_PREFIX
+    from hierarchicalgnn_torch.parallel.graph_shard import make_sharded_forward
+
+    f32 = {**FLAGSHIP, "compute_dtype": None, "n_interaction_graph_iters": 2,
+           "n_hierarchical_graph_iters": 2}
+    hp, model, pipeline = model_selector("BC-HGNN-GMM", f32)
+    engine = InferenceEngine(hp, model)
+    batch = preprocess_event(generate_event(np.random.default_rng(0),
+                                            n_particles=N_PARTICLES), hp, stage="test")
+    found, knn = [], dynamic_graph.knn
+
+    def recording_knn(*args, **kwargs):
+        found.append(knn(*args, **kwargs))
+        return found[-1]
+
+    with mock.patch.object(dynamic_graph, "knn", recording_knn):
+        ref = engine.forward(batch)
+    assert len(found) == 2, "one kNN each for the super and the bipartite graph"
+    n, c = hp["n_nodes_max"], hp["max_clusters"]
+
+    def replayed_knn(queries, *args, **kwargs):
+        rows = queries.shape[0]
+        if rows == c:
+            return found[0]
+        idx, d2 = found[1]
+        if rows == n:  # the replicated pooled space mines the whole event
+            return idx, d2
+        rank = int(threading.current_thread().name.removeprefix(THREAD_PREFIX))
+        return idx[rank * rows:(rank + 1) * rows], d2[rank * rows:(rank + 1) * rows]
+
+    ref_keys, ref_scores = canonical_scores(torch, ref[0], ref[1], c)
+    with watchdog(), recording_k8("sharded parity f32"):
+        for pooled in (True, False):
+            forward = make_sharded_forward(
+                pipeline, N_PARTS, {**hp, "shard_pooled": pooled, "halo_backend": "rdma"})
+            before = sa.LAUNCHES["K8"]
+            with mock.patch.object(dynamic_graph, "knn", replayed_knn):
+                out = forward(batch)
+            torch.cuda.synchronize()
+            assert forward.last_stats["partition_ok"]
+            keys, scores = canonical_scores(torch, out[0], out[1], c)
+            same_edges = torch.equal(keys, ref_keys)
+            score_err = float((scores - ref_scores).abs().max()) if same_edges else None
+            emb_err = float((out[2] - ref[2]).abs().max())
+            log(f"sharded parity f32 (2 + 2) P={N_PARTS} shard_pooled={pooled}: n_clusters "
+                f"{out[3]['n_clusters']} vs {ref[3]['n_clusters']}, bipartite edges "
+                f"{'equal' if same_edges else 'DIFFER'} ({keys.numel()}), scores "
+                f"max_abs_err {score_err}, IN-block embeddings {emb_err:.3e}, K8 launches "
+                f"{sa.LAUNCHES['K8'] - before}")
+            if not torch.equal(out[3]["clusters"], ref[3]["clusters"]):
+                raise AssertionError("sharded and unsharded clusters differ")
+            if not same_edges or score_err > 1e-4 or emb_err > 1e-4:
+                raise AssertionError(f"sharded forward differs from the unsharded one: "
+                                     f"edges equal {same_edges}, scores {score_err}, "
+                                     f"embeddings {emb_err}")
+
+        # index_add_ and index_put_ add with atomics in an order that changes
+        # from run to run; their deterministic forms make two runs of one
+        # backend comparable bit for bit, and so the two backends
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            outs = {}
+            for label, backend in (("rdma", "rdma"), ("xla", "xla"), ("xla again", "xla")):
+                forward = make_sharded_forward(pipeline, N_PARTS,
+                                               {**hp, "halo_backend": backend})
+                before = sa.LAUNCHES["K8"]
+                with warnings.catch_warnings():  # ops without a deterministic form
+                    warnings.simplefilter("ignore", UserWarning)
+                    outs[label] = forward(batch)
+                torch.cuda.synchronize()
+                used = sa.LAUNCHES["K8"] - before
+                assert (used > 0) == (backend == "rdma"), (backend, used)
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+    def differing(a, b):
+        pairs = {"senders": (a[0].senders, b[0].senders),
+                 "receivers": (a[0].receivers, b[0].receivers),
+                 "edge_mask": (a[0].edge_mask, b[0].edge_mask), "scores": (a[1], b[1]),
+                 "embeddings": (a[2], b[2]),
+                 "clusters": (a[3]["clusters"], b[3]["clusters"])}
+        return [name for name, (x, y) in pairs.items() if not torch.equal(x, y)]
+
+    repeat = differing(outs["xla"], outs["xla again"])
+    across = differing(outs["rdma"], outs["xla"])
+    log(f"sharded parity f32, deterministic index_add_: two runs of the xla halo differ in "
+        f"{repeat or 'nothing'}; the rdma halo against the xla halo differs in "
+        f"{across or 'nothing: equal bit for bit'} (bipartite graph, scores, embeddings, "
+        f"clusters)")
+    if repeat:
+        raise AssertionError(f"two runs of one backend differ in {repeat}: the comparison "
+                             f"of the two halos has no footing")
+    if across:
+        raise AssertionError(f"the rdma and xla halos give different {across}")
+
+
+def phase_sharded_models(torch, events):
+    """One sharded event (4 ranks, ``halo_backend: rdma``) for each of the
+    other four models at its shipped config and the flagship capacities, with
+    the launch counts asserted.  Returns the summed launch counts."""
+    from hierarchicalgnn_torch.data.event import preprocess_event
+    from hierarchicalgnn_torch.models.registry import model_selector
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+    from hierarchicalgnn_torch.parallel.graph_shard import make_sharded_forward
+
+    totals = {k: 0 for k in sa.LAUNCHES}
+    for name in MODEL_LAUNCHES:
+        hp, _, pipeline = model_selector(name, {**FLAGSHIP, "halo_backend": "rdma"})
+        assert (hp["latent"], hp["hidden"], hp["n_interaction_graph_iters"],
+                hp.get("n_hierarchical_graph_iters")) == MODEL_WIDTHS[name], hp
+        forward = make_sharded_forward(pipeline, N_PARTS, hp)
+        batches = [preprocess_event(raw, hp, stage="test") for raw in (events[2], events[0])]
+        with watchdog(), recording_k8(f"{name} sharded"):
+            forward(batches[0])  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            sa.reset_launches()
+            t0 = time.perf_counter()
+            out = forward(batches[1])
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        counts, stats = dict(sa.LAUNCHES), forward.last_stats
+        log(f"{name} sharded event seed=0 P={N_PARTS}: {ms:.1f} ms (host clock, forward "
+            f"only), stats={stats}, launches={ {k: v for k, v in counts.items() if v} }, "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        assert stats["partition_ok"], name
+        expect = sharded_expect(hp, counts["K5"])
+        for kernel, n in expect.items():
+            assert counts[kernel] == n, (name, kernel, counts, expect)
+        assert counts["K8"] == stats["collectives"]["all_gather"], (name, counts, stats)
+        assert (counts["K5"] >= 2 * N_PARTS) == ("GMM" in name or name == "gMRT"), counts
+        tensors = [out] if torch.is_tensor(out) else [t for t in out[:3] if torch.is_tensor(t)]
+        for t in tensors:
+            assert bool(torch.isfinite(t).all()), name
+        # the global outputs: scores of every input edge (EC-IN) or of every
+        # bipartite slot (gMRT), embeddings of every node (the embedding models)
+        if name == "EC-IN":
+            assert out.shape == (hp["n_edges_max"],), out.shape
+        elif name == "gMRT":
+            assert out[1].shape == (hp["n_nodes_max"] * hp["bipartitegraph_sparsity"],)
+        else:
+            first = out if torch.is_tensor(out) else out[0]
+            assert first.shape == (hp["n_nodes_max"], hp["emb_dim"]), first.shape
+        for k in totals:
+            totals[k] += counts[k]
+        del forward, pipeline, out
+        torch.cuda.empty_cache()
+    return totals
+
+
 def main():
     if not (Path(__file__).resolve().parent / "hierarchicalgnn_torch").is_dir():
         raise SystemExit("hierarchicalgnn_torch/ is not beside chip_smoke.py: "
@@ -1163,21 +1713,31 @@ def main():
     phase_training_parity(torch, events)
     models, _ = phase_models(torch, events)
     phase_models_parity(torch)
+    phase_halo(torch)
+    sharded, sharded_ms = phase_sharded_serving(torch, events)
+    phase_sharded_parity(torch)
+    sharded_models = phase_sharded_models(torch, events)
     for kernel in NAMES:
-        # K7's main path is its entry point make_aggregator; no model calls it
-        ran = aggregator[kernel] if kernel == "K7" else training[kernel]
+        # K7's main path is its entry point make_aggregator, no model calls it;
+        # K8's is the sharded forward
+        ran = {"K7": aggregator, "K8": sharded}.get(kernel, training)[kernel]
         assert ran > 0, f"the main path never launched {kernel}"
-        if kernel != "K7":
+        if kernel not in ("K7", "K8"):
             assert models[kernel] > 0, f"the four models never launched {kernel}"
+    assert sharded_models["K8"] > 0, "the four models' sharded forwards never launched K8"
     table = [{"name": NAMES[k], "route": "cuda", "source": CSRC + SOURCES[k],
               "replaces": REPLACES[k],
-              "launches": serving[k] + training[k] + models[k] + aggregator[k],
+              "launches": (serving[k] + training[k] + models[k] + aggregator[k]
+                           + sharded[k] + sharded_models[k]),
               "launches_serving_2_events": serving[k],
               "launches_training_3_steps": training[k],
               "launches_four_models": models[k],
-              "launches_aggregator": aggregator[k], **rows[k],
-              "main_path_ms_per_launch": serving_ms.get(k, training_ms.get(k)),
-              "training_ms_per_launch": training_ms.get(k)}
+              "launches_aggregator": aggregator[k],
+              "launches_sharded_serving_2_events": sharded[k],
+              "launches_sharded_four_models": sharded_models[k], **rows[k],
+              "main_path_ms_per_launch": serving_ms.get(k, training_ms.get(k, sharded_ms.get(k))),
+              "training_ms_per_launch": training_ms.get(k),
+              "sharded_ms_per_launch": sharded_ms.get(k)}
              for k in NAMES]
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

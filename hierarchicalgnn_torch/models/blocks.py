@@ -10,6 +10,10 @@ In training the flat and super graphs also get a transposed plan, so the
 endpoint gathers' backward runs K1 (``gather_edge_endpoints``); the two
 bipartite plans are each other's transposes, so the bipartite row gathers'
 backward runs K1 too; and the pooling updates the ``score_cut`` EMA.
+With ``shard`` (``parallel/graph_shard.py``, eval only) the blocks run as one
+rank of a shard group: node rows and edges are the rank's own, the halo and
+the pooled space go through the group's collectives, and the parameters are
+the same.
 
 f32 islands on the bf16 path: both embedding heads, the edge likelihood
 and the GMM stay f32, as in the JAX package.  Each block exists once,
@@ -32,7 +36,9 @@ from hierarchicalgnn_torch.ops.kernels.sorted_agg import (
     gather_edge_endpoints, gather_receivers, gather_senders, sorted_aggregate,
     sorted_aggregate_weighted)
 from hierarchicalgnn_torch.ops.sddmm import cosine_from_endpoints, normalize_unit_f32
-from hierarchicalgnn_torch.ops.segment import segment_mean
+from hierarchicalgnn_torch.ops.segment import segment_mean, segment_sum
+from hierarchicalgnn_torch.parallel.graph_shard import (
+    NOT_PORTED, make_hier_shard_aggs, pooled_active, sharded_cluster_labels)
 from hierarchicalgnn_torch.models.cells import (
     HierarchicalGNNCell, InteractionGNNCell, plain_gather)
 from hierarchicalgnn_torch.models.dynamic_graph import DynamicGraphConstruction
@@ -119,12 +125,16 @@ class InteractionGNNBlock(nn.Module):
         self.cells = _cells(InteractionGNNCell, cfg, iterations)
         self.output_layer = _embedding_head(cfg) if emb else None
 
-    def forward(self, x, graph: Graph, agg, gather=None):
+    def forward(self, x, graph: Graph, agg, gather=None, encode_gather=None):
         """``graph``: receiver-sorted work graph; ``agg``: its K1 aggregator;
-        ``gather``: its endpoint gather.  Returns (embeddings f32, nodes,
-        edges), or (nodes, edges) without the head."""
+        ``gather``: its endpoint gather; ``encode_gather``: the endpoint
+        gather of the edge encoder's input (direct indexing if None; the halo
+        gather under graph partitioning, where senders live on other ranks).
+        Returns (embeddings f32, nodes, edges), or (nodes, edges) without the
+        head."""
         nodes = self.node_encoder(x)
-        edges = self.edge_encoder(torch.cat([x[graph.senders], x[graph.receivers]], -1))
+        edges = self.edge_encoder(torch.cat(
+            (encode_gather or plain_gather(graph))(x), -1))
         dtype = torch_dtype(self.cfg.compute_dtype)
         if dtype is not None:
             nodes, edges = nodes.to(dtype), edges.to(dtype)
@@ -173,20 +183,39 @@ class HierarchicalGNNBlock(nn.Module):
 
     @torch.no_grad()
     def clustering(self, embeddings, graph: Graph, node_mask, plan, stats=None,
-                   training: bool = False):
+                   training: bool = False, shard=None, endpoint_gather=None):
         """GMM edge cut + connected components over the sorted flat graph
         (reference ``HGNN_GMM.py:184-238``), gradient-free.  Training fits
         the GMM, moves the ``score_cut`` EMA (momentum 0.95; its first value
         is the GMM means' midpoint; a fit without a valid cut leaves it) and
-        cuts at the new value (``blocks.py:212-220``).  Returns (clusters
-        int32[N] with -1 fill, n_clusters as a Python int)."""
+        cuts at the new value (``blocks.py:212-220``).
+
+        ``shard`` (eval only): ``graph`` is this rank's receiver-partitioned
+        edge slice (global ids), ``embeddings`` and ``node_mask`` the whole
+        event's; ``endpoint_gather()`` gives the unit embeddings at the local
+        edges' ends through the halo.  The likelihood is computed on the
+        local edges only, the GMM is fitted on every rank on the all-gathered
+        likelihood (the same moments, summed in per-rank order), and the
+        components run partitioned (``sharded_cluster_labels``).
+        Returns (clusters int32[N] with -1 fill, n_clusters as a Python int)."""
         cfg = self.cfg
-        unit = normalize_unit_f32(embeddings.detach())
-        likelihood = cosine_from_endpoints(unit[graph.senders], unit[graph.receivers],
-                                           mask=graph.edge_mask)
+        if endpoint_gather is not None:
+            x_s, x_r = endpoint_gather()
+        else:
+            unit = normalize_unit_f32(embeddings.detach())
+            x_s, x_r = unit[graph.senders], unit[graph.receivers]
+        likelihood = cosine_from_endpoints(x_s, x_r, mask=graph.edge_mask)
+
+        def fit_gmm():
+            if shard is None:
+                return gmm_ops.fit_gmm2(likelihood, graph.edge_mask, iters=cfg.gmm_iters)
+            return gmm_ops.fit_gmm2(shard.all_gather(likelihood),
+                                    shard.all_gather(graph.edge_mask),
+                                    iters=cfg.gmm_iters)
+
         sc = self.score_cut[0]
         if training:
-            gmm = gmm_ops.fit_gmm2(likelihood, graph.edge_mask, iters=cfg.gmm_iters)
+            gmm = fit_gmm()
             sc = torch.where(torch.isinf(sc), torch.mean(gmm.means), sc)
             cut, valid = gmm_ops.solve_cut(gmm, cfg.cluster_granularity)
             sc = torch.where(valid, 0.95 * sc + (1 - 0.95) * cut, sc)
@@ -196,16 +225,19 @@ class HierarchicalGNNBlock(nn.Module):
             if bool(torch.isinf(sc)):
                 # eval cuts at the buffer value; solve_cut only feeds the
                 # training EMA, so eval fits the GMM for its means alone
-                gmm = gmm_ops.fit_gmm2(likelihood, graph.edge_mask,
-                                       iters=cfg.gmm_iters)
-                sc = torch.mean(gmm.means)
+                sc = torch.mean(fit_gmm().means)
         keep = graph.edge_mask & (likelihood >= sc)
         n = embeddings.shape[0]
 
         def cluster(mask):
-            clusters, n_clusters = cluster_labels_sorted(
-                plan, mask, n, min_cluster_size=cfg.min_cluster_size,
-                node_mask=node_mask, stats=stats)
+            if shard is not None:
+                clusters, n_clusters = sharded_cluster_labels(
+                    shard, mask, n, min_cluster_size=cfg.min_cluster_size,
+                    node_mask=node_mask, stats=stats)
+            else:
+                clusters, n_clusters = cluster_labels_sorted(
+                    plan, mask, n, min_cluster_size=cfg.min_cluster_size,
+                    node_mask=node_mask, stats=stats)
             count_host_sync(stats)
             return clusters, int(n_clusters)
 
@@ -215,75 +247,158 @@ class HierarchicalGNNBlock(nn.Module):
             clusters, n_clusters = cluster(graph.edge_mask)
         return clusters, n_clusters
 
+    def _pool_sharded(self, embeddings, node_mask, shard, stats):
+        """The pooling of one rank of a shard group: (clusters, n_clusters,
+        cluster means [C, emb] before normalisation, the whole event's
+        embeddings and node mask).  With the pooled space partitioned the
+        clustering and the means work on the rank's own rows and edges;
+        otherwise every rank pools the whole gathered event."""
+        cfg = self.cfg
+        emb_global = shard.all_gather(embeddings)
+        mask_global = shard.all_gather(node_mask)
+        if pooled_active(shard.spec, cfg.max_clusters):
+            clusters, n_clusters = self.clustering(
+                emb_global, shard.local_graph, mask_global, None, stats, shard=shard,
+                endpoint_gather=lambda: shard.gather(
+                    normalize_unit_f32(embeddings.detach())))
+            # cluster means from the LOCAL rows and one sum over the ranks of
+            # the [C, emb] and [C] partial moments
+            rows = slice(shard.index * shard.n_local, (shard.index + 1) * shard.n_local)
+            in_cluster = clusters[rows] >= 0
+            seg = torch.where(in_cluster, clusters[rows], 0).long()
+            total = segment_sum(embeddings, seg, cfg.max_clusters, mask=in_cluster)
+            count = segment_sum(torch.ones_like(embeddings[:, 0]), seg, cfg.max_clusters,
+                                mask=in_cluster)
+            total, count = shard.comm.psum(total), shard.comm.psum(count)
+            means = total / torch.clamp(count, min=1)[:, None]
+        else:
+            full = shard.full_graph
+            fplan = build_sorted_plan(full.senders, full.receivers, full.edge_mask,
+                                      emb_global.shape[0])
+            fgraph = Graph(fplan.senders_sorted, fplan.receivers_sorted,
+                           fplan.edge_mask_sorted)
+            clusters, n_clusters = self.clustering(emb_global, fgraph, mask_global,
+                                                   fplan, stats)
+            in_cluster = clusters >= 0
+            means = segment_mean(emb_global, torch.where(in_cluster, clusters, 0).long(),
+                                 cfg.max_clusters, mask=in_cluster)
+        return clusters, n_clusters, means, emb_global, mask_global
+
     def forward(self, embeddings, nodes, edges, graph: Graph, node_mask, agg,
-                plan, stats=None, gather=None, training: bool = False):
+                plan, stats=None, gather=None, training: bool = False, shard=None):
         """``graph``: sorted flat work graph with K1 aggregator ``agg``,
         endpoint gather ``gather`` and plan ``plan``.  Returns (nodes,
         supernodes, (bgraph, bweights), aux, head_gather); ``head_gather(nodes,
         supernodes)`` gives the rows at the bipartite edges' two ends.  With
-        ``emb_output`` it returns (embeddings f32, aux)."""
+        ``emb_output`` it returns (embeddings f32, aux).
+
+        ``shard``: a ``parallel.graph_shard.ShardTools`` when this call is one
+        rank of a shard group (eval only).  ``embeddings``, ``nodes`` and
+        ``node_mask`` are then the rank's row blocks and ``graph`` its
+        receiver-partitioned edges (``agg``, ``gather`` and ``plan`` come from
+        ``shard``).  The bipartite graph comes back in the kNN's edge order
+        (the rank's own block with local sender ids when the pooled space is
+        partitioned, the whole graph otherwise), the supernodes whole, and
+        ``head_gather`` is None: the model slices for its score head."""
         cfg = self.cfg
         n = nodes.shape[0]
-        clusters, n_clusters = self.clustering(embeddings, graph, node_mask, plan,
-                                               stats, training)
-        in_cluster = clusters >= 0
-        seg = torch.where(in_cluster, clusters, 0).long()
-        means = l2_normalize(segment_mean(embeddings, seg, cfg.max_clusters,
-                                          mask=in_cluster))
+        pooled = False
+        if shard is not None:
+            if training:
+                raise NotImplementedError(NOT_PORTED)
+            pooled = pooled_active(shard.spec, cfg.max_clusters)
+            clusters, n_clusters, means, emb_global, mask_global = self._pool_sharded(
+                embeddings, node_mask, shard, stats)
+        else:
+            clusters, n_clusters = self.clustering(embeddings, graph, node_mask, plan,
+                                                   stats, training)
+            in_cluster = clusters >= 0
+            seg = torch.where(in_cluster, clusters, 0).long()
+            means = segment_mean(embeddings, seg, cfg.max_clusters, mask=in_cluster)
+        means = l2_normalize(means)
         cluster_valid = torch.arange(cfg.max_clusters, device=means.device) < n_clusters
         means = torch.where(cluster_valid[:, None], means, 0.0)
 
         super_graph, super_weights = self.super_graph_construction(
             means, means, training, src_mask=cluster_valid, dst_mask=cluster_valid)
-        bipartite_graph, bipartite_weights, _ = self.bipartite_graph_construction(
-            embeddings, means, training, src_mask=node_mask, dst_mask=cluster_valid)
+        if shard is None or pooled:
+            # unsharded, or query-sharded: this rank mines its own node rows and
+            # the result IS its sender-contiguous block of the bipartite graph
+            bipartite_graph, bipartite_weights, _ = self.bipartite_graph_construction(
+                embeddings, means, training, src_mask=node_mask, dst_mask=cluster_valid,
+                comm=shard.comm if pooled else None)
+        else:
+            bipartite_graph, bipartite_weights, _ = self.bipartite_graph_construction(
+                emb_global, means, training, src_mask=mask_global,
+                dst_mask=cluster_valid)
 
-        # one receiver-sorted plan per direction, shared by the init and
-        # every hierarchical iteration
-        s_plan = build_sorted_plan(super_graph.senders, super_graph.receivers,
-                                   super_graph.edge_mask, cfg.max_clusters)
-        gather_super = endpoint_gather(s_plan, super_graph, cfg.max_clusters,
-                                       transposed=training)
-        super_graph = Graph(s_plan.senders_sorted, s_plan.receivers_sorted,
-                            s_plan.edge_mask_sorted)
-        super_weights = s_plan.sort(super_weights)
-        b1 = build_sorted_plan(bipartite_graph.senders, bipartite_graph.receivers,
-                               bipartite_graph.edge_mask, cfg.max_clusters)
-        b2 = build_sorted_plan(bipartite_graph.receivers, bipartite_graph.senders,
-                               bipartite_graph.edge_mask, n)
-        w1 = b1.sort(bipartite_weights)
-        w2 = b2.sort(bipartite_weights)
-        bipartite_graph = Graph(b1.senders_sorted, b1.receivers_sorted,
-                                b1.edge_mask_sorted)
-        # b1 (sorted by cluster) and b2 (sorted by node) hold the same edges:
-        # each is the other's transposed plan, so in training the row gathers
-        # by b1's senders (nodes) and by b2's senders (clusters) get a K1
-        # backward for the price of two index gathers
-        b1_of_b2 = cross_permutation(b1, b2) if training else None
-        b2_of_b1 = cross_permutation(b2, b1) if training else None
-        t1, t2 = (b2, b1) if training else (None, None)
-        gathers = {
-            "graph": gather or plain_gather(graph),
-            "super": gather_super,
-            "bip_to_super": lambda x: gather_senders(x, b1, t1, b1_of_b2),
-            "bip_to_node": lambda x: gather_senders(x, b2, t2, b2_of_b1),
-        }
-        aggs = {
-            "edge_to_node": agg,
-            "bip_to_super": (lambda d: sorted_aggregate_weighted(d, w1, b1),
-                             b1.senders_sorted),
-            "bip_to_node": (lambda d: sorted_aggregate_weighted(d, w2, b2),
-                            b2.senders_sorted),
-            "super_to_super": lambda d: sorted_aggregate_weighted(d, super_weights,
-                                                                  s_plan),
-        }
+        head_gather = None
+        if shard is not None:
+            # local flat edges, the local bipartite block + one sum over the
+            # ranks into the supernode space, the halo gather for the edge update
+            aggs, gathers, super_graph, super_weights, s_ok = make_hier_shard_aggs(
+                shard, bipartite_graph, bipartite_weights, super_graph, super_weights,
+                cfg.max_clusters, cfg.bipartitegraph_sparsity)
+            if stats is not None:
+                stats.setdefault("partition_ok", []).append(s_ok)
+        else:
+            # one receiver-sorted plan per direction, shared by the init and
+            # every hierarchical iteration
+            s_plan = build_sorted_plan(super_graph.senders, super_graph.receivers,
+                                       super_graph.edge_mask, cfg.max_clusters)
+            gather_super = endpoint_gather(s_plan, super_graph, cfg.max_clusters,
+                                           transposed=training)
+            super_graph = Graph(s_plan.senders_sorted, s_plan.receivers_sorted,
+                                s_plan.edge_mask_sorted)
+            super_weights = s_plan.sort(super_weights)
+            b1 = build_sorted_plan(bipartite_graph.senders, bipartite_graph.receivers,
+                                   bipartite_graph.edge_mask, cfg.max_clusters)
+            b2 = build_sorted_plan(bipartite_graph.receivers, bipartite_graph.senders,
+                                   bipartite_graph.edge_mask, n)
+            w1 = b1.sort(bipartite_weights)
+            w2 = b2.sort(bipartite_weights)
+            bipartite_graph, bipartite_weights = Graph(
+                b1.senders_sorted, b1.receivers_sorted, b1.edge_mask_sorted), w1
+            # b1 (sorted by cluster) and b2 (sorted by node) hold the same edges:
+            # each is the other's transposed plan, so in training the row gathers
+            # by b1's senders (nodes) and by b2's senders (clusters) get a K1
+            # backward for the price of two index gathers
+            b1_of_b2 = cross_permutation(b1, b2) if training else None
+            b2_of_b1 = cross_permutation(b2, b1) if training else None
+            t1, t2 = (b2, b1) if training else (None, None)
+            gathers = {
+                "graph": gather or plain_gather(graph),
+                "super": gather_super,
+                "bip_to_super": lambda x: gather_senders(x, b1, t1, b1_of_b2),
+                "bip_to_node": lambda x: gather_senders(x, b2, t2, b2_of_b1),
+            }
+            aggs = {
+                "edge_to_node": agg,
+                "bip_to_super": (lambda d: sorted_aggregate_weighted(d, w1, b1),
+                                 b1.senders_sorted),
+                "bip_to_node": (lambda d: sorted_aggregate_weighted(d, w2, b2),
+                                b2.senders_sorted),
+                "super_to_super": lambda d: sorted_aggregate_weighted(d, super_weights,
+                                                                      s_plan),
+            }
+            # the score head's inputs: rows by the bipartite graph's endpoints
+            head_gather = lambda x, sn: (gathers["bip_to_super"](x),
+                                         gather_receivers(sn, b1))
 
         agg_to_super, _ = aggs["bip_to_super"]
         init_nodes = l1_normalize(nodes) if self.l1_norm_supernode_init else nodes
         agg_init = agg_to_super(gathers["bip_to_super"](init_nodes)).to(nodes.dtype)
-        supernodes = torch.cat([means.to(nodes.dtype),
+        means_rows = means
+        if pooled:  # this rank's block of the supernode rows
+            c_local = cfg.max_clusters // shard.spec.n_parts
+            means_rows = means[shard.index * c_local:(shard.index + 1) * c_local]
+        supernodes = torch.cat([means_rows.to(nodes.dtype),
                                 self.supernode_encoder(agg_init)], -1)
-        superedges = self.superedge_encoder(torch.cat(gather_super(supernodes), -1))
+        # the whole supernode array, for indexing by global cluster ids: an
+        # all-gather when the rows are blocked over the ranks, else the identity
+        super_bcast = gathers.get("super_bcast") or (lambda x: x)
+        superedges = self.superedge_encoder(torch.cat(
+            gathers["super"](super_bcast(supernodes)), -1))
 
         for cell in _schedule(self.cells, cfg.n_hierarchical_graph_iters):
             nodes, edges, supernodes, superedges = cell(
@@ -296,10 +411,8 @@ class HierarchicalGNNBlock(nn.Module):
                "score_cut": self.score_cut[0].clone()}
         if self.output_layer is not None:
             return l2_normalize(self.output_layer(nodes).float()), aux
-        # the score head's inputs: rows by the bipartite graph's endpoints
-        head_gather = lambda x, sn: (gathers["bip_to_super"](x),
-                                     gather_receivers(sn, b1))
-        return nodes, supernodes, (bipartite_graph, w1), aux, head_gather
+        return (nodes, super_bcast(supernodes), (bipartite_graph, bipartite_weights),
+                aux, head_gather)
 
 
 class GMRTEncoders(nn.Module):
@@ -318,10 +431,12 @@ class GMRTEncoders(nn.Module):
                                       cfg.layernorm, cfg.remat)
         self.output_layer = MatchDims(cfg.latent, cfg.emb_dim, None, cfg.layernorm)
 
-    def forward(self, x, graph: Graph):
-        """Returns (embeddings f32, nodes, edges) over the sorted work graph."""
+    def forward(self, x, graph: Graph, encode_gather=None):
+        """Returns (embeddings f32, nodes, edges) over the sorted work graph.
+        ``encode_gather``: as in :class:`InteractionGNNBlock`."""
         nodes = self.node_encoder(x)
-        edges = self.edge_encoder(torch.cat([x[graph.senders], x[graph.receivers]], -1))
+        edges = self.edge_encoder(torch.cat(
+            (encode_gather or plain_gather(graph))(x), -1))
         embeddings = l2_normalize(self.output_layer(nodes).float())
         dtype = torch_dtype(self.cfg.compute_dtype)
         if dtype is not None:

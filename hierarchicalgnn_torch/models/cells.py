@@ -77,7 +77,11 @@ class HierarchicalGNNCell(nn.Module):
         "super_to_super": K2 over ``super_graph``}.  ``gathers``: {"graph",
         "super"} endpoint gathers and {"bip_to_super", "bip_to_node"} row
         gathers by the bipartite sender / cluster ids (direct indexing
-        where absent)."""
+        where absent).  ``gathers["super_bcast"]``: with the supernode rows
+        blocked over the ranks of a shard group (``parallel/graph_shard.py``),
+        the all-gather that rebuilds the whole supernode array for the
+        supernode->node direction and the superedge endpoints; the identity
+        otherwise."""
         gathers = gathers or {}
         gather_graph = gathers.get("graph") or plain_gather(graph)
         gather_super = gathers.get("super") or plain_gather(super_graph)
@@ -86,19 +90,20 @@ class HierarchicalGNNCell(nn.Module):
 
         gather_nodes = gathers.get("bip_to_super") or (lambda x: x[b_send])
         gather_supernodes = gathers.get("bip_to_node") or (lambda x: x[b_cluster])
+        super_bcast = gathers.get("super_bcast") or (lambda x: x)
 
         node_messages = agg_to_super(gather_nodes(nodes)).to(supernodes.dtype)
         attention_messages = aggs["super_to_super"](superedges).to(supernodes.dtype)
         new_supernodes = self.supernode_network(torch.cat(
             [supernodes, attention_messages, node_messages], -1)) + supernodes
+        sn_all = super_bcast(new_supernodes)
 
-        supernode_messages = agg_to_node(
-            gather_supernodes(new_supernodes)).to(nodes.dtype)
+        supernode_messages = agg_to_node(gather_supernodes(sn_all)).to(nodes.dtype)
         edge_messages = aggs["edge_to_node"](edges).to(nodes.dtype)
         new_nodes = self.node_network(torch.cat(
             [nodes, edge_messages, supernode_messages], -1)) + nodes
 
-        sn_src, sn_dst = gather_super(new_supernodes)
+        sn_src, sn_dst = gather_super(sn_all)
         new_superedges = self.superedge_network(torch.cat(
             [sn_src, sn_dst, superedges], -1)) + superedges
         nn_src, nn_dst = gather_graph(new_nodes)

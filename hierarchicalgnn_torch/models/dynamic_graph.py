@@ -6,6 +6,12 @@ differentiable per-edge weights from the endpoint dot products through a
 batch norm and a sigmoid or exp.  ``knn_radius`` and the batch-norm
 statistics are registered buffers; training mode updates them in place
 (``r <- 0.9 r + 0.11 sqrt(max d2)``, ``dynamic_graph.py:70-79``).
+
+With the query rows split over the ranks of a shard group (``comm``, the
+JAX module's ``axis_name``), each rank mines its own block and the weight
+normalisation's mean is taken over all ranks (one ``psum``).  The radius
+EMA's ``pmax`` and the batch norm's summed moments act only in training and
+come with the sharded training step.
 """
 
 from __future__ import annotations
@@ -38,9 +44,15 @@ class DynamicGraphConstruction(nn.Module):
         self.weight_normalization = MaskedBatchNorm()
 
     def forward(self, src_embeddings, dst_embeddings, training: bool = False,
-                src_mask=None, dst_mask=None):
+                src_mask=None, dst_mask=None, comm=None):
         """Returns (Graph, weights[E, 1][, logits[E]]); capacity Q*k
-        (2*Q*k when ``sym``), padded slots masked with zero weight."""
+        (2*Q*k when ``sym``), padded slots masked with zero weight.
+        ``comm``: this rank's handle when ``src_embeddings`` are its block of
+        the query rows."""
+        if training and comm is not None:
+            raise NotImplementedError(
+                "the radius EMA over a shard group (pmax): the sharded training "
+                "step is not ported yet (ROADMAP.md, Queue 1 item 5)")
         with torch.no_grad():
             idx, d2 = knn(src_embeddings, dst_embeddings, self.k,
                           self.knn_radius[0], q_mask=src_mask, p_mask=dst_mask,
@@ -59,7 +71,8 @@ class DynamicGraphConstruction(nn.Module):
             likelihood = edge_dot_from_knn(
                 src_embeddings, dst_embeddings, graph.senders,
                 graph.receivers, graph.edge_mask, d2.reshape(-1))
-        logits = self.weight_normalization(likelihood, graph.edge_mask, training)
+        logits = self.weight_normalization(likelihood, graph.edge_mask, training,
+                                           comm=comm)
         if self.weighting_function == "sigmoid":
             weights = torch.sigmoid(logits)
         else:
@@ -67,7 +80,10 @@ class DynamicGraphConstruction(nn.Module):
 
         if self.norm:
             m = graph.edge_mask.to(weights.dtype)
-            mean = torch.sum(weights * m) / torch.clamp(torch.sum(m), min=1.0)
+            sums = torch.stack([torch.sum(weights * m), torch.sum(m)])
+            if comm is not None:
+                sums = comm.psum(sums)
+            mean = sums[0] / torch.clamp(sums[1], min=1.0)
             weights = weights / torch.clamp(mean, min=1e-12)
 
         weights = torch.where(graph.edge_mask, weights, 0.0)[:, None]

@@ -186,7 +186,10 @@ class MaskedBatchNorm(nn.Module):
 
     Training mode normalizes with the batch statistics of the unmasked
     entries and updates the running buffers in place (momentum 0.1,
-    unbiased variance); eval mode uses the running statistics.
+    unbiased variance); eval mode uses the running statistics.  ``comm``:
+    the batch is split over the ranks of a shard group (``parallel/comm.py``);
+    the moments of a training batch would then be summed over the ranks,
+    which comes with the sharded training step.
     """
 
     def __init__(self, momentum: float = 0.1, epsilon: float = 1e-5):
@@ -198,7 +201,11 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(1))
         self.register_buffer("running_var", torch.ones(1))
 
-    def forward(self, x, mask=None, training: bool = False):
+    def forward(self, x, mask=None, training: bool = False, comm=None):
+        if training and comm is not None:
+            raise NotImplementedError(
+                "batch-norm moments summed over a shard group: the sharded "
+                "training step is not ported yet (ROADMAP.md, Queue 1 item 5)")
         if training:
             w = mask.float()
             n = torch.clamp(torch.sum(w), min=1.0)

@@ -1,7 +1,7 @@
 """The five pipeline models.
 
-Counterpart of ``hierarchicalgnn_tpu/models/models.py``, single device
-(``spmd is None``).  Each is a module over (x, undirected Graph, node_mask):
+Counterpart of ``hierarchicalgnn_tpu/models/models.py``.  Each is a module
+over (x, undirected Graph, node_mask):
 
   * EdgeClassifierIN        -- EC-IN: scores of the input edges
   * EmbeddingIN             -- Embedding-IN: hit embeddings
@@ -16,8 +16,16 @@ into the [2, M] (hit, track) candidates of the model's kind.
 ``model.train()`` / ``model.eval()`` select the mode: training fits the
 pooling GMM every forward, updates the buffers (``score_cut``,
 ``knn_radius``, batch-norm statistics) in place and builds the transposed
-plans whose K1 backward the endpoint gathers use.  The graph-partitioned
-branches are not ported.
+plans whose K1 backward the endpoint gathers use.
+
+``spmd`` (a ``parallel.graph_shard.SpmdSpec`` with the calling rank's
+``comm``; eval only) runs the forward as one rank of a shard group: ``x`` and
+``node_mask`` are the rank's node-row blocks, ``graph`` the whole event's,
+and the node- and edge-space outputs are the rank's blocks, which
+``parallel.graph_shard.make_sharded_forward`` reassembles by the model's
+``sharded_out_specs(spmd)``: a tree, shaped like the forward's output, of
+``SHARDED`` (the ranks' blocks concatenate along dim 0) and ``REPLICATED``
+(every rank holds the whole), what ``out_specs`` is to a ``shard_map``.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ from hierarchicalgnn_torch.models.blocks import (
     GMRTEncoders, HierarchicalGNNBlock, InteractionGNNBlock, sorted_graph_mode)
 from hierarchicalgnn_torch.models.dynamic_graph import DynamicGraphConstruction
 from hierarchicalgnn_torch.models.mlp import MLP, MaskedBatchNorm, MatchDims
+from hierarchicalgnn_torch.parallel.graph_shard import (
+    NOT_PORTED, REPLICATED, SHARDED, bipartite_local_slice, make_shard_tools, pooled_active)
 from hierarchicalgnn_torch.utils.config import ArchConfig
 
 
@@ -78,6 +88,17 @@ class _Model(nn.Module):
         return (node_mask,) + sorted_graph_mode(
             bidirectionalize(graph), x.shape[0], transposed=self.training)
 
+    def _shard_tools(self, x, graph: Graph, spmd, stats):
+        """This rank's partition of the bidirected input graph, its K1
+        aggregator and its halo gather; the partition's overflow flag goes
+        into ``stats["partition_ok"]``."""
+        if self.training:
+            raise NotImplementedError(NOT_PORTED)
+        tools = make_shard_tools(bidirectionalize(graph), x.shape[0], spmd)
+        if stats is not None:
+            stats.setdefault("partition_ok", []).append(tools.ok)
+        return tools
+
 
 class EdgeClassifierIN(_Model):
     """Flat interaction-network edge classifier (EC-IN): each undirected
@@ -89,8 +110,11 @@ class EdgeClassifierIN(_Model):
         self.ignn = InteractionGNNBlock(cfg, cfg.n_interaction_graph_iters, emb=False)
         self.edge_classifier = _score_head(cfg, remat=False)
 
-    def forward(self, x, graph: Graph, node_mask=None, stats=None):
-        """Returns the f32 scores of the input edges (0 on padded slots)."""
+    def forward(self, x, graph: Graph, node_mask=None, stats=None, spmd=None):
+        """Returns the f32 scores of the input edges (0 on padded slots);
+        under ``spmd`` those of this rank's contiguous slice of the edges."""
+        if spmd is not None:
+            return self._forward_sharded(x, graph, spmd, stats)
         _, work, agg, gather, plan = self._work_graph(x, graph, node_mask)
         _, edges = self.ignn(x, work, agg, gather)
         # back to input order: the plan holds exactly the 2e directed edges,
@@ -99,6 +123,25 @@ class EdgeClassifierIN(_Model):
         e = graph.senders.shape[0]
         logits = self.edge_classifier(torch.cat([edges[:e], edges[e:]], -1))[:, 0]
         return torch.where(graph.edge_mask, torch.sigmoid(logits.float()), 0.0)
+
+    def _forward_sharded(self, x, graph: Graph, spmd, stats):
+        tools = self._shard_tools(x, graph, spmd, stats)
+        _, edges_local = self.ignn(x, tools.local_graph, tools.agg, tools.gather,
+                                   encode_gather=tools.gather)
+        # the two directed copies of an edge live on (possibly) different
+        # ranks: gather every rank's edge rows and pick both copies of this
+        # rank's slice of the undirected edges by their partition slots
+        edges_all = tools.all_gather(edges_local)
+        e = graph.senders.shape[0]
+        e_loc = e // spmd.n_parts
+        mine = slice(tools.index * e_loc, (tools.index + 1) * e_loc)
+        pair = torch.cat([edges_all[tools.slot[:e][mine]],
+                          edges_all[tools.slot[e:][mine]]], -1)
+        logits = self.edge_classifier(pair)[:, 0]
+        return torch.where(graph.edge_mask[mine], torch.sigmoid(logits.float()), 0.0)
+
+    def sharded_out_specs(self, spmd):
+        return SHARDED  # scores [E]
 
     def candidates(self, out, host_batch, hparams, stats=None):
         return candidates.ec_candidates(out, host_batch, hparams, stats=stats)
@@ -111,10 +154,18 @@ class EmbeddingIN(_Model):
         super().__init__(cfg)
         self.ignn = InteractionGNNBlock(cfg, cfg.n_interaction_graph_iters)
 
-    def forward(self, x, graph: Graph, node_mask=None, stats=None):
-        """Returns the unit-norm f32 embeddings [N, emb_dim]."""
+    def forward(self, x, graph: Graph, node_mask=None, stats=None, spmd=None):
+        """Returns the unit-norm f32 embeddings [N, emb_dim]; under ``spmd``
+        those of this rank's node rows."""
+        if spmd is not None:
+            tools = self._shard_tools(x, graph, spmd, stats)
+            return self.ignn(x, tools.local_graph, tools.agg, tools.gather,
+                             encode_gather=tools.gather)[0]
         _, work, agg, gather, _ = self._work_graph(x, graph, node_mask)
         return self.ignn(x, work, agg, gather)[0]
+
+    def sharded_out_specs(self, spmd):
+        return SHARDED  # embeddings [N, emb_dim]
 
     def candidates(self, out, host_batch, hparams, stats=None):
         return candidates.embedding_candidates(out, host_batch, hparams)
@@ -129,15 +180,27 @@ class EmbeddingHGNNGMM(_Model):
         self.hgnn = HierarchicalGNNBlock(cfg, l1_norm_supernode_init=False,
                                          emb_output=True)
 
-    def forward(self, x, graph: Graph, node_mask=None, stats=None):
+    def forward(self, x, graph: Graph, node_mask=None, stats=None, spmd=None):
         """Returns (embeddings, IN-block embeddings, aux).  ``stats``:
-        optional dict that collects ``host_syncs``."""
+        optional dict that collects ``host_syncs``.  Under ``spmd`` both
+        embeddings are those of this rank's node rows."""
+        if spmd is not None:
+            tools = self._shard_tools(x, graph, spmd, stats)
+            intermediate, nodes, edges = self.ignn(
+                x, tools.local_graph, tools.agg, tools.gather, encode_gather=tools.gather)
+            embeddings, aux = self.hgnn(
+                intermediate, nodes, edges, tools.local_graph, node_mask, tools.agg,
+                tools.local_plan, stats, gather=tools.gather, shard=tools)
+            return embeddings, intermediate, aux
         node_mask, work, agg, gather, plan = self._work_graph(x, graph, node_mask)
         intermediate, nodes, edges = self.ignn(x, work, agg, gather)
         embeddings, aux = self.hgnn(
             intermediate, nodes, edges, work, node_mask, agg, plan, stats,
             gather=gather, training=self.training)
         return embeddings, intermediate, aux
+
+    def sharded_out_specs(self, spmd):
+        return (SHARDED, SHARDED, REPLICATED)
 
     def candidates(self, out, host_batch, hparams, stats=None):
         return candidates.embedding_candidates(out[0], host_batch, hparams)
@@ -153,14 +216,18 @@ class _BipartiteScorer(_Model):
         self.hgnn = HierarchicalGNNBlock(cfg)
         self.bipartite_output_layer = _score_head(cfg, remat=cfg.remat)
 
-    def forward(self, x, graph: Graph, node_mask=None, stats=None):
+    def forward(self, x, graph: Graph, node_mask=None, stats=None, spmd=None):
         """Forward over one padded event, in the module's mode.
 
         Returns (bgraph, scores, embeddings, aux) like the JAX model: the
         receiver-sorted bipartite graph, its f32 edge scores (0 on padded
         slots), the encoder's embeddings and the clustering aux.  ``stats``:
-        optional dict that collects ``host_syncs``.
+        optional dict that collects ``host_syncs``.  Under ``spmd`` the
+        scores and embeddings are this rank's blocks and the bipartite graph
+        is in the kNN's edge order (:meth:`_forward_sharded`).
         """
+        if spmd is not None:
+            return self._forward_sharded(x, graph, node_mask, spmd, stats)
         node_mask, work, agg, gather, plan = self._work_graph(x, graph, node_mask)
         embeddings, nodes, edges = self._encode(x, work, agg, gather)
         nodes, supernodes, (bgraph, _), aux, head_gather = self.hgnn(
@@ -170,6 +237,38 @@ class _BipartiteScorer(_Model):
             head_gather(nodes, supernodes), -1))[:, 0]
         scores = torch.where(bgraph.edge_mask, torch.sigmoid(logits.float()), 0.0)
         return bgraph, scores, embeddings, aux
+
+    def _forward_sharded(self, x, graph: Graph, node_mask, spmd, stats):
+        """One rank's forward.  With the pooled space partitioned the block's
+        bipartite graph IS this rank's sender-contiguous block; its senders
+        are made global for the returned graph, and the ranks' blocks
+        concatenate into the unsharded kNN edge order.  Otherwise the whole
+        graph comes back on every rank and the scores are those of this
+        rank's slice of it."""
+        cfg = self.cfg
+        tools = self._shard_tools(x, graph, spmd, stats)
+        embeddings, nodes, edges = self._encode(
+            x, tools.local_graph, tools.agg, tools.gather, encode_gather=tools.gather)
+        nodes, supernodes, (bgraph, bweights), aux, _ = self.hgnn(
+            embeddings, nodes, edges, tools.local_graph, node_mask, tools.agg,
+            tools.local_plan, stats, gather=tools.gather, shard=tools)
+        if pooled_active(spmd, cfg.max_clusters):
+            b_send, b_recv, b_mask = bgraph
+            bgraph = Graph(b_send + tools.index * tools.n_local, b_recv, b_mask)
+        else:
+            b_send, b_recv, b_mask, _ = bipartite_local_slice(
+                tools, bgraph, bweights, cfg.bipartitegraph_sparsity)
+        logits = self.bipartite_output_layer(torch.cat(
+            [nodes[b_send], supernodes[b_recv]], -1))[:, 0]
+        scores = torch.where(b_mask, torch.sigmoid(logits.float()), 0.0)
+        return bgraph, scores, embeddings, aux
+
+    def sharded_out_specs(self, spmd):
+        """With the pooled space partitioned the bipartite graph comes back
+        as the rank's sender-contiguous block; otherwise whole on every rank."""
+        pooled = pooled_active(spmd, self.cfg.max_clusters)
+        bgraph = Graph(SHARDED, SHARDED, SHARDED) if pooled else REPLICATED
+        return (bgraph, SHARDED, SHARDED, REPLICATED)
 
     def candidates(self, out, host_batch, hparams, stats=None):
         return candidates.bipartite_candidates(out[0], out[1], host_batch, hparams)
@@ -181,8 +280,8 @@ class BipartiteClassifierHGNN(_BipartiteScorer):
     def __init__(self, cfg: ArchConfig):
         super().__init__(cfg, InteractionGNNBlock(cfg, cfg.n_interaction_graph_iters))
 
-    def _encode(self, x, work, agg, gather):
-        return self.ignn(x, work, agg, gather)
+    def _encode(self, x, work, agg, gather, encode_gather=None):
+        return self.ignn(x, work, agg, gather, encode_gather=encode_gather)
 
 
 class GMRT(_BipartiteScorer):
@@ -191,8 +290,8 @@ class GMRT(_BipartiteScorer):
     def __init__(self, cfg: ArchConfig):
         super().__init__(cfg, GMRTEncoders(cfg))
 
-    def _encode(self, x, work, agg, gather):
-        return self.ignn(x, work)
+    def _encode(self, x, work, agg, gather, encode_gather=None):
+        return self.ignn(x, work, encode_gather=encode_gather)
 
 
 MODELS = {"EC-IN": EdgeClassifierIN, "Embedding-IN": EmbeddingIN,
@@ -202,12 +301,15 @@ MODELS = {"EC-IN": EdgeClassifierIN, "Embedding-IN": EmbeddingIN,
 
 def build_model(hparams: dict, seed: int = 0):
     """The model that ``hparams["model"]`` names, with seeded random weights
-    (on the CPU), in eval mode."""
+    (on the CPU), in eval mode.  The weights come from ``seed`` alone: the
+    layers' default init, which draws from torch's global generator, runs on a
+    fork of it, so building a model leaves that generator as it was."""
     try:
         model_cls = MODELS[hparams["model"]]
     except KeyError:
         raise ValueError(f"Can't find model name {hparams['model']!r}! "
                          f"Available: {sorted(MODELS)}") from None
-    model = model_cls(ArchConfig.from_hparams(hparams))
+    with torch.random.fork_rng(devices=[]):
+        model = model_cls(ArchConfig.from_hparams(hparams))
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.eval()

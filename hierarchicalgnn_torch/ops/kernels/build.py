@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
@@ -26,6 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_U = ctypes.c_ulonglong
 # C signature of every entry point: name -> argument types (all return int,
 # the launch's cudaGetLastError()).
 SIGNATURES = {
@@ -48,6 +51,11 @@ SIGNATURES = {
         # (data, perm, row_ptr, out, n_rows, d, stream)
         "hgnn_csr_gather_sum_bf16": (_P, _P, _P, _P, _I, _I, _P),
         "hgnn_csr_gather_sum_f32": (_P, _P, _P, _P, _I, _I, _P),
+    },
+    "ring_gather.cu": {
+        # (in[], out[], flags[], n_ranks, block_bytes, generation,
+        #  arrivals_before, info[2], stream)
+        "hgnn_ring_all_gather": (_P, _P, _P, _I, _L, _U, _U, ctypes.POINTER(_I), _P),
     },
     "top2.cu": {
         # (a, prices, v1, j1, v2, n_rows, n_cols, stream)
@@ -96,9 +104,18 @@ def build_all(sources=tuple(SIGNATURES)) -> dict[str, str]:
     return reports
 
 
-@functools.cache
+_LOAD_LOCK = threading.Lock()
+
+
 def library(source: str = "segment_csr.cu") -> ctypes.CDLL:
-    """The loaded library of ``source``, built first if needed."""
+    """The loaded library of ``source``, built first if needed (once, also
+    when several threads ask at the same time)."""
+    with _LOAD_LOCK:
+        return _load(source)
+
+
+@functools.cache
+def _load(source: str) -> ctypes.CDLL:
     build_all((source,))
     lib = ctypes.CDLL(str(library_path(source)))
     for name, argtypes in SIGNATURES[source].items():

@@ -27,6 +27,7 @@ JAX version's ``lax.cond`` fallback to XLA is a TPU workaround.
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import torch
 
@@ -36,8 +37,11 @@ INT32_MAX = 2**31 - 1
 
 # Kernel launches since the last reset, by kernel (K3/K4 are counted by
 # ops/kernels/sddmm.py, K6 by ops/kernels/top2.py, K7 by
-# ops/kernels/segment_gather.py).
-LAUNCHES = {"K1": 0, "K2": 0, "K5": 0, "K3": 0, "K4": 0, "K6": 0, "K7": 0}
+# ops/kernels/segment_gather.py, K8 by ops/kernels/ring_gather.py).
+LAUNCHES = {"K1": 0, "K2": 0, "K5": 0, "K3": 0, "K4": 0, "K6": 0, "K7": 0, "K8": 0}
+# The ranks of a shard group are threads of one process (parallel/comm.py) and
+# launch K1, K2 and K5 side by side: their counts are added under this lock.
+COUNT_LOCK = threading.Lock()
 
 
 def reset_launches():
@@ -193,7 +197,8 @@ def _k1(data_sorted, plan: SortedPlan):
             data_sorted.data_ptr(), plan.row_ptr.data_ptr(), out.data_ptr(),
             n, d, _stream(data_sorted))
     _raise_on(rc, entry)
-    LAUNCHES["K1"] += 1
+    with COUNT_LOCK:
+        LAUNCHES["K1"] += 1
     return out
 
 
@@ -214,7 +219,8 @@ def _k2(data_sorted, weights_sorted, plan: SortedPlan):
             data_sorted.data_ptr(), w.data_ptr(), plan.row_ptr.data_ptr(),
             out.data_ptr(), n, d, _stream(data_sorted))
     _raise_on(rc, entry)
-    LAUNCHES["K2"] += 1
+    with COUNT_LOCK:
+        LAUNCHES["K2"] += 1
     return out
 
 
@@ -380,5 +386,6 @@ def sorted_segment_min_i32(values_sorted, plan: SortedPlan):
             values_sorted.data_ptr(), plan.row_ptr.data_ptr(), out.data_ptr(), n,
             _stream(values_sorted))
     _raise_on(rc, "hgnn_csr_min_i32")
-    LAUNCHES["K5"] += 1
+    with COUNT_LOCK:
+        LAUNCHES["K5"] += 1
     return out

@@ -34,6 +34,15 @@ _DEFAULTS = {
 }
 
 
+# Keys of the graph-partitioned path that a config may set.  As in the JAX
+# package they are read where they are used (``parallel/graph_shard.py``), with
+# these defaults, and are not written into the processed dict.
+SHARD_DEFAULTS = {
+    "halo_backend": "xla",  # "rdma": every all-gather of the sharded path is kernel K8
+    "halo_slack": 1.5,      # per-rank edge capacity head-room of the partition
+}
+
+
 def process_hparams(hparams: dict) -> dict:
     """Derived-key post-processing (``hidden: ratio``, granularity, remat)."""
     hparams = dict(hparams)

@@ -10,13 +10,14 @@ not need and a machine with a card may not have.)
 
 Tolerance: the kernels and the plain versions accumulate in f32 in
 different orders, so sums agree within 1e-4 of each row's sum of |terms|
-and K3's dots within 1e-5 of theirs; K4's single product, the int32 min
-and the top-2 are exact.
+and K3's dots within 1e-5 of theirs; K4's single product, the int32 min,
+the top-2 and the all-gather (K8, a copy) are exact.
 """
 
 import pytest
 import torch
 
+from hierarchicalgnn_torch.ops.kernels import ring_gather as rg
 from hierarchicalgnn_torch.ops.kernels import sddmm, segment_gather as sg, top2
 from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
 
@@ -182,3 +183,136 @@ def test_function_gradients_on_the_card(dev):
     recv_cot = cot.abs()[plan.receivers_sorted]
     assert ((got[0] - want[0]).abs() <= 1e-5 * recv_cot * w[:, None] + 1e-6).all()
     assert ((got[1] - want[1]).abs() <= 1e-5 * (data.abs() * recv_cot).sum(-1) + 1e-6).all()
+
+
+def _blocks(dev, p, shape, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    make = lambda: (torch.rand(shape, generator=g) < 0.5 if dtype == torch.bool
+                    else (torch.randn(shape, generator=g) * 100).to(dtype))
+    return [make().to(dev) for _ in range(p)]
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bfloat16, (768, 256)), (torch.float32, (512, 8)), (torch.int32, (6144,)),
+    (torch.bool, (6144,)), (torch.float32, (1001, 3)), (torch.bfloat16, (1001, 3)),
+    (torch.bool, (1001,)), (torch.float32, (0, 8)), (torch.float32, (6144, 8)),
+    (torch.bfloat16, (36864, 128)), (torch.float32, (36864,))])
+def test_all_gather_kernel(dev, p, dtype, shape):
+    """K8, exact, one launch for all P ranks and an output of its own for
+    each: blocks of whole 16-byte vectors, and blocks whose bytes divide
+    only by 4, 2 or 1 (narrower loads)."""
+    blocks = _blocks(dev, p, shape, dtype)
+    before = sa.LAUNCHES["K8"]
+    outs = rg.ring_all_gather(blocks)
+    torch.cuda.synchronize()
+    assert sa.LAUNCHES["K8"] == before + 1 and len(outs) == p
+    want = torch.cat(blocks, 0)
+    for out in outs:
+        assert out.dtype == dtype and torch.equal(out, want)
+    if want.numel():
+        assert len({out.data_ptr() for out in outs}) == p
+    assert rg.ring_all_gather_plain(blocks)[0].equal(want)
+
+
+def test_all_gather_kernel_misaligned_base_and_capped_grid(dev):
+    """A view whose base is off a 16-byte boundary, and blocks so large that
+    the grid is capped by what the card holds at once (every thread then
+    walks several batches of its rank's block): exact."""
+    blocks = [b[1:] for b in _blocks(dev, 4, (1002, 3), torch.float32)]
+    assert blocks[0].data_ptr() % 16 == 12
+    for out in rg.ring_all_gather(blocks):
+        assert torch.equal(out, torch.cat(blocks, 0))
+    big = _blocks(dev, 8, (65536, 256), torch.bfloat16)  # 2M vectors a rank, 132 blocks
+    for out in rg.ring_all_gather(big):
+        assert torch.equal(out, torch.cat(big, 0))
+
+
+def test_all_gather_kernel_reuse_and_refusals(dev):
+    """50 calls back to back on one set of input buffers whose data changes
+    between the calls, with no host wait in the loop (the generation counter
+    keeps the calls' flags apart); and what the wrapper refuses on the card."""
+    blocks = _blocks(dev, 4, (6144, 256), torch.bfloat16)
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    for call in range(50):
+        for r, b in enumerate(blocks):
+            b.mul_(-1).add_(float(call % 7 + r))
+        want = torch.cat(blocks, 0)
+        for out in rg.ring_all_gather(blocks):
+            bad += (out != want).sum()
+    torch.cuda.synchronize()
+    assert int(bad) == 0
+    with pytest.raises(NotImplementedError, match="no backward"):
+        rg.ring_all_gather([b.float().requires_grad_() for b in blocks])
+    with pytest.raises(ValueError, match="contiguous"):
+        rg.ring_all_gather([b.T for b in blocks])
+    with pytest.raises(ValueError, match="blocks differ"):
+        rg.ring_all_gather([blocks[0], blocks[1][:5]])
+    with pytest.raises(ValueError, match="unsupported or mixed"):
+        rg.ring_all_gather([blocks[0], blocks[1].cpu()])
+
+
+def test_all_gather_kernel_two_groups_on_two_streams(dev):
+    """Two groups of 4 ranks, each on a stream of its own, 30 calls each with
+    nothing ordering one stream against the other: each stream has its own
+    flag words, so neither group sees the other's arrivals.  Exact."""
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    groups = [_blocks(dev, 4, (6144, 256), torch.bfloat16, seed) for seed in (1, 2)]
+    bad = [torch.zeros((), dtype=torch.int64, device=dev) for _ in streams]
+    torch.cuda.synchronize()
+    for call in range(30):
+        for i, (stream, blocks) in enumerate(zip(streams, groups)):
+            with torch.cuda.stream(stream):
+                for r, b in enumerate(blocks):
+                    b.mul_(-1).add_(float(call % 5 + r + i))
+                want = torch.cat(blocks, 0)
+                for out in rg.ring_all_gather(blocks):
+                    bad[i] += (out != want).sum()
+    torch.cuda.synchronize()
+    assert [int(b) for b in bad] == [0, 0]
+    keys = [k for k in rg._FLAGS if k[1] == 4]
+    assert {s.cuda_stream for s in streams} <= {k[2] for k in keys}
+
+
+def test_halo_flat_in_on_the_card(dev):
+    """The halo demonstration over 4 ranks with K8 as the halo against the
+    unsharded step, f32, within 1e-4; and the rdma and cat halos bit for bit
+    equal (with ``index_add_`` in its deterministic form: its atomics add in
+    an order that changes from run to run)."""
+    import numpy as np
+
+    from hierarchicalgnn_torch.models.mlp import MLP
+    from hierarchicalgnn_torch.parallel import halo
+
+    rng = np.random.default_rng(0)
+    n, e, latent = 1024, 4096, 32
+    gen = torch.Generator().manual_seed(0)
+    mlps = []
+    for i, size in enumerate((3, 6, 2 * latent, 3 * latent)):
+        mlp = MLP(size, 64, latent, 2, layer_norm=True,
+                  output_activation="Tanh" if i == 3 else "GELU")
+        mlp.reset_parameters(gen)
+        mlps.append(mlp.to(dev))
+    x = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(dev)
+    senders, receivers = rng.integers(0, n, e), rng.integers(0, n, e)
+    mask = rng.random(e) < 0.9
+    parts = [torch.from_numpy(a).to(dev)
+             for a in halo.partition_edges_by_receiver(senders, receivers, mask, n, 4)]
+    apply = halo.make_halo_flat_in(mlps, 2)
+    before = sa.LAUNCHES["K8"]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.no_grad():
+            got = halo.make_halo_flat_forward(apply, 4, rdma_gather=True)(x, *parts)
+            assert sa.LAUNCHES["K8"] == before + 3
+            cat = halo.make_halo_flat_forward(apply, 4, rdma_gather=False)(x, *parts)
+            assert sa.LAUNCHES["K8"] == before + 3
+    finally:
+        torch.use_deterministic_algorithms(False)
+    with torch.no_grad():
+        want = halo.flat_in_reference_step(
+            mlps, x, torch.from_numpy(senders).to(dev), torch.from_numpy(receivers).to(dev),
+            torch.from_numpy(mask).to(dev), n, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cat)
+    assert float((got - want).abs().max()) <= 1e-4

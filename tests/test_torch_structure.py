@@ -14,7 +14,8 @@ import torch
 from hierarchicalgnn_torch.inference import InferenceEngine
 from hierarchicalgnn_torch.models.models import build_model
 from hierarchicalgnn_torch.ops.kernels import (
-    build, sddmm, segment_gather, sorted_agg, top2)
+    build, ring_gather, sddmm, segment_gather, sorted_agg, top2)
+from hierarchicalgnn_torch.parallel import comm, graph_shard, halo
 from hierarchicalgnn_torch.utils.config import load_config
 
 from _torch_parity import SMALL
@@ -41,8 +42,37 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _PURITY], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    # the training modules, the registry, the gather kernel's among them
-    assert int(out.stdout.split()[-1]) >= 32
+    # the training modules, the registry, the gather kernels' and the
+    # parallel package among them
+    assert int(out.stdout.split()[-1]) >= 37
+
+
+def test_building_a_model_leaves_the_global_generator_alone():
+    """A model's weights come from its seed alone.  The layers' default init
+    draws from torch's global generator; ``build_model`` runs it on a fork, so
+    a program (or a test file that seeded the generator for itself) finds the
+    generator as it left it.  The weights do not depend on its state."""
+    hparams = load_config("bc_hgnn_gmm", SMALL)
+    with torch.random.fork_rng(devices=[]):  # this test's own seeding stays inside
+        torch.manual_seed(123)
+        state = torch.get_rng_state()
+        first = build_model(hparams).state_dict()
+        assert torch.equal(torch.get_rng_state(), state)
+        torch.manual_seed(456)
+        second = build_model(hparams).state_dict()
+    assert all(torch.equal(first[k], second[k]) for k in first)
+
+
+def test_parallel_modules_import_no_jax():
+    """The sharded path's modules are the port's own: torch and the port,
+    never jax, flax or the JAX package, in their source."""
+    for module in (ring_gather, comm, halo, graph_shard):
+        text = inspect.getsource(module)
+        imports = re.findall(r"^\s*(?:from|import)\s+([\w.]+)", text, re.M)
+        assert imports, module.__name__
+        for name in imports:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "hierarchicalgnn_tpu"), (
+                module.__name__, name)
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -110,7 +140,7 @@ def test_kernel_sources_and_build_flags():
     the build targets sm_90a."""
     sources = sorted(path.name for path in build.CSRC_DIR.glob("*.cu"))
     assert sources == sorted(build.SIGNATURES) == [
-        "sddmm_csr.cu", "segment_csr.cu", "segment_gather.cu", "top2.cu"]
+        "ring_gather.cu", "sddmm_csr.cu", "segment_csr.cu", "segment_gather.cu", "top2.cu"]
     for source, entries in build.SIGNATURES.items():
         src = (build.CSRC_DIR / source).read_text()
         assert "__global__" in src and 'extern "C"' in src
@@ -120,20 +150,22 @@ def test_kernel_sources_and_build_flags():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     # the wrappers name entry points that exist
     for module, source in ((sorted_agg, "segment_csr.cu"), (sddmm, "sddmm_csr.cu"),
-                           (top2, "top2.cu"), (segment_gather, "segment_gather.cu")):
+                           (top2, "top2.cu"), (segment_gather, "segment_gather.cu"),
+                           (ring_gather, "ring_gather.cu")):
         text = inspect.getsource(module)
         assert all(name in text for name in build.SIGNATURES[source]), source
 
 
 def test_every_kernel_wrapper_has_a_plain_sibling_and_a_counter():
-    """K1-K7: wrapper, plain version in the same module, launch counter; and
+    """K1-K8: wrapper, plain version in the same module, launch counter; and
     no ``try`` around a build or a launch."""
     wrappers = {"K1": (sorted_agg, "sorted_aggregate"),
                 "K2": (sorted_agg, "sorted_aggregate_weighted"),
                 "K5": (sorted_agg, "sorted_segment_min_i32"),
                 "K3": (sddmm, "sorted_sddmm"), "K4": (sddmm, "scaled_gather"),
                 "K6": (top2, "row_top2"),
-                "K7": (segment_gather, "csr_segment_sum")}
+                "K7": (segment_gather, "csr_segment_sum"),
+                "K8": (ring_gather, "ring_all_gather")}
     assert set(sorted_agg.LAUNCHES) == set(wrappers)
     for kernel, (module, name) in wrappers.items():
         assert callable(getattr(module, name)) and callable(getattr(module, name + "_plain"))
@@ -144,3 +176,37 @@ def test_every_kernel_wrapper_has_a_plain_sibling_and_a_counter():
     sorted_agg.LAUNCHES["K3"] += 1
     sorted_agg.reset_launches()
     assert not any(sorted_agg.LAUNCHES.values())
+
+
+def test_rdma_halo_cannot_reach_the_plain_version_on_the_card():
+    """By inspection, as for K1-K7.  In the wrapper the plain version is
+    returned in one place only, under the CPU test, and everything after it
+    is the launch; under ``halo_backend: rdma`` the group's all-gather calls
+    the wrapper and nothing else; no shape sends a block to ``torch.cat``."""
+    text = inspect.getsource(ring_gather.ring_all_gather)
+    assert text.count("ring_all_gather_plain(") == 1
+    cpu_branch = text.index("if _on_cpu(*blocks):")
+    plain_call = text.index("return ring_all_gather_plain(blocks)")
+    launch = text.index("getattr(library(SOURCE), ENTRY)")
+    assert cpu_branch < plain_call < launch
+    assert text[cpu_branch:plain_call].count("\n") == 1  # the very next line
+    after = text[plain_call + len("return ring_all_gather_plain(blocks)"):]
+    assert "return outs" in after and "torch.cat" not in after and "shape[1] %" not in text
+    assert 'LAUNCHES["K8"] += 1' in after
+
+    gather = inspect.getsource(comm.ShardGroup._all_gather)
+    rdma = gather.index('if self.halo_backend == "rdma":')
+    assert gather.index("return ring_all_gather(values)") > rdma
+    assert gather[rdma:].index("return ring_all_gather(values)") < gather[rdma:].index(
+        "ring_all_gather_plain")
+    # every all-gather of the sharded path goes through the group: neither
+    # module names the wrapper or its plain version
+    for module in (graph_shard, halo):
+        assert "ring_all_gather" not in inspect.getsource(module), module.__name__
+
+    # on the CPU the rdma backend takes the plain version, and only there
+    blocks = [torch.ones(2, 3), torch.zeros(2, 3)]
+    outs, _ = comm.run_sharded(lambda c: c.all_gather(blocks[c.index]), 2, "rdma")
+    assert torch.equal(outs[1], torch.cat(blocks)) and sorted_agg.LAUNCHES["K8"] == 0
+    with pytest.raises(ValueError, match="unsupported or mixed"):
+        comm.run_sharded(lambda c: c.all_gather(torch.empty(2, device="meta")), 2, "rdma")
