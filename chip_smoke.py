@@ -17,7 +17,13 @@ these phases and fails if any of them fails:
               one rank of the sharded forwards gives them (receiver-partitioned
               buffers of 36864 flat edges into 6144 nodes and 23552 superedges
               into 768 supernodes, with the slack's padding at the tail; the
-              rank's block of the bipartite graph into 3072 and 6144 rows); K7 also at widths that are no
+              rank's block of the bipartite graph into 3072 and 6144 rows), each
+              K1/K2 row with its device time per call from the profiler (tile
+              kernel + fix-up) and two calls compared bit for bit; K1 and K2
+              on the inputs that put row ends on every kind of tile boundary
+              (``tile_cases``: a row of one tile, rows ending on boundaries,
+              E < T, no valid slot, no slot, a ragged last tile, hub rows of
+              degree 5000 and 50000); K7 also at widths that are no
               whole 16-byte vectors; ``make_aggregator`` six times over one
               gather layout (K7's entry point); K8, the all-gather between
               the ranks of a shard group, exactly, at P 1, 2, 3, 4 and 8, in
@@ -105,12 +111,15 @@ NAMES = {"K1": "K1 sorted_aggregate", "K2": "K2 sorted_aggregate_weighted",
          "K5": "K5 sorted_segment_min_i32", "K3": "K3 sorted_sddmm",
          "K4": "K4 scaled_gather", "K6": "K6 row_top2", "K7": "K7 csr_segment_sum",
          "K8": "K8 ring_all_gather"}
-# the kernels' names in a profiler trace
-PROFILE_TAGS = {"K1": "csr_sum_kernel<__nv_bfloat16, false>",
-                "K2": "csr_sum_kernel<__nv_bfloat16, true>",
+# the kernels' names in a profiler trace (K1/K2: the bf16 tile kernel; its
+# fix-up, a second device launch of the same call, is FIXUP_TAGS)
+PROFILE_TAGS = {"K1": "csr_tile_sum_kernel<__nv_bfloat16, false>",
+                "K2": "csr_tile_sum_kernel<__nv_bfloat16, true>",
                 "K5": "csr_min_i32_kernel", "K3": "sddmm_kernel<",
                 "K4": "scaled_gather_kernel<", "K6": "row_top2_kernel",
                 "K7": "csr_gather_sum_kernel<", "K8": "all_gather_kernel<"}
+FIXUP_TAGS = {"K1": "csr_tile_fixup_kernel<__nv_bfloat16, false>",
+              "K2": "csr_tile_fixup_kernel<__nv_bfloat16, true>"}
 SUM_TOL = 1e-4  # f32 accumulation in another order: 1e-4 of the row's sum of |terms|
 DOT_TOL = 1e-5  # K3's f32 dot of up to 256 terms, K4's single product: 1e-5 of the sum of |terms|
 TRAIN_EPOCH = 50  # of emb_epoch 100: both losses carry weight on the sine schedule
@@ -145,6 +154,83 @@ def time_ms(torch, fn, iters=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_us(ev):
+    return getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0))
+
+
+def device_ms(torch, fn, tags, iters=10):
+    """Device ms per call of ``fn`` in the kernels whose names hold each of
+    ``tags`` (torch.profiler over ``iters`` calls, after one warm-up); None
+    for a tag the profiler did not see."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):  # a second window if the first came back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.key_averages()
+                  if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        found = {}
+        for tag in tags:
+            hits = [ev for ev in events if tag in ev.key]
+            found[tag] = sum(_device_us(ev) for ev in hits) / 1e3 / iters if hits else None
+        if any(v is not None for v in found.values()):
+            break
+    return found
+
+
+def tile_tags(kernel, dtype_name):
+    """K1's or K2's tile kernel and fix-up, by name, for data of ``dtype_name``."""
+    ctype = {"bfloat16": "__nv_bfloat16", "float32": "float"}[dtype_name]
+    return tuple(tags[kernel].replace("__nv_bfloat16", ctype)
+                 for tags in (PROFILE_TAGS, FIXUP_TAGS))
+
+
+def tile_cases(tile):
+    """K1/K2's boundary inputs at a tile of ``tile`` edges: (label, degree of
+    each row, invalid slots)."""
+    t = tile
+    return [
+        # rows ending on tile boundaries (t, 2t, 3t, 5t), an empty row on one,
+        # a row of exactly one tile, one of exactly two, empty rows at the end
+        ("rows that end on tile boundaries", [t // 2, t // 2, t, 0, t - 3, 3, 2 * t, 5, 0, 0], 4),
+        ("one row of exactly one tile", [t], 0),
+        ("a row that starts a tile and runs past its end", [t, t + 1, t - 1, 2], 3),
+        ("E < T", [3, 0, 5, 1], 2),
+        ("all slots invalid (row_ptr[N] = 0)", [0] * 50, 40),
+        ("every row empty, no slots", [0] * 50, 0),
+        ("the last tile ragged", [(37 * i) % 11 for i in range(300)], 13),
+        ("hub rows of degree 5000 and 50000", [2, 5000, 0, 7, 50000, 1, 0, 3], 100),
+    ]
+
+
+def padded_for(sa, tile, degrees, n_invalid):
+    """The invalid slots that make the K1/K2 wrapper cut these rows into
+    tiles of ``tile`` edges (it sizes the tile from all E slots): at least
+    ``n_invalid``, more where the rows alone are too few edges.  Rows of
+    more edges than the tile's range get the next larger tile."""
+    e_min = 0 if tile == sa.TILE_SIZES[-1] else (sa.MIN_TILES - 1) * tile + 1
+    return max(n_invalid, e_min - sum(degrees))
+
+
+def degree_plan(torch, degrees, n_invalid, dev, seed=0):
+    """A sorted plan whose row ``i`` has ``degrees[i]`` edges, with
+    ``n_invalid`` invalid slots, the slots handed over in a shuffled order."""
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+
+    gen = torch.Generator().manual_seed(seed)
+    n = len(degrees)
+    r = torch.repeat_interleave(torch.arange(n), torch.tensor(degrees, dtype=torch.long))
+    r = torch.cat([r, torch.randint(0, n, (n_invalid,), generator=gen)])
+    m = torch.arange(r.shape[0]) < r.shape[0] - n_invalid
+    order = torch.randperm(r.shape[0], generator=gen)
+    s = torch.randint(0, n, (r.shape[0],), generator=gen)
+    return sa.build_sorted_plan(s.to(dev), r[order].to(dev), m[order].to(dev), n)
 
 
 def ragged_receivers(torch, e, n, gen):
@@ -189,7 +275,7 @@ def phase_build():
     log(f"build: {len(reports)} source(s) compiled in {time.perf_counter() - t0:.1f} s")
     for source, report in reports.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"  ptxas {source}: {line.strip()}")
     for source in build.SIGNATURES:
         build.library(source)
@@ -281,12 +367,22 @@ def phase_kernels(torch):
             err = (out - ref).abs()
             ok = bool((err <= SUM_TOL * abs_sum + 1e-6).all())
             assert (out[3::7] == 0).all(), f"{kernel} wrote to an empty row"
+            assert torch.equal(fn(), out), f"{kernel} {label} {dtype}: two calls differ"
             ms, plain_ms, lib_ms = (time_ms(torch, fn), time_ms(torch, plain),
                                     time_ms(torch, library))
+            # the device time per call from the profiler: at 20-60 us the
+            # wrapper's host work is as long as the kernels, and "ms" times it
+            tags = tile_tags(kernel, str(dtype)[6:])
+            found = device_ms(torch, fn, tags)
+            tile_ms, fix_ms = found[tags[0]], found[tags[1]]
+            dev_ms = None if tile_ms is None or fix_ms is None else tile_ms + fix_ms
             b_ms, b_by = bound_ms(n_bytes, n_valid * d * (2 if kernel == "K2" else 1))
+            slower = [what for what, t in (("library", lib_ms), ("plain", plain_ms)) if ms > t]
             log(f"{kernel} {label} {str(dtype)[6:]} E={e} N={n} D={d}: max_abs_err "
-                f"{float(err.max()):.3e} ms {ms:.4f} plain_ms {plain_ms:.4f} "
-                f"library_ms {lib_ms:.4f} [{library_call}] bound_ms {b_ms:.4f} ({b_by})")
+                f"{float(err.max()):.3e} ms {ms:.4f} device_ms {dev_ms} (tile {tile_ms} "
+                f"+ fix-up {fix_ms}) plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
+                f"[{library_call}] bound_ms {b_ms:.4f} ({b_by})"
+                + (f" SLOWER THAN {' AND '.join(slower).upper()}" if slower else ""))
             if not ok:
                 raise AssertionError(f"{kernel} {label} {dtype} disagrees with its plain "
                                      f"version beyond {SUM_TOL} of |terms|")
@@ -295,7 +391,9 @@ def phase_kernels(torch):
                 rows[kernel] = {"max_abs_err": float(err.max()), "ms": ms,
                                 "plain_ms": plain_ms, "bound_ms": b_ms,
                                 "bound_by": b_by, "library_ms": lib_ms,
+                                "device_ms": dev_ms, "device_ms_fixup": fix_ms,
                                 "shape": f"{label} bf16 E={e} N={n} D={d}"}
+    kernel_tile_boundaries(torch)
 
     # the unsharded hop over the whole flat graph, then one rank's hop of the
     # sharded forward over its receiver-partitioned edges
@@ -331,6 +429,49 @@ def phase_kernels(torch):
     kernel_gather_sum(torch, gen, bound_ms, rows)
     phase_ring_gather(torch, rows)
     return rows
+
+
+def kernel_tile_boundaries(torch):
+    """K1 and K2 on the inputs that put row ends on every kind of tile
+    boundary (:func:`tile_cases`) at each tile size the wrapper picks, bf16
+    and f32, at D 256 (one and two column slices) and D 8 (16 or 32 workers
+    per warp): within SUM_TOL of the plain version, empty rows exactly zero,
+    two calls equal bit for bit."""
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(99)
+    checked = 0
+    for tile, (label, degrees, n_invalid) in (
+            (t, case) for t in sa.TILE_SIZES for case in tile_cases(t)):
+        plan = degree_plan(torch, degrees, padded_for(sa, tile, degrees, n_invalid), dev)
+        e, n = plan.perm.shape[0], len(degrees)
+        used = sa.tile_edges(e)
+        empty = torch.tensor(degrees, device=dev) == 0
+        w = plan.sort(torch.rand(e, generator=gen).to(dev) * 2.9 + 0.1)
+        for d in (256, 8):
+            for dtype in (torch.bfloat16, torch.float32):
+                data = plan.sort(torch.randn(e, d, generator=gen).to(dev, dtype))
+                for kernel, fn, plain in (
+                        ("K1", lambda x: sa.sorted_aggregate(x, plan),
+                         lambda x: sa.sorted_aggregate_plain(x, plan)),
+                        ("K2", lambda x: sa.sorted_aggregate_weighted(x, w, plan),
+                         lambda x: sa.sorted_aggregate_weighted_plain(x, w, plan))):
+                    out, again, ref = fn(data), fn(data), plain(data)
+                    torch.cuda.synchronize()
+                    what = f"{kernel} tile boundaries, {label}, {str(dtype)[6:]} D={d}"
+                    assert out.shape == (n, d) and out.dtype == torch.float32, what
+                    if not bool(((out - ref).abs() <= SUM_TOL * plain(data.abs()) + 1e-6).all()):
+                        raise AssertionError(f"{what}: disagrees with its plain version "
+                                             f"beyond {SUM_TOL} of |terms|")
+                    assert not out[empty].any(), f"{what}: an empty row is not zero"
+                    assert torch.equal(out, again), f"{what}: two calls differ"
+                    checked += 1
+        assert used == tile or sum(degrees) > (sa.MIN_TILES - 1) * tile, (label, tile, used)
+        log(f"K1/K2 tile boundaries at T {used}, {label} (E={e} N={n}, "
+            f"{int(plan.row_ptr[-1])} valid, longest row {max(degrees)}): within {SUM_TOL} of "
+            f"|terms|, empty rows zero, two calls bitwise equal")
+    log(f"K1/K2 tile boundaries: {checked} comparisons at tiles {sa.TILE_SIZES}")
 
 
 def kernels_backward(torch, gen, sum_cases, bound_ms, rows):
@@ -618,25 +759,29 @@ def profile_call(torch, fn, wall_ms, what, kernels, top=15):
               if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA
               and not getattr(ev, "is_user_annotation", False)
               and not ev.key.startswith("Optimizer.")]
-    dev_us = lambda ev: getattr(ev, "self_device_time_total",
-                                getattr(ev, "self_cuda_time_total", 0.0))
-    busy_ms = sum(dev_us(ev) for ev in events) / 1e3
+    busy_ms = sum(_device_us(ev) for ev in events) / 1e3
     if busy_ms == 0.0:
         log(f"profile of {what}: the profiler saw no device time (not measured)")
         return {}, [], None
     log(f"profile of {what}: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms "
         f"unprofiled host clock (idle share {100 * (1 - busy_ms / wall_ms):.1f}%), "
         f"{len(events)} kernel names, {sum(ev.count for ev in events)} launches")
-    for ev in sorted(events, key=dev_us, reverse=True)[:top]:
-        log(f"  {dev_us(ev) / 1e3:8.3f} ms  x{ev.count:<5d} {ev.key[:110]}")
+    for ev in sorted(events, key=_device_us, reverse=True)[:top]:
+        log(f"  {_device_us(ev) / 1e3:8.3f} ms  x{ev.count:<5d} {ev.key[:110]}")
     per_launch = {}
     for kernel in kernels:
         hits = [ev for ev in events if PROFILE_TAGS[kernel] in ev.key]
         n = sum(ev.count for ev in hits)
         if n:
-            per_launch[kernel] = sum(dev_us(ev) for ev in hits) / 1e3 / n
+            per_launch[kernel] = sum(_device_us(ev) for ev in hits) / 1e3 / n
             log(f"  {kernel}: {n} launches, {per_launch[kernel]:.4f} ms per launch")
-    return per_launch, [(ev.key, ev.count, dev_us(ev) / 1e3) for ev in events], busy_ms
+        if kernel in FIXUP_TAGS:  # the second device launch of each K1/K2 call
+            fix = [ev for ev in events if FIXUP_TAGS[kernel] in ev.key]
+            n_fix = sum(ev.count for ev in fix)
+            if n_fix:
+                log(f"  {kernel} fix-up: {n_fix} launches, "
+                    f"{sum(_device_us(ev) for ev in fix) / 1e3 / n_fix:.4f} ms per launch")
+    return per_launch, [(ev.key, ev.count, _device_us(ev) / 1e3) for ev in events], busy_ms
 
 
 def phase_parity(torch):
@@ -913,7 +1058,7 @@ def phase_training(torch, events):
                if any(word in key.lower() for word in ("index", "scatter", "atomic"))]
     log("indexing and scatter kernels in the step's trace (the K1/K2 backward and "
         "the flat and super endpoint gathers' backward are not among them: they ran "
-        "as sddmm_kernel, scaled_gather_kernel and csr_sum_kernel above):")
+        "as sddmm_kernel, scaled_gather_kernel and csr_tile_sum_kernel above):")
     for key, count in scatter:
         log(f"  x{count:<5d} {key[:120]}")
     return totals, per_launch

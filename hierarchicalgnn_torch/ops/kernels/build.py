@@ -33,10 +33,13 @@ _U = ctypes.c_ulonglong
 # the launch's cudaGetLastError()).
 SIGNATURES = {
     "segment_csr.cu": {
-        "hgnn_csr_sum_bf16": (_P, _P, _P, _I, _I, _P),
-        "hgnn_csr_sum_f32": (_P, _P, _P, _I, _I, _P),
-        "hgnn_csr_wsum_bf16": (_P, _P, _P, _P, _I, _I, _P),
-        "hgnn_csr_wsum_f32": (_P, _P, _P, _P, _I, _I, _P),
+        # (data, recv, row_ptr, out, partials, n_edges, n_rows, d, tile, lanes, stream)
+        "hgnn_csr_sum_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "hgnn_csr_sum_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # (data, w, recv, row_ptr, out, partials, n_edges, n_rows, d, tile, lanes, stream)
+        "hgnn_csr_wsum_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "hgnn_csr_wsum_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # (vals, row_ptr, out, n_rows, stream)
         "hgnn_csr_min_i32": (_P, _P, _P, _I, _P),
     },
     "sddmm_csr.cu": {

@@ -12,7 +12,9 @@ tensors live in receiver-sorted order for the whole forward; a
 The kernels are CUDA C++ (``csrc/segment_csr.cu``).  Each wrapper takes
 its plain PyTorch version only for tensors on the CPU; for a CUDA tensor
 it launches the kernel or raises.  ``LAUNCHES`` counts kernel launches, so
-a run can show that its path went through them.
+a run can show that its path went through them; a K1 or K2 call counts
+once, though it is two device launches (the tile kernel and its fix-up,
+cut as :func:`csr_tiling` says).
 
 K1 and K2 are differentiable (``torch.autograd.Function``): their
 backward runs the K3/K4 kernels of ``ops/kernels/sddmm.py``
@@ -27,6 +29,7 @@ JAX version's ``lax.cond`` fallback to XLA is a TPU workaround.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 
 import torch
@@ -60,7 +63,7 @@ class SortedPlan:
     edge_mask_sorted: torch.Tensor  # bool[E]: valid slots first
     row_ptr: torch.Tensor           # int32[num_segments + 1]
     num_segments: int
-    receivers_i32: torch.Tensor     # int32[E]: receivers_sorted for K3/K4
+    receivers_i32: torch.Tensor     # int32[E]: receivers_sorted for K1-K4
 
     def sort(self, x):
         """Original-order edge array -> sorted order, invalid slots zeroed."""
@@ -145,13 +148,82 @@ def sorted_segment_min_i32_plain(values_sorted, plan: SortedPlan):
 _SUM_ENTRY = {torch.bfloat16: "hgnn_csr_sum_bf16", torch.float32: "hgnn_csr_sum_f32"}
 _WSUM_ENTRY = {torch.bfloat16: "hgnn_csr_wsum_bf16", torch.float32: "hgnn_csr_wsum_f32"}
 
+# K1/K2 cut the valid edges into tiles of 128 edges, or of 64 or 32 where
+# larger tiles would leave fewer than MIN_TILES (about 4 a SM) for the grid:
+# on a small input the walk down a tile, 16 edges a round trip, sets the time
+TILE_SIZES = (128, 64, 32)
+MIN_TILES = 512
+_TILE_THREADS, _FIXUP_THREADS = 64, 256  # threads per block of the two kernels
+
+
+@dataclasses.dataclass(frozen=True)
+class CsrTiling:
+    """How K1/K2 cut one call: ``lanes`` threads (a power of two up to 32,
+    16 bytes of columns each) per worker, ``slices`` column slices of
+    ``lanes`` vectors, one worker per tile of ``tile`` edges in the tile
+    kernel and per row in the fix-up, ``scratch_rows`` f32 rows of width D
+    for the cut rows' partials (two per tile).  Grids are (blocks, slices)."""
+
+    tile: int
+    lanes: int
+    slices: int
+    n_tiles: int
+    scratch_rows: int
+    main_grid: tuple[int, int]
+    fixup_grid: tuple[int, int]
+
+
+def tile_edges(n_edges: int) -> int:
+    """The largest of TILE_SIZES that cuts ``n_edges`` into MIN_TILES tiles
+    or more, else the smallest."""
+    for tile in TILE_SIZES:
+        if -(-n_edges // tile) >= MIN_TILES:
+            return tile
+    return TILE_SIZES[-1]
+
+
+@functools.lru_cache(maxsize=1024)
+def csr_tiling(n_edges: int, n_rows: int, d: int, element_size: int) -> CsrTiling:
+    """The cut of a K1/K2 call over ``n_edges`` edge slots (valid or not:
+    the grid is sized on the host, and a tile past ``row_ptr[N]`` exits),
+    as the C launcher takes it.  Cached: the wrapper asks at every call."""
+    tile = tile_edges(n_edges)
+    vectors = -(-d * element_size // 16)
+    lanes = min(32, 1 << max(0, vectors - 1).bit_length())
+    slices = -(-vectors // lanes)
+    n_tiles = -(-n_edges // tile)
+    return CsrTiling(tile=tile, lanes=lanes, slices=slices, n_tiles=n_tiles,
+                     scratch_rows=2 * n_tiles,
+                     main_grid=(-(-n_tiles // (_TILE_THREADS // lanes)), slices),
+                     fixup_grid=(-(-n_rows // (_FIXUP_THREADS // lanes)), slices))
+
+
+# f32 scratch for the cut rows' partials, one buffer per (device, stream),
+# grown as needed.  Calls on one stream run in order, so they can share it;
+# the ranks of a shard group (parallel/comm.py) take turns on one stream.
+_PARTIALS = {}
+_PARTIALS_LOCK = threading.Lock()
+
+
+def _partials(device, stream: int, n_floats: int):
+    key = (device.index, stream)
+    buf = _PARTIALS.get(key)
+    if buf is not None and buf.numel() >= n_floats:
+        return buf
+    with _PARTIALS_LOCK:
+        buf = _PARTIALS.get(key)
+        if buf is None or buf.numel() < n_floats:
+            buf = _PARTIALS[key] = torch.empty(max(n_floats, 1), dtype=torch.float32,
+                                               device=device)
+    return buf
+
 
 def _on_cpu(*tensors) -> bool:
-    devices = {t.device.type for t in tensors}
-    if devices == {"cpu"}:
+    if all(t.is_cpu for t in tensors):
         return True
-    if devices == {"cuda"}:
+    if all(t.is_cuda for t in tensors):
         return False
+    devices = {t.device.type for t in tensors}
     raise ValueError(f"tensors on unsupported or mixed devices: {devices}")
 
 
@@ -181,22 +253,42 @@ def _raise_on(rc: int, entry: str):
 
 
 def _stream(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of the current stream of ``t``'s card (the raw accessor:
+    ``torch.cuda.current_stream`` builds a Stream object at every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+@functools.cache
+def _tile_entry(weighted: bool, dtype):
+    return getattr(library(), (_WSUM_ENTRY if weighted else _SUM_ENTRY)[dtype])
+
+
+def _tile_sum(data_sorted, w, plan: SortedPlan):
+    """Launch K1 (``w`` None) or K2 on CUDA tensors: the tile kernel and its
+    fix-up, one C call."""
+    if data_sorted.get_device() != torch.cuda.current_device():
+        with torch.cuda.device(data_sorted.device):  # launch with its card current
+            return _tile_sum(data_sorted, w, plan)
+    _check_data(data_sorted, plan)
+    (e, d), n = data_sorted.shape, plan.num_segments
+    out = data_sorted.new_empty((n, d), dtype=torch.float32)
+    cut = csr_tiling(e, n, d, data_sorted.element_size())
+    weights = () if w is None else (w.data_ptr(),)
+    stream = _stream(data_sorted)
+    partials = _partials(data_sorted.device, stream, cut.scratch_rows * d)
+    entry = _tile_entry(w is not None, data_sorted.dtype)
+    rc = entry(data_sorted.data_ptr(), *weights, plan.receivers_i32.data_ptr(),
+               plan.row_ptr.data_ptr(), out.data_ptr(), partials.data_ptr(), e, n, d,
+               cut.tile, cut.lanes, stream)
+    _raise_on(rc, entry.__name__)
+    return out
 
 
 def _k1(data_sorted, plan: SortedPlan):
     """K1 without autograd: the kernel, or its plain version on the CPU."""
     if _on_cpu(data_sorted, plan.row_ptr):
         return sorted_aggregate_plain(data_sorted, plan)
-    _check_data(data_sorted, plan)
-    n, d = plan.num_segments, data_sorted.shape[1]
-    out = torch.empty((n, d), dtype=torch.float32, device=data_sorted.device)
-    entry = _SUM_ENTRY[data_sorted.dtype]
-    with torch.cuda.device(data_sorted.device):
-        rc = getattr(library(), entry)(
-            data_sorted.data_ptr(), plan.row_ptr.data_ptr(), out.data_ptr(),
-            n, d, _stream(data_sorted))
-    _raise_on(rc, entry)
+    out = _tile_sum(data_sorted, None, plan)
     with COUNT_LOCK:
         LAUNCHES["K1"] += 1
     return out
@@ -206,19 +298,11 @@ def _k2(data_sorted, weights_sorted, plan: SortedPlan):
     """K2 without autograd: the kernel, or its plain version on the CPU."""
     if _on_cpu(data_sorted, weights_sorted, plan.row_ptr):
         return sorted_aggregate_weighted_plain(data_sorted, weights_sorted, plan)
-    _check_data(data_sorted, plan)
-    w = weights_sorted.reshape(-1)
+    w = weights_sorted if weights_sorted.ndim == 1 else weights_sorted.reshape(-1)
     if w.dtype != torch.float32:
         raise ValueError(f"weights must be float32, got {w.dtype}")
     _check_edges(w, plan, "weights")
-    n, d = plan.num_segments, data_sorted.shape[1]
-    out = torch.empty((n, d), dtype=torch.float32, device=data_sorted.device)
-    entry = _WSUM_ENTRY[data_sorted.dtype]
-    with torch.cuda.device(data_sorted.device):
-        rc = getattr(library(), entry)(
-            data_sorted.data_ptr(), w.data_ptr(), plan.row_ptr.data_ptr(),
-            out.data_ptr(), n, d, _stream(data_sorted))
-    _raise_on(rc, entry)
+    out = _tile_sum(data_sorted, w, plan)
     with COUNT_LOCK:
         LAUNCHES["K2"] += 1
     return out

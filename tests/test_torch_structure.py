@@ -18,6 +18,7 @@ from hierarchicalgnn_torch.ops.kernels import (
 from hierarchicalgnn_torch.parallel import comm, graph_shard, halo
 from hierarchicalgnn_torch.utils.config import load_config
 
+import chip_smoke
 from _torch_parity import SMALL
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -148,6 +149,26 @@ def test_kernel_sources_and_build_flags():
             assert f"int {name}(" in src, (source, name)
         assert build.library_path(source).parent == build.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    # ctypes passes as many arguments as each C entry takes
+    for source, entries in build.SIGNATURES.items():
+        src = (build.CSRC_DIR / source).read_text()
+        for name, argtypes in entries.items():
+            params = re.search(rf"int {name}\(([^)]*)\)", src).group(1)
+            assert len(params.split(",")) == len(argtypes), (source, name)
+    # K1/K2: the tile kernel and its fix-up take the plan's receivers, the
+    # partials' scratch, the tile and the lanes; the profiler's names of
+    # every kernel are kernels of their sources
+    src = (build.CSRC_DIR / "segment_csr.cu").read_text()
+    for name in ("hgnn_csr_sum_bf16", "hgnn_csr_wsum_f32"):
+        params = re.search(rf"int {name}\(([^)]*)\)", src).group(1)
+        for arg in ("recv", "partials", "n_edges", "tile", "lanes"):
+            assert re.search(rf"\b{arg}\b", params), (name, arg)
+    assert "csr_tile_fixup_kernel<T, kWeighted>" in src and "csr_sum_kernel" not in src
+    for tags in (chip_smoke.PROFILE_TAGS, chip_smoke.FIXUP_TAGS):
+        for kernel, tag in tags.items():
+            text = (build.CSRC_DIR / chip_smoke.SOURCES[kernel]).read_text()
+            assert re.search(rf"__global__ void(?: __launch_bounds__\(\w+\))?\s+"
+                             rf"{tag.split('<')[0]}\(", text), tag
     # the wrappers name entry points that exist
     for module, source in ((sorted_agg, "segment_csr.cu"), (sddmm, "sddmm_csr.cu"),
                            (top2, "top2.cu"), (segment_gather, "segment_gather.cu"),
@@ -173,6 +194,15 @@ def test_every_kernel_wrapper_has_a_plain_sibling_and_a_counter():
         assert f'LAUNCHES["{kernel}"] += 1' in text, kernel
         assert not re.search(r"^\s*(try|except)\b", text, re.M), module.__name__
     assert not re.search(r"^\s*try\b", inspect.getsource(build.library), re.M)
+    # K1/K2 take their plain versions on the line after the CPU test and
+    # nowhere else; the launch path names no plain version
+    for fn in (sorted_agg._k1, sorted_agg._k2):
+        text = inspect.getsource(fn)
+        assert text.count("_plain(") == 1
+        cpu = text.index("if _on_cpu(")
+        assert text[cpu:text.index("_plain(")].count("\n") == 1
+        assert text.index("_tile_sum(") > text.index("_plain(")
+    assert "_plain" not in inspect.getsource(sorted_agg._tile_sum)
     sorted_agg.LAUNCHES["K3"] += 1
     sorted_agg.reset_launches()
     assert not any(sorted_agg.LAUNCHES.values())
