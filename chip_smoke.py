@@ -550,12 +550,50 @@ def kernels_backward(torch, gen, sum_cases, bound_ms, rows):
                               "shape": f"scaled, {label} -> {name} E={e} N={n} D={d}"}
 
 
+# K6's ties between columns in neighbouring lanes (vector and scalar form), in
+# one lane's first and a later batch (vector 256 = column 1024; column 256), in
+# neighbouring warps of a row of 8 warps (column 128; column 32), between the
+# row's two ends, and one whose winner is not column 0
+TOP2_TIE_PAIRS = ((0, 4), (0, 1), (0, 1024), (0, 256), (0, 128), (0, 32), (-1, 0), (1028, 4))
+
+
+def plant_top2_ties(a, prices, first_row=1):
+    """Rows ``first_row``, ... of ``a`` (numpy or torch) get an equal best of
+    90 in the two columns of each of TOP2_TIE_PAIRS, at equal prices of 0.5
+    (pairs that fall on one column of a narrow row are left out)."""
+    p, c = a.shape
+    for row, pair in enumerate(TOP2_TIE_PAIRS, start=first_row):
+        cols = {j % c if j < 0 else min(j, c - 1) for j in pair}
+        if row < p and len(cols) == 2:
+            for j in cols:
+                a[row, j], prices[j] = 90.0, 0.5
+
+
 def kernel_top2(torch, gen, bound_ms, rows):
     """K6 against its plain version, exactly, at the auction's two sweep
-    shapes, with planted ties and a row of all NEG."""
+    shapes, with planted ties and a row of all NEG; then the boundary
+    inputs: C 3071, 5 and 1 (no whole 16-byte rows), an ``a`` one float off
+    a 16-byte boundary, P 1 and 37, ties across lane, batch and warp
+    boundaries.  Every input: two calls equal bit for bit."""
     from hierarchicalgnn_torch.ops.kernels import top2
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def exact(a, prices, label):
+        (v1, j1, v2), again, (r1, rj, r2) = (top2.row_top2(a, prices), top2.row_top2(a, prices),
+                                             top2.row_top2_plain(a, prices))
+        torch.cuda.synchronize()
+        if not (torch.equal(v1, r1) and torch.equal(j1, rj) and torch.equal(v2, r2)):
+            raise AssertionError(f"K6 {label} differs from its plain version: "
+                                 f"{int((j1 != rj).sum())} j1, {int((v1 != r1).sum())} v1, "
+                                 f"{int((v2 != r2).sum())} v2 of {a.shape[0]} rows")
+        assert all(torch.equal(x, y) for x, y in zip((v1, j1, v2), again)), f"K6 {label}: two calls"
+        cut = top2.top2_schedule(*a.shape, sms)
+        loads, staged = top2.top2_loads(cut, *a.shape, a.data_ptr(), prices.data_ptr())
+        return (v1, j1, v2), (f"{cut.warps_per_row} warp(s) a row, grid {cut.grid}, {loads} "
+                              f"loads, prices in {'shared' if staged else 'global'} memory")
+
     c = 3072
     for p, label in ((4096, "full sweep"), (256, "tail sweep")):
         a = torch.rand(p, c, generator=gen) * 40.0
@@ -567,29 +605,41 @@ def kernel_top2(torch, gen, bound_ms, rows):
         a[3, 3071] = a[3, 0] = 88.0           # a tie between the row's two ends
         prices = torch.rand(c, generator=gen) * 3.0
         prices[7] = prices[2900] = prices[0] = prices[3071] = 0.5
+        plant_top2_ties(a, prices, first_row=4)
         a, prices = a.to(dev), prices.to(dev)
         fn = lambda: top2.row_top2(a, prices)
         plain = lambda: top2.row_top2_plain(a, prices)
         library = lambda: torch.topk(a - prices[None, :], 2)
-        (v1, j1, v2), (r1, rj, r2) = fn(), plain()
-        torch.cuda.synchronize()
-        if not (torch.equal(v1, r1) and torch.equal(j1, rj) and torch.equal(v2, r2)):
-            raise AssertionError(f"K6 {label} differs from its plain version: "
-                                 f"{int((j1 != rj).sum())} j1, {int((v1 != r1).sum())} v1, "
-                                 f"{int((v2 != r2).sum())} v2 of {p} rows")
+        (v1, j1, v2), how = exact(a, prices, label)
         assert int(j1[1]) == 7 and float(v2[1]) == float(v1[1]) == 76.5, "K6 tie"
         assert int(j1[3]) == 0 and float(v2[3]) == float(v1[3]) == 87.5, "K6 tie"
         assert int(j1[0]) == 0 and float(v1[0]) == float(v2[0]), "K6 all-NEG row"
         ms, plain_ms, lib_ms = (time_ms(torch, fn), time_ms(torch, plain),
                                 time_ms(torch, library))
+        dev_ms = device_ms(torch, fn, (PROFILE_TAGS["K6"],))[PROFILE_TAGS["K6"]]
         b_ms, b_by = bound_ms(4 * p * c + 4 * c + 12 * p, 3 * p * c)
-        log(f"K6 {label} f32 P={p} C={c}: exact (ties and the all-NEG row included), "
-            f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
+        log(f"K6 {label} f32 P={p} C={c} ({how}): exact (ties and the all-NEG row included), "
+            f"ms {ms:.4f} device_ms {dev_ms} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
             f"[torch.topk(a - prices, 2)] bound_ms {b_ms:.4f} ({b_by})")
         if "K6" not in rows:
             rows["K6"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                          "shape": f"{label} f32 P={p} C={c}"}
+                          "device_ms": dev_ms, "shape": f"{label} f32 P={p} C={c}"}
+        else:
+            rows["K6"]["device_ms_tail_sweep"] = dev_ms
+    # the boundary inputs; `offset` floats into a buffer puts `a` off 16 bytes
+    for p, c, offset in ((1, 3072, 0), (37, 3072, 0), (37, 3071, 0), (37, 5, 0), (37, 1, 0),
+                         (40, 3072, 1), (3001, 2633, 0)):
+        a = torch.randn(p, c, generator=gen) * 10.0
+        a[torch.rand(p, c, generator=gen) < 0.5] = top2.NEG
+        a[0] = top2.NEG
+        prices = torch.rand(c, generator=gen)
+        plant_top2_ties(a, prices)
+        buf = torch.empty(p * c + offset, device=dev)
+        a_dev = buf[offset:].view(p, c)
+        a_dev.copy_(a)
+        _, how = exact(a_dev, prices.to(dev), f"P={p} C={c} offset {offset}")
+        log(f"K6 f32 P={p} C={c}, a {4 * offset} bytes off 16 ({how}): exact, two calls equal")
 
 
 def kernel_gather_sum(torch, gen, bound_ms, rows):
@@ -1399,17 +1449,32 @@ def phase_ring_gather(torch, rows):
         return torch.randn(shape, generator=gen).to(dtype)
 
     def check(blocks, what):
+        """Two calls, each exact against torch.cat; the launcher's cut equals
+        ``gather_schedule``'s.  Returns the path the bytes took."""
         before = sa.LAUNCHES["K8"]
         outs = rg.ring_all_gather(blocks)
+        again = rg.ring_all_gather(blocks)
         ref = rg.ring_all_gather_plain(blocks)
         torch.cuda.synchronize()
-        assert sa.LAUNCHES["K8"] == before + 1, "one launch serves all ranks"
+        assert sa.LAUNCHES["K8"] == before + 2, "one launch serves all ranks"
         assert len(outs) == len(blocks)
         if outs[0].numel():  # every rank has an output of its own
             assert len({o.data_ptr() for o in outs}) == len(outs)
-        for q, (out, want) in enumerate(zip(outs, ref)):
+        for q, (out, out2, want) in enumerate(zip(outs, again, ref)):
             if out.dtype != want.dtype or not torch.equal(out, want):
                 raise AssertionError(f"K8 {what}: rank {q}'s output differs from torch.cat")
+            if not torch.equal(out2, want):
+                raise AssertionError(f"K8 {what}: rank {q}'s output of a second call differs")
+        flags = rg._group_flags(blocks[0].get_device(), len(blocks), sa._stream(blocks[0]))
+        grid, vector, n_pairs, resident, chunk = flags.info
+        nbytes = blocks[0].numel() * blocks[0].element_size()
+        cut = rg.gather_schedule(nbytes, [b.data_ptr() for b in blocks],
+                                 [o.data_ptr() for o in again], resident)
+        assert (grid, vector, n_pairs, chunk) == (cut.grid, cut.vector, cut.n_pairs,
+                                                  cut.chunk), (what, cut)
+        bulk = sum(cut.bulk)
+        return ("bulk" if bulk == len(blocks) * nbytes and nbytes else
+                "vector" if bulk == 0 else "bulk + vector")
 
     n_cases = 0
     with watchdog():
@@ -1424,16 +1489,41 @@ def phase_ring_gather(torch, rows):
                 assert dtype != torch.float32 or blocks[0].data_ptr() % 16 == 12
                 check(blocks, f"P={p} {dtype} sliced base")
                 n_cases += 1
+        paths = {}
         for shape in K8_PATH_SHAPES:
             for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.bool):
-                check([make(shape, dtype).to(dev) for _ in range(N_PARTS)],
-                      f"P={N_PARTS} {dtype} {shape}")
+                path = check([make(shape, dtype).to(dev) for _ in range(N_PARTS)],
+                             f"P={N_PARTS} {dtype} {shape}")
+                assert path == "bulk", f"K8 {shape} {dtype}: the sharded path's block took {path}"
+                paths.setdefault(path, []).append(f"{list(shape)} {str(dtype)[6:]}")
                 K8_CHECKED.add((shape, dtype))
                 n_cases += 1
-        log(f"K8 exact against torch.cat in {n_cases} cases: P 1/2/3/4/8 x f32/bf16/"
-            f"int32/bool x [768,256], [6144], [1001,3], [1001], [0,8] and a sliced base; "
-            f"P {N_PARTS} x the same types x the sharded forwards' blocks "
-            f"{[list(shape) for shape in K8_PATH_SHAPES]}")
+        # the bulk copies' boundaries: (shape, dtype, rows 1.. of a larger array)
+        for p in (1, 2, 3, 4, 8):
+            # 2 KB a rank: one chunk of the least size; 12 KB: exactly S of them
+            for shape, dtype, sliced in (((512, 4), torch.float32, False),
+                                         ((768, 4), torch.float32, False),
+                                         ((768, 4), torch.float32, True),   # head, chunks, tail
+                                         ((1025, 4), torch.int32, True),
+                                         ((3,), torch.bool, False),          # under 16 bytes
+                                         ((7, 3), torch.bfloat16, True)):
+                full = (shape[0] + 1,) + shape[1:]
+                blocks = [make(full, dtype).to(dev) for _ in range(p)]
+                blocks = [b[1:] if sliced else b[:-1].contiguous() for b in blocks]
+                path = check(blocks, f"P={p} {dtype} {shape}{' sliced' if sliced else ''}")
+                if p == N_PARTS:
+                    paths.setdefault(path, []).append(
+                        f"{list(shape)} {str(dtype)[6:]}{' sliced' if sliced else ''}")
+                n_cases += 1
+        log(f"K8 exact against torch.cat in {n_cases} cases, each called twice (the two "
+            f"calls equal), the launcher's cut equal to gather_schedule's: P 1/2/3/4/8 x "
+            f"f32/bf16/int32/bool x [768,256], [6144], [1001,3], [1001], [0,8] and a sliced "
+            f"base; P {N_PARTS} x the same types x the sharded forwards' blocks "
+            f"{[list(shape) for shape in K8_PATH_SHAPES]}; P 1/2/3/4/8 x one chunk, S chunks, "
+            f"sliced S chunks ([512,4], [768,4] f32), [1025,4] int32 sliced, [3] bool, "
+            f"[7,3] bf16 sliced")
+        for path, cases in paths.items():
+            log(f"K8 at P {N_PARTS}, {path}: {', '.join(cases)}")
 
         # 50 calls back to back, the inputs rewritten in place between them,
         # checked on the device with no host wait in the loop
@@ -1486,12 +1576,14 @@ def phase_ring_gather(torch, rows):
             library = lambda: [torch.cat(blocks, 0) for _ in range(p)]
             ms, plain_ms, lib_ms = (time_ms(torch, fn), time_ms(torch, plain),
                                     time_ms(torch, library))
+            dev_ms = device_ms(torch, fn, (PROFILE_TAGS["K8"],))[PROFILE_TAGS["K8"]]
             block_bytes = b * 256 * 2
             n_bytes = p * block_bytes + p * p * block_bytes  # every input once, every output once
             b_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
             nvlink_ms = 1e3 * (p - 1) * block_bytes / 450e9
             log(f"K8 halo bf16 P={p} block [{b}, 256] (ranks on one card, HBM): exact, "
-                f"ms {ms:.4f} plain_ms {plain_ms:.4f} [one torch.cat shared by all ranks] "
+                f"ms {ms:.4f} device_ms {dev_ms} plain_ms {plain_ms:.4f} "
+                f"[one torch.cat shared by all ranks] "
                 f"library_ms {lib_ms:.4f} [torch.cat of the P blocks into each of P "
                 f"outputs] bound_ms {b_ms:.4f} (bytes: {n_bytes} over HBM); over NVLink "
                 f"not measured (its bound: {nvlink_ms:.4f} ms to receive "
@@ -1499,6 +1591,7 @@ def phase_ring_gather(torch, rows):
             if p == N_PARTS:
                 rows["K8"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                               "bound_ms": b_ms, "bound_by": "bytes", "library_ms": lib_ms,
+                              "device_ms": dev_ms,
                               "shape": f"halo bf16 P={p} block [{b}, 256], ranks on one card"}
 
 

@@ -57,12 +57,12 @@ SIGNATURES = {
     },
     "ring_gather.cu": {
         # (in[], out[], flags[], n_ranks, block_bytes, generation,
-        #  arrivals_before, info[2], stream)
-        "hgnn_ring_all_gather": (_P, _P, _P, _I, _L, _U, _U, ctypes.POINTER(_I), _P),
+        #  arrivals_before, device, info[5], stream)
+        "hgnn_ring_all_gather": (_P, _P, _P, _I, _L, _U, _U, _I, ctypes.POINTER(_I), _P),
     },
     "top2.cu": {
-        # (a, prices, v1, j1, v2, n_rows, n_cols, stream)
-        "hgnn_row_top2_f32": (_P, _P, _P, _P, _P, _I, _I, _P),
+        # (a, prices, out[3, n_rows], n_rows, n_cols, warps_per_row, grid, stream)
+        "hgnn_row_top2_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     },
 }
 

@@ -217,13 +217,13 @@ def test_all_gather_kernel(dev, p, dtype, shape):
 
 def test_all_gather_kernel_misaligned_base_and_capped_grid(dev):
     """A view whose base is off a 16-byte boundary, and blocks so large that
-    the grid is capped by what the card holds at once (every thread then
-    walks several batches of its rank's block): exact."""
+    the grid is capped by what the card holds at once (every block then
+    walks many (rank, chunk) pairs through its ring): exact."""
     blocks = [b[1:] for b in _blocks(dev, 4, (1002, 3), torch.float32)]
     assert blocks[0].data_ptr() % 16 == 12
     for out in rg.ring_all_gather(blocks):
         assert torch.equal(out, torch.cat(blocks, 0))
-    big = _blocks(dev, 8, (65536, 256), torch.bfloat16)  # 2M vectors a rank, 132 blocks
+    big = _blocks(dev, 8, (65536, 256), torch.bfloat16)  # 1024 chunks of 32 KB a rank, 132 blocks
     for out in rg.ring_all_gather(big):
         assert torch.equal(out, torch.cat(big, 0))
 

@@ -217,7 +217,7 @@ def test_rdma_halo_cannot_reach_the_plain_version_on_the_card():
     assert text.count("ring_all_gather_plain(") == 1
     cpu_branch = text.index("if _on_cpu(*blocks):")
     plain_call = text.index("return ring_all_gather_plain(blocks)")
-    launch = text.index("getattr(library(SOURCE), ENTRY)")
+    launch = text.index("_entry()(")
     assert cpu_branch < plain_call < launch
     assert text[cpu_branch:plain_call].count("\n") == 1  # the very next line
     after = text[plain_call + len("return ring_all_gather_plain(blocks)"):]
