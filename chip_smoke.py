@@ -111,15 +111,17 @@ NAMES = {"K1": "K1 sorted_aggregate", "K2": "K2 sorted_aggregate_weighted",
          "K5": "K5 sorted_segment_min_i32", "K3": "K3 sorted_sddmm",
          "K4": "K4 scaled_gather", "K6": "K6 row_top2", "K7": "K7 csr_segment_sum",
          "K8": "K8 ring_all_gather"}
-# the kernels' names in a profiler trace (K1/K2: the bf16 tile kernel; its
-# fix-up, a second device launch of the same call, is FIXUP_TAGS)
+# the kernels' names in a profiler trace (K1/K2: the bf16 tile kernel, K7 its
+# tile kernel; the fix-up, a second device launch of the same call, is
+# FIXUP_TAGS)
 PROFILE_TAGS = {"K1": "csr_tile_sum_kernel<__nv_bfloat16, false>",
                 "K2": "csr_tile_sum_kernel<__nv_bfloat16, true>",
                 "K5": "csr_min_i32_kernel", "K3": "sddmm_kernel<",
                 "K4": "scaled_gather_kernel<", "K6": "row_top2_kernel",
-                "K7": "csr_gather_sum_kernel<", "K8": "all_gather_kernel<"}
+                "K7": "csr_gather_tile_kernel<", "K8": "all_gather_kernel<"}
 FIXUP_TAGS = {"K1": "csr_tile_fixup_kernel<__nv_bfloat16, false>",
-              "K2": "csr_tile_fixup_kernel<__nv_bfloat16, true>"}
+              "K2": "csr_tile_fixup_kernel<__nv_bfloat16, true>",
+              "K7": "csr_gather_fixup_kernel<"}
 SUM_TOL = 1e-4  # f32 accumulation in another order: 1e-4 of the row's sum of |terms|
 DOT_TOL = 1e-5  # K3's f32 dot of up to 256 terms, K4's single product: 1e-5 of the sum of |terms|
 TRAIN_EPOCH = 50  # of emb_epoch 100: both losses carry weight on the sine schedule
@@ -410,20 +412,25 @@ def phase_kernels(torch):
         vv = vals[:n_valid].contiguous()
         library = lambda: torch.full((n,), sa.INT32_MAX, dtype=torch.int32,
                                      device=dev).scatter_reduce_(0, recv, vv, "amin")
-        out, ref = fn(), plain()
+        out, again, ref = fn(), fn(), plain()
         torch.cuda.synchronize()
         if not torch.equal(out, ref):
             raise AssertionError(f"K5 {label} disagrees with its plain version")
         assert (out[3::7] == sa.INT32_MAX).all(), "K5 wrote to an empty row"
+        assert torch.equal(out, again), f"K5 {label}: two calls differ"
         ms, plain_ms, lib_ms = (time_ms(torch, fn), time_ms(torch, plain),
                                 time_ms(torch, library))
+        tag = PROFILE_TAGS["K5"]
+        dev_ms = device_ms(torch, fn, (tag,))[tag]
         b_ms, b_by = bound_ms(4 * n_valid + 4 * (n + 1) + 4 * n, n_valid)
-        log(f"K5 {label} int32 E={e} N={n}: exact, ms {ms:.4f} plain_ms {plain_ms:.4f} "
-            f"library_ms {lib_ms:.4f} [scatter_reduce_ amin] bound_ms {b_ms:.4f} ({b_by})")
+        log(f"K5 {label} int32 E={e} N={n} (T {sa.min_tiling(e).tile}): exact, ms {ms:.4f} "
+            f"device_ms {dev_ms} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
+            f"[scatter_reduce_ amin] bound_ms {b_ms:.4f} ({b_by})")
         if "K5" not in rows:
             rows["K5"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                          "shape": f"{label} int32 E={e} N={n}"}
+                          "device_ms": dev_ms, "shape": f"{label} int32 E={e} N={n}"}
+    kernel_min_boundaries(torch)
     kernels_backward(torch, gen, sum_cases, bound_ms, rows)
     kernel_top2(torch, gen, bound_ms, rows)
     kernel_gather_sum(torch, gen, bound_ms, rows)
@@ -472,6 +479,64 @@ def kernel_tile_boundaries(torch):
             f"{int(plan.row_ptr[-1])} valid, longest row {max(degrees)}): within {SUM_TOL} of "
             f"|terms|, empty rows zero, two calls bitwise equal")
     log(f"K1/K2 tile boundaries: {checked} comparisons at tiles {sa.TILE_SIZES}")
+
+
+def kernel_min_boundaries(torch):
+    """K5 on the inputs of :func:`tile_cases` at each tile size K5 takes
+    (forced: the wrapper picks it from E), the degree-50000 row among them:
+    exactly its plain version, empty rows INT32_MAX, two calls bit for bit
+    equal; then 50 calls back to back on one scratch and calls on two
+    streams, where a counter left unreset would show."""
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(98)
+    pick = sa.min_tile_edges
+    checked = 0
+    try:
+        for tile in sa.MIN_TILE_SIZES:
+            sa.min_tile_edges = lambda n_edges, tile=tile: tile
+            sa.min_tiling.cache_clear()
+            for label, degrees, n_invalid in tile_cases(tile):
+                plan = degree_plan(torch, degrees, n_invalid, dev)
+                e = plan.perm.shape[0]
+                vals = torch.randint(0, 10**6, (e,), generator=gen, dtype=torch.int32).to(dev)
+                vals = torch.where(plan.edge_mask_sorted, vals, sa.INT32_MAX)
+                out, again = (sa.sorted_segment_min_i32(vals, plan),
+                              sa.sorted_segment_min_i32(vals, plan))
+                torch.cuda.synchronize()
+                what = f"K5 tile boundaries at T {tile}, {label}"
+                assert torch.equal(out, sa.sorted_segment_min_i32_plain(vals, plan)), what
+                assert (out[torch.tensor(degrees, device=dev) == 0] == sa.INT32_MAX).all(), what
+                assert torch.equal(out, again), f"{what}: two calls differ"
+                checked += 1
+    finally:
+        sa.min_tile_edges = pick
+        sa.min_tiling.cache_clear()
+    label, degrees, n_invalid = tile_cases(128)[-1]
+    plan = degree_plan(torch, degrees, n_invalid, dev)
+    e = plan.perm.shape[0]
+    vals = [torch.randint(0, 10**6, (e,), generator=gen, dtype=torch.int32).to(dev)
+            for _ in range(4)]
+    wants = [sa.sorted_segment_min_i32_plain(v, plan) for v in vals]
+    tag = PROFILE_TAGS["K5"]
+    hub_ms = device_ms(torch, lambda: sa.sorted_segment_min_i32(vals[0], plan), (tag,))[tag]
+    outs = [sa.sorted_segment_min_i32(vals[i % 4], plan) for i in range(50)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, wants[i % 4]) for i, o in enumerate(outs)), "K5 50 reuses"
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    got = {}
+    for k in range(10):
+        for i, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                got[k, i] = sa.sorted_segment_min_i32(vals[(k + i) % 4], plan)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, wants[(k + i) % 4]) for (k, i), o in got.items()), "K5 streams"
+    log(f"K5 tile boundaries: {checked} inputs at tiles {sa.MIN_TILE_SIZES} exact, empty rows "
+        f"INT32_MAX, two calls equal; rows of degree 5000 and 50000 (E={e}, T "
+        f"{sa.min_tiling(e).tile}) device_ms {hub_ms}; 50 calls back to back and 2 x 10 on "
+        f"two streams exact")
 
 
 def kernels_backward(torch, gen, sum_cases, bound_ms, rows):
@@ -645,8 +710,10 @@ def kernel_top2(torch, gen, bound_ms, rows):
 def kernel_gather_sum(torch, gen, bound_ms, rows):
     """K7 against its plain version on unsorted edge rows of the flagship
     flat graph (ragged rows, empty rows, the hot row, invalid edges), in
-    bf16 and f32: D 256 and 128 (16-byte vector loads) and D 100 and 3, whose
-    rows are no whole number of vectors (element loads)."""
+    bf16 and f32, at D 256 and 128 (16-byte loads) and D 100 and 3 (8, 4 or
+    2 bytes: the widest load that divides the row), each also at a base one
+    element off 16 bytes; then on :func:`tile_cases`.  Within SUM_TOL of
+    |terms|, empty rows exactly 0, two calls bit for bit equal."""
     from hierarchicalgnn_torch.ops.kernels import segment_gather as sg
 
     dev = torch.device("cuda")
@@ -657,33 +724,73 @@ def kernel_gather_sum(torch, gen, bound_ms, rows):
     n_valid = int(layout.row_ptr[-1])
     valid = m.nonzero()[:, 0]
     recv = r[valid]
+    tags = (PROFILE_TAGS["K7"], FIXUP_TAGS["K7"])
     for d in (256, 128, 100, 3):
         for dtype in (torch.bfloat16, torch.float32):
-            data = torch.randn(e, d, generator=gen).to(dev, dtype)
-            fn = lambda: sg.csr_segment_sum(data, layout)
-            plain = lambda: sg.csr_segment_sum_plain(data, layout)
-            d32 = data.float()[valid]
-            library = lambda: torch.zeros((n, d), device=dev).index_add_(0, recv, d32)
-            out, ref = fn(), plain()
-            torch.cuda.synchronize()
-            err = (out - ref).abs()
-            abs_sum = sg.csr_segment_sum_plain(data.abs(), layout)
-            assert (out[3::7] == 0).all(), "K7 wrote to an empty row"
-            if not bool((err <= SUM_TOL * abs_sum + 1e-6).all()):
-                raise AssertionError(f"K7 D={d} {dtype} disagrees with its plain version "
-                                     f"beyond {SUM_TOL} of |terms|")
-            ms, plain_ms, lib_ms = (time_ms(torch, fn), time_ms(torch, plain),
-                                    time_ms(torch, library))
-            b_ms, b_by = bound_ms(n_valid * d * data.element_size() + 4 * n_valid
-                                  + 4 * (n + 1) + 4 * n * d, n_valid * d)
-            label = f"flat edges->nodes, unsorted {str(dtype)[6:]} E={e} N={n} D={d}"
-            log(f"K7 {label}: max_abs_err {float(err.max()):.3e} ms {ms:.4f} plain_ms "
-                f"{plain_ms:.4f} library_ms {lib_ms:.4f} [index_add_ (f32 copy of the "
-                f"valid rows)] bound_ms {b_ms:.4f} ({b_by})")
-            if "K7" not in rows:
-                rows["K7"] = {"max_abs_err": float(err.max()), "ms": ms,
-                              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                              "library_ms": lib_ms, "shape": label}
+            flat = torch.randn(e * d + 1, generator=gen).to(dev, dtype)
+            for offset in (0, 1):
+                data = flat[offset:offset + e * d].view(e, d)
+                fn = lambda: sg.csr_segment_sum(data, layout)
+                plain = lambda: sg.csr_segment_sum_plain(data, layout)
+                out, again, ref = fn(), fn(), plain()
+                torch.cuda.synchronize()
+                err = (out - ref).abs()
+                abs_sum = sg.csr_segment_sum_plain(data.abs(), layout)
+                width = sg.load_width(d, data.element_size(), data.data_ptr())
+                label = (f"flat edges->nodes, unsorted {str(dtype)[6:]} E={e} N={n} D={d}"
+                         + (f", base {data.data_ptr() % 16} bytes off 16" if offset else ""))
+                assert (out[3::7] == 0).all(), f"K7 {label}: wrote to an empty row"
+                assert torch.equal(out, again), f"K7 {label}: two calls differ"
+                if not bool((err <= SUM_TOL * abs_sum + 1e-6).all()):
+                    raise AssertionError(f"K7 {label} disagrees with its plain version "
+                                         f"beyond {SUM_TOL} of |terms|")
+                found = device_ms(torch, fn, tags)
+                tile_ms, fix_ms = found[tags[0]], found[tags[1]]
+                dev_ms = None if tile_ms is None or fix_ms is None else tile_ms + fix_ms
+                if offset:
+                    log(f"K7 {label} ({width}-byte loads): max_abs_err {float(err.max()):.3e} "
+                        f"ms {time_ms(torch, fn):.4f} device_ms {dev_ms}")
+                    continue
+                d32 = data.float()[valid]
+                library = lambda: torch.zeros((n, d), device=dev).index_add_(0, recv, d32)
+                ms, plain_ms, lib_ms = (time_ms(torch, fn), time_ms(torch, plain),
+                                        time_ms(torch, library))
+                b_ms, b_by = bound_ms(n_valid * d * data.element_size() + 4 * n_valid
+                                      + 4 * (n + 1) + 4 * n * d, n_valid * d)
+                log(f"K7 {label} ({width}-byte loads): max_abs_err {float(err.max()):.3e} ms "
+                    f"{ms:.4f} device_ms {dev_ms} (tile {tile_ms} + fix-up {fix_ms}) plain_ms "
+                    f"{plain_ms:.4f} library_ms {lib_ms:.4f} [index_add_ (f32 copy of the "
+                    f"valid rows)] bound_ms {b_ms:.4f} ({b_by})")
+                if "K7" not in rows:
+                    rows["K7"] = {"max_abs_err": float(err.max()), "ms": ms,
+                                  "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                  "library_ms": lib_ms, "device_ms": dev_ms,
+                                  "device_ms_fixup": fix_ms, "shape": label}
+    checked = 0
+    for label, degrees, n_invalid in tile_cases(128):
+        plan = degree_plan(torch, degrees, n_invalid, dev)
+        lay = sg.make_csr_layout(plan.unsort(plan.receivers_sorted),
+                                 plan.unsort(plan.edge_mask_sorted), len(degrees))
+        e_case = plan.perm.shape[0]
+        empty = torch.tensor(degrees, device=dev) == 0
+        for d in (256, 100, 3):
+            for dtype in (torch.bfloat16, torch.float32):
+                flat = torch.randn(e_case * d + 1, generator=gen).to(dev, dtype)
+                for offset in (0, 1):
+                    data = flat[offset:offset + e_case * d].view(e_case, d)
+                    out, again = sg.csr_segment_sum(data, lay), sg.csr_segment_sum(data, lay)
+                    torch.cuda.synchronize()
+                    what = f"K7 tile boundaries, {label}, {str(dtype)[6:]} D={d} offset {offset}"
+                    bound = sg.csr_segment_sum_plain(data.abs(), lay)
+                    if not bool(((out - sg.csr_segment_sum_plain(data, lay)).abs()
+                                 <= SUM_TOL * bound + 1e-6).all()):
+                        raise AssertionError(f"{what}: disagrees with its plain version")
+                    assert not out[empty].any(), f"{what}: an empty row is not zero"
+                    assert torch.equal(out, again), f"{what}: two calls differ"
+                    checked += 1
+    log(f"K7 tile boundaries: {checked} comparisons (tile_cases at T 128, D 256/100/3, bf16 "
+        f"and f32, aligned and one element off) within {SUM_TOL} of |terms|, empty rows zero, "
+        f"two calls bitwise equal")
 
 
 def phase_aggregator(torch):
@@ -779,8 +886,16 @@ def phase_serving(torch, events):
     for kernel in ("K1", "K2", "K5"):
         assert totals[kernel] > 0, f"serving never launched {kernel}"
 
-    per_launch, _, _ = profile_call(torch, lambda: engine.reconstruct(events[0]),
-                                    event_ms[0], "one reconstruct", ("K1", "K2", "K5"))
+    before = dict(sa.LAUNCHES)
+    per_launch, trace, _ = profile_call(torch, lambda: engine.reconstruct(events[0]),
+                                        event_ms[0], "one reconstruct", ("K1", "K2", "K5"))
+    # K5 is one device launch a call: the trace holds as many K5 kernels as
+    # the wrapper counted calls
+    k5_calls = sa.LAUNCHES["K5"] - before["K5"]
+    k5_kernels = sum(count for key, count, _ in trace if PROFILE_TAGS["K5"] in key)
+    assert k5_calls > 0 and k5_kernels == k5_calls, (k5_kernels, k5_calls)
+    log(f"K5 on the served event: {k5_calls} wrapper calls, {k5_kernels} device launches "
+        f"in the trace")
 
     # outputs of one event: finite, of the expected shapes
     hp_n, cap = hp["n_nodes_max"], hp["n_nodes_max"] * hp["bipartitegraph_sparsity"]

@@ -16,113 +16,91 @@
 // by receiver, so each output row owns one contiguous edge range and the
 // natural Hopper form is a segmented reduction over the edges.
 //
-// Bound: all three are memory-bound.  K1 reads E_valid*D*sizeof(T) + 4(N+1)
-// bytes and writes 4*N*D; K2 reads 4*E_valid more for the weights; K5 reads
-// 4E + 4(N+1) and writes 4N.  None does more than one add (or fma, or min)
-// per element read, far below the card's ~295 operations per byte.
+// Bound: K1 reads E_valid*D*sizeof(T) + 4(N+1) bytes and writes 4*N*D; K2
+// reads 4*E_valid more for the weights; K5 reads 4E + 4(N+1) and writes 4N.
+// None does more than one add (or fma, or min) per element read, far below
+// the card's ~295 operations per byte: K1 and K2 are memory-bound, K5 is
+// bound by a launch's floor (below).
 //
-// Design, K1/K2: an edge-balanced segmented sum, cut by edges and not by rows.
+// Design, K1/K2: an edge-balanced segmented sum, cut by edges and not by rows
+// (the walk and the fix-up are csr_tiles.cuh's, shared with K7).
 //  * The valid edges [0, row_ptr[N]) are cut into tiles of `tile` consecutive
 //    edges: 128, or 64 or 32 where larger tiles would leave fewer than 512
 //    (the wrapper's tile_edges, from E alone).  A worker owns one tile and walks
 //    its edges in order, in f32 registers, reading each edge's row from the
 //    plan's receiver array.  A row that lies wholly inside the tile is written
-//    straight to `out`.  A row cut by the tile's start (slot 0) or end (slot 1)
-//    has its partial written to `partials[tile][slot]`; a row that covers the
-//    whole tile counts as cut by its start.  A hub row of degree 5000 is thus
-//    40 workers side by side, not one block: no launch lasts as long as its
-//    longest row.  The grid is ceil(E / tile) tiles from E alone; a tile past
-//    row_ptr[N] exits, so no host sync and no plan change is needed.
+//    straight to `out`; a row cut by the tile's start or end leaves a partial.
+//    A hub row of degree 5000 is thus 40 workers side by side, not one block:
+//    no launch lasts as long as its longest row.  The grid is ceil(E / tile)
+//    tiles from E alone; a tile past row_ptr[N] exits, so no host sync and no
+//    plan change is needed.
 //  * A worker is `lanes` threads (a power of two up to 32), each holding 16
 //    bytes of columns (8 bf16 or 4 f32).  Narrow rows (D 8 f32: 2 lanes) put
 //    16 workers in a warp, so few lanes idle.  blockIdx.y picks a slice of
-//    lanes * 16 bytes of columns: 256 bf16 or 128 f32 at 32 lanes.  f32 at D
-//    256 is two slices side by side; no worker walks its edges twice.
+//    lanes * 16 bytes of columns: 256 bf16 or 128 f32 at 32 lanes.
 //  * Loads are batched by hand: a worker issues the receiver, the weight and
-//    the 16-byte data vector of kBatch (16) edges before it adds the first, so
-//    a warp keeps 8 KB in flight and the walk waits for one round trip to
-//    memory per 16 edges.  On a small input (E 36864 at T 128: 288 tiles)
-//    those round trips, not the bytes, set the time: hence the smaller tiles.
-//  * A fix-up kernel, launched from the same C entry right after, visits every
-//    row once: an empty row gets zeros, a row cut into tiles t0 = begin / tile
-//    .. t1 = (end - 1) / tile gets partials[t0][1] + partials[t0 + 1][0] + ...
-//    + partials[t1][0], added in tile order and written once (a row of more
-//    than 16 partials by the whole block, each worker a share); any other row
-//    was written by its tile.  Two launches and no atomics, counters or
-//    memsets: every row is summed in one fixed order, so the result is the
-//    same bit for bit from run to run.  (A single launch would need the tile
-//    that finishes a cut row last to find out that it is last: an atomic
-//    counter per tile or a generation word as in K8, which costs more code
-//    than the second launch costs time.)
+//    the 16-byte data vector of 16 edges before it adds the first, so a warp
+//    keeps 8 KB in flight.  On a small input (E 36864 at T 128: 288 tiles)
+//    the round trips, not the bytes, set the time: hence the smaller tiles.
+//  * A fix-up kernel, launched from the same C entry right after, zeros the
+//    empty rows and adds each cut row's partials in tile order.  Two launches
+//    and no atomics: every row is summed in one fixed order, so the result is
+//    the same bit for bit from run to run.
 //  * The partials are 2 * ceil(E / tile) rows of D f32, scratch that the
 //    wrapper passes in (bf16 D 256, E 122880: 960 tiles, 1.97 MB against 61
 //    MB read); only the cut rows' slots are written and read back.
-// K5: one warp per row; the lanes stride over the row's edges and a shuffle
-// tree reduces.
+//
+// Design, K5: an edge-balanced segment min in one launch.
+//  * Bound: 4E + 4(N + 1) bytes read and 4N written; on the CC hop of the
+//    flagship (E 98304, N 24576) 0.0002 ms at 3.35 TB/s.  That is below the
+//    floor of any launch (a few microseconds on an H100), so the floor and the
+//    round trips to memory bound it, not the bytes: the design keeps both to
+//    one launch and few dependent round trips.
+//  * The valid edges are cut into tiles of `tile` edges (32-256, from E alone:
+//    sorted_agg.min_tile_edges); a warp owns a tile, each lane a run of
+//    tile / 32 consecutive edges, whose values and receivers it loads all at
+//    once (up to 8 of each in flight) before the first min.  The one-warp-a-row
+//    kernel this replaces walked a hub row of 5000 edges in 157 strided loads
+//    on one warp while the rest of the card idled; here a hub is 20-160 warps
+//    side by side, and no warp walks more than its tile.
+//  * A lane writes the rows that end inside its run; a shuffle scan keyed by
+//    row carries a row that crosses lanes to the lane where it ends.  Each
+//    tile writes INT32_MAX to the rows strictly between two consecutive
+//    receivers it reads (it reads the receiver before its start): they have
+//    no edge.  Tile 0 also fills the rows before the first edge, the tile of
+//    the last valid edge the rows after it, and with no valid edge at all
+//    every warp fills a grid-stride share of the rows.
+//  * A row cut by a tile boundary is finished in the same launch.  A min is
+//    exact and order-free, so whoever folds it gives the same bits.  Each tile
+//    that covers a cut row writes its partial (slot 0 for the row across its
+//    start, slot 1 for the row across its end, as in K1) and then adds one to
+//    the arrival counter of the row's first tile t0, with release and acquire
+//    semantics.  The tile that draws t1 - t0 (the last of the row's t1 - t0 + 1
+//    tiles to arrive) folds the partials with its whole warp, writes the row
+//    and sets the counter back to 0.  The counters are scratch that the
+//    wrapper keeps per stream, zeroed once when allocated: no memset per call.
 //
 // Interface: plain C, loaded with ctypes.  Each entry launches on the given
 // stream, allocates nothing, and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
 
+#include "csr_tiles.cuh"
+
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kWarps = 8;  // warps per block
-constexpr int kThreads = kWarp * kWarps;
+using csr_tiles::kWarp;
+using csr_tiles::Vec;
+constexpr int kThreads = 256;  // the fix-up's block
 // K1/K2's tile kernel runs 64-thread blocks, so that the flagship's 768-960
-// tiles (one warp each at D 256) spread over all 132 SMs in 384-480 blocks;
-// its fix-up runs kThreads
+// tiles (one warp each at D 256) spread over all 132 SMs in 384-480 blocks
 constexpr int kTileThreads = 64;
-constexpr int kBatch = 16;  // edges whose loads a worker issues before any add
-constexpr int kFixBatch = 8;  // partials whose loads the fix-up issues before any add
-constexpr int kLongParts = 16;  // a row of more partials is summed by a whole fix-up block
-
-// One 16-byte vector of a data row: its raw load, kept apart from its
-// conversion so that a worker can issue several loads before it uses one.
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  using Raw = float4;
-  __device__ __forceinline__ static Raw load(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
-  __device__ __forceinline__ static void unpack(const Raw& q, float (&v)[N]) {
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  using Raw = uint4;
-  __device__ __forceinline__ static Raw load(const __nv_bfloat16* p) {
-    return __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  __device__ __forceinline__ static void unpack(const Raw& q, float (&v)[N]) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-};
-
-// V f32 values to p (16-byte aligned) as V / 4 vector stores.
-template <int V>
-__device__ __forceinline__ void store_f32(float* p, const float (&v)[V]) {
-#pragma unroll
-  for (int i = 0; i < V; i += 4)
-    *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
-}
+constexpr int kMinWarps = 4;  // K5: warps (tiles) per block
+constexpr int kMinThreads = kWarp * kMinWarps;
+constexpr int kMinPer = 8;  // K5: most edges a lane holds (tiles of up to 256 edges)
+constexpr unsigned kAll = 0xffffffffu;
 
 template <typename T, bool kWeighted>
 __global__ void __launch_bounds__(kTileThreads)
@@ -130,196 +108,210 @@ csr_tile_sum_kernel(const T* __restrict__ data, const float* __restrict__ w,
                     const int* __restrict__ recv, const int* __restrict__ row_ptr,
                     float* __restrict__ out, float* __restrict__ partials, int n_tiles,
                     int n_rows, int d, int tile, int lanes) {
-  using L = Vec<T>;
-  constexpr int V = L::N;
+  constexpr int V = Vec<T, 16>::N;
   const int t = blockIdx.x * (kTileThreads / lanes) + threadIdx.x / lanes;
   if (t >= n_tiles) return;
-  const int n_valid = __ldg(row_ptr + n_rows);
-  const int start = t * tile;
-  if (start >= n_valid) return;  // the whole worker leaves together
-  const int stop = min(start + tile, n_valid);
   const int c = (blockIdx.y * lanes + threadIdx.x % lanes) * V;
-  const bool active = c < d;
-  const int cc = active ? c : 0;  // an idle lane reads column 0, and drops it
-  const T* col = data + cc;
-  // the rows that cross the tile's start and its end
-  const int first = __ldg(recv + start);
-  const bool cut_start = start > 0 && __ldg(recv + start - 1) == first;
-  const bool cut_end = stop < n_valid && __ldg(recv + stop) == __ldg(recv + stop - 1);
-  float* const slot0 = partials + static_cast<size_t>(2 * t) * d + cc;
-  float* const slot1 = slot0 + d;
-
-  float acc[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) acc[i] = 0.f;
-  int row = first;
-  bool in_first = true;  // still in the tile's first row
-  for (int e0 = start; e0 < stop; e0 += kBatch) {
-    // the loads of kBatch edges first (a slot past the tile repeats its last
-    // edge and is not added), then the adds in edge order
-    int r[kBatch];
-    typename L::Raw q[kBatch];
-    float we[kBatch];
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      const int e = min(e0 + i, stop - 1);
-      r[i] = __ldg(recv + e);
-      q[i] = L::load(col + static_cast<size_t>(e) * d);
-      if constexpr (kWeighted) we[i] = __ldg(w + e);
-    }
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      if (e0 + i < stop) {
-        if (r[i] != row) {  // `row` ends inside the tile
-          if (active) {
-            store_f32<V>(in_first && cut_start ? slot0
-                                               : out + static_cast<size_t>(row) * d + c,
-                         acc);
-          }
-#pragma unroll
-          for (int k = 0; k < V; ++k) acc[k] = 0.f;
-          row = r[i];
-          in_first = false;
-        }
-        float v[V];
-        L::unpack(q[i], v);
-#pragma unroll
-        for (int k = 0; k < V; ++k) {
-          if constexpr (kWeighted) {
-            acc[k] = fmaf(we[i], v[k], acc[k]);
-          } else {
-            acc[k] += v[k];
-          }
-        }
-      }
-    }
-  }
-  if (active) {
-    store_f32<V>(in_first && cut_start ? slot0
-                 : cut_end             ? slot1
-                                       : out + static_cast<size_t>(row) * d + c,
-                 acc);
-  }
+  csr_tiles::tile_walk<T, 16, kWeighted, false>(data, w, nullptr, recv, row_ptr, out,
+                                                partials, t, n_rows, d, tile, c);
 }
 
-// Adds partials [lo, hi) of a row cut into tiles t0 .. t1 to acc, in order:
-// partial 0 is slot 1 of tile t0, partial i > 0 slot 0 of tile t0 + i.
-// kFixBatch loads in flight at a time.
-template <int V>
-__device__ __forceinline__ void add_partials(const float* __restrict__ partials, int t0, int lo,
-                                             int hi, int d, int c, float (&acc)[V]) {
-  for (int i0 = lo; i0 < hi; i0 += kFixBatch) {
-    float4 q[kFixBatch][V / 4];
-#pragma unroll
-    for (int i = 0; i < kFixBatch; ++i) {
-      const int k = min(i0 + i, hi - 1);
-      const float* p = partials + static_cast<size_t>(k == 0 ? 2 * t0 + 1 : 2 * (t0 + k)) * d + c;
-#pragma unroll
-      for (int j = 0; j < V / 4; ++j) q[i][j] = __ldg(reinterpret_cast<const float4*>(p) + j);
-    }
-#pragma unroll
-    for (int i = 0; i < kFixBatch; ++i) {
-      if (i0 + i < hi) {
-#pragma unroll
-        for (int j = 0; j < V / 4; ++j) {
-          acc[4 * j] += q[i][j].x;
-          acc[4 * j + 1] += q[i][j].y;
-          acc[4 * j + 2] += q[i][j].z;
-          acc[4 * j + 3] += q[i][j].w;
-        }
-      }
-    }
-  }
-}
-
-// Rows the tiles did not finish: zeros for an empty row, the partials of a
-// cut row in tile order.  One worker of `lanes` threads per row, as in the
-// tile kernel, so the cut rows are summed side by side (a warp that reads 32
-// rows' extents and then writes the ones that need it serialises the cut rows
-// of its 32, and ran twice as long on the bipartite graph's 3072 rows on an
-// H100).  A row cut into more than kLongParts tiles (a hub: degree 5000 at
-// tile 32 is 156 partials, 20 round trips for one worker) is summed by all
-// the workers of the block instead: each adds a contiguous share in order,
-// and the first worker adds the shares in worker order, so the sum is still
-// the same bit for bit from run to run.  Templated like the tile kernel it
-// follows, so that a trace tells K1's fix-up from K2's.
+// Templated like the tile kernel it follows, so that a trace tells K1's
+// fix-up from K2's.
 template <typename T, bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
 csr_tile_fixup_kernel(const float* __restrict__ partials, const int* __restrict__ row_ptr,
                       float* __restrict__ out, int n_rows, int d, int tile, int lanes) {
-  constexpr int V = Vec<T>::N;
-  __shared__ int n_long;
-  __shared__ int long_rows[kThreads];  // at most one per worker
-  __shared__ float share[kThreads][V];
-  const int workers = kThreads / lanes;
-  const int worker = threadIdx.x / lanes;
-  const int lane = threadIdx.x % lanes;
-  const int row = blockIdx.x * workers + worker;
-  const int c = (blockIdx.y * lanes + lane) * V;
-  const bool active = c < d;
-  if (threadIdx.x == 0) n_long = 0;
-  __syncthreads();
-  // no thread leaves before the block's hub rows are done: every worker adds a share
-  if (row < n_rows) {
-    const int begin = __ldg(row_ptr + row);
-    const int end = __ldg(row_ptr + row + 1);
-    const int t0 = begin / tile;
-    // the tiles the row meets: 0 if it is empty, 1 if its tile wrote it
-    const int n_parts = begin < end ? (end - 1) / tile - t0 + 1 : 0;
-    if (n_parts > kLongParts) {
-      if (lane == 0) long_rows[atomicAdd(&n_long, 1)] = row;  // any order: see below
-    } else if (active && n_parts != 1) {
-      float acc[V];
-#pragma unroll
-      for (int i = 0; i < V; ++i) acc[i] = 0.f;
-      add_partials<V>(partials, t0, 0, n_parts, d, c, acc);
-      store_f32<V>(out + static_cast<size_t>(row) * d + c, acc);
-    }
-  }
-  __syncthreads();
-  for (int k = 0; k < n_long; ++k) {  // the same trip count in every thread
-    const int r = long_rows[k];
-    const int t0 = __ldg(row_ptr + r) / tile;
-    const int n_parts = (__ldg(row_ptr + r + 1) - 1) / tile - t0 + 1;
-    const int per = (n_parts + workers - 1) / workers;
-    float acc[V];
-#pragma unroll
-    for (int i = 0; i < V; ++i) acc[i] = 0.f;
-    if (active) {
-      add_partials<V>(partials, t0, min(worker * per, n_parts),
-                      min((worker + 1) * per, n_parts), d, c, acc);
-    }
-#pragma unroll
-    for (int i = 0; i < V; ++i) share[threadIdx.x][i] = acc[i];
-    __syncthreads();
-    if (worker == 0 && active) {
-      float sum[V];
-#pragma unroll
-      for (int i = 0; i < V; ++i) sum[i] = 0.f;
-      for (int w = 0; w < workers; ++w) {
-#pragma unroll
-        for (int i = 0; i < V; ++i) sum[i] += share[w * lanes + lane][i];
-      }
-      store_f32<V>(out + static_cast<size_t>(r) * d + c, sum);
-    }
-    __syncthreads();
-  }
+  csr_tiles::fixup_rows<Vec<T, 16>::N, kThreads>(partials, row_ptr, out, n_rows, d, tile, lanes);
 }
 
-__global__ void __launch_bounds__(kThreads)
-csr_min_i32_kernel(const int* __restrict__ vals, const int* __restrict__ row_ptr,
-                   int* __restrict__ out, int n_rows) {
-  const int row = blockIdx.x * kWarps + threadIdx.x / kWarp;
+// The arrival on a cut row's counter: release of this thread's partial,
+// acquire of the partials of the tiles that arrived before.
+__device__ __forceinline__ int arrive(int* counter) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
+               : "=r"(old) : "l"(counter) : "memory");
+  return old;
+}
+
+// INT32_MAX to out[lo, hi), by the 32 lanes of a warp
+__device__ __forceinline__ void fill_rows(int* __restrict__ out, int lo, int hi, int lane) {
+  for (int i = lo + lane; i < hi; i += kWarp) out[i] = INT_MAX;
+}
+
+__global__ void __launch_bounds__(kMinThreads)
+csr_min_i32_kernel(const int* __restrict__ vals, const int* __restrict__ recv,
+                   const int* __restrict__ row_ptr, int* __restrict__ out,
+                   int* __restrict__ arrivals, int* __restrict__ partials, int n_tiles,
+                   int n_rows, int tile) {
   const int lane = threadIdx.x % kWarp;
-  if (row >= n_rows) return;  // whole warp leaves together
-  const int begin = __ldg(row_ptr + row);
-  const int end = __ldg(row_ptr + row + 1);
-  int m = INT_MAX;
-  for (int e = begin + lane; e < end; e += kWarp) m = min(m, __ldg(vals + e));
+  const int t = blockIdx.x * kMinWarps + threadIdx.x / kWarp;
+  const int n_valid = __ldg(row_ptr + n_rows);
+  if (n_valid == 0) {  // no edge: every row is empty
+    for (int i = blockIdx.x * kMinThreads + threadIdx.x; i < n_rows; i += gridDim.x * kMinThreads)
+      out[i] = INT_MAX;
+    return;
+  }
+  const int start = t * tile;
+  if (t >= n_tiles || start >= n_valid) return;  // the whole warp leaves together
+  const int stop = min(start + tile, n_valid);
+  const int per = tile / kWarp;
+  const int base = start + lane * per;
+  const int cnt = max(0, min(per, stop - base));  // the lane's edges: [base, base + cnt)
+
+  // the loads, all before the first min: the lane's values and receivers, the
+  // receivers around the tile, and one slot a lane of the kWarp slots after it
+  int r[kMinPer], v[kMinPer];
 #pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1)
-    m = min(m, __shfl_xor_sync(0xffffffffu, m, off));
-  if (lane == 0) out[row] = m;
+  for (int j = 0; j < kMinPer; ++j) {
+    if (j < per) {
+      const int e = min(base + j, stop - 1);
+      r[j] = __ldg(recv + e);
+      v[j] = __ldg(vals + e);
+    }
+  }
+  const int first = __ldg(recv + start);     // the tile's first row
+  const int last = __ldg(recv + stop - 1);   // and its last
+  const int before = start > 0 ? __ldg(recv + start - 1) : -1;
+  const int after = stop < n_valid ? __ldg(recv + stop) : -1;
+  const int at31 = start + kWarp <= n_valid ? __ldg(recv + start + kWarp - 1) : -1;
+  const int before_prev = start > tile ? __ldg(recv + start - tile - 1) : -1;
+  const int xe = stop + lane;
+  const int xr = xe < n_valid ? __ldg(recv + xe) : -1;
+  const int xv = xe < n_valid ? __ldg(vals + xe) : INT_MAX;
+
+  // The rows across the tile's two boundaries.  One that begins in a tile and
+  // ends within kWarp slots of its end ("short") is finished by that tile
+  // with the slots after it, and the next tile drops it; both decide it from
+  // the same receivers.  Any other cut row (longer, or over three tiles or
+  // more) takes the partials and the arrival counter.
+  const bool cut_start = before == first;  // the first row began in an earlier tile
+  const bool cut_end = after == last;      // the last row goes on in a later tile
+  const bool drop_first = cut_start && at31 != first && (start == tile || before_prev != first);
+  const bool short_last =
+      cut_end && (last != first || !cut_start) && __shfl_sync(kAll, xr, kWarp - 1) != last;
+  int next_min = xr == last ? xv : INT_MAX;  // the last row's values after the tile
+  if (short_last) {
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off >>= 1)
+      next_min = min(next_min, __shfl_xor_sync(kAll, next_min, off));
+  }
+  // the long cut rows' extents, for their arrival counts (uniform over the warp)
+  const bool long_first = cut_start && !drop_first;
+  const bool long_last = cut_end && !short_last && !(last == first && cut_start);
+  const int first_begin = long_first ? __ldg(row_ptr + first) : 0;
+  const int first_end = long_first ? __ldg(row_ptr + first + 1) : 1;
+  const int last_end = long_last ? __ldg(row_ptr + last + 1) : 1;
+
+  // the lane's run: the rows that end inside it are written here, its head
+  // row's min (if another row follows it in the run) kept in head_min, the
+  // min of the row it ends in kept in run_min
+  int head_min = INT_MAX, run_min = INT_MAX, row = r[0];
+  bool split = false;  // the head row ended inside the run
+#pragma unroll
+  for (int j = 0; j < kMinPer; ++j) {
+    if (j < cnt) {
+      if (r[j] != row) {
+        if (split) {
+          out[row] = run_min;  // a row wholly inside the run
+        } else {
+          head_min = run_min;
+        }
+        for (int g = row + 1; g < r[j]; ++g) out[g] = INT_MAX;  // rows with no edge
+        split = true;
+        row = r[j];
+        run_min = INT_MAX;
+      }
+      run_min = min(run_min, v[j]);
+    }
+  }
+  const int head = r[0];
+  // the scan: min over the lanes up to this one whose run ends in the same row
+  const int key = cnt > 0 ? row : -1;
+  int scan = run_min;
+#pragma unroll
+  for (int off = 1; off < kWarp; off <<= 1) {
+    const int k = __shfl_up_sync(kAll, key, off);
+    const int s = __shfl_up_sync(kAll, scan, off);
+    if (lane >= off && k == key) scan = min(scan, s);
+  }
+  const int prev_key = __shfl_up_sync(kAll, key, 1);
+  const int prev_scan = __shfl_up_sync(kAll, scan, 1);
+  const int next_head = __shfl_down_sync(kAll, cnt > 0 ? head : -1, 1);
+
+  // the rows that end in this lane; a long cut row's min goes to its slot
+  bool has0 = false, has1 = false;
+  int min0 = INT_MAX, min1 = INT_MAX;
+  auto finish = [&](int x, int m) {
+    if (x == first && cut_start) {
+      if (long_first) {
+        has0 = true;
+        min0 = m;
+      }
+    } else if (x == last && cut_end) {
+      if (short_last) {
+        out[x] = min(m, next_min);
+      } else {
+        has1 = true;
+        min1 = m;
+      }
+    } else {
+      out[x] = m;
+    }
+  };
+  if (cnt > 0) {
+    // rows with no edge between the previous lane's (or tile's) last row and
+    // this lane's first; tile 0's leading rows are filled below
+    const int from = lane > 0 ? prev_key : (start > 0 ? before : head);
+    for (int g = from + 1; g < head; ++g) out[g] = INT_MAX;
+    if (split) finish(head, min(head_min, lane > 0 && prev_key == head ? prev_scan : INT_MAX));
+    if (lane == kWarp - 1 || next_head != row) finish(row, scan);
+  }
+  if (start == 0) fill_rows(out, 0, first, lane);
+  if (stop == n_valid) fill_rows(out, last + 1, n_rows, lane);
+
+  // the long cut rows: partial, arrival, and the fold by the tile that
+  // arrives last (slot 0's row began in tile first_begin / tile, slot 1's in
+  // this one)
+  const int t0_first = first_begin / tile, t0_last = t;
+  const int n_first = (first_end - 1) / tile - t0_first + 1;
+  const int n_last = (last_end - 1) / tile - t0_last + 1;
+  bool won0 = false, won1 = false;
+  if (has0) {
+    partials[2 * t] = min0;
+    won0 = arrive(arrivals + t0_first) == n_first - 1;
+  }
+  if (has1) {
+    partials[2 * t + 1] = min1;
+    won1 = arrive(arrivals + t0_last) == n_last - 1;
+  }
+#pragma unroll
+  for (int slot = 0; slot < 2; ++slot) {
+    if (__ballot_sync(kAll, slot == 0 ? won0 : won1)) {
+      // partial 0 is slot 1 of tile t0, partial k > 0 slot 0 of tile t0 + k;
+      // written by other warps of this launch, so read from L2
+      __syncwarp();
+      const int t0 = slot == 0 ? t0_first : t0_last;
+      const int n = slot == 0 ? n_first : n_last;
+      int m = INT_MAX;
+      for (int k0 = lane; k0 < n; k0 += 4 * kWarp) {
+        int q[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int k = min(k0 + i * kWarp, n - 1);
+          q[i] = __ldcg(partials + (k == 0 ? 2 * t0 + 1 : 2 * (t0 + k)));
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) m = min(m, q[i]);
+      }
+#pragma unroll
+      for (int off = kWarp / 2; off > 0; off >>= 1) m = min(m, __shfl_xor_sync(kAll, m, off));
+      if (lane == 0) {
+        out[slot == 0 ? first : last] = m;
+        arrivals[t0] = 0;  // ready for the next call on this stream
+      }
+    }
+  }
 }
 
 // The tile kernel, then the fix-up, on one stream.  `tile` and `lanes` come
@@ -329,7 +321,7 @@ template <typename T, bool kWeighted>
 int launch_tile_sum(const void* data, const float* w, const int* recv, const int* row_ptr,
                     float* out, float* partials, int n_edges, int n_rows, int d, int tile,
                     int lanes, void* stream) {
-  constexpr int V = Vec<T>::N;
+  constexpr int V = Vec<T, 16>::N;
   if (tile < 1 || lanes < 1 || lanes > kWarp || (lanes & (lanes - 1)) || n_edges < 0 ||
       d % V) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -387,11 +379,20 @@ int hgnn_csr_wsum_f32(const void* data, const float* w, const int* recv, const i
                                       d, tile, lanes, stream);
 }
 
-int hgnn_csr_min_i32(const int* vals, const int* row_ptr, int* out, int n_rows,
+// (vals, recv, row_ptr, out, arrivals, partials, n_edges, n_rows, tile, stream):
+// `arrivals` holds ceil(n_edges / tile) zeros and is left so; `partials`
+// 2 * ceil(n_edges / tile) ints (sorted_agg.py::min_tiling and _min_scratch)
+int hgnn_csr_min_i32(const int* vals, const int* recv, const int* row_ptr, int* out,
+                     int* arrivals, int* partials, int n_edges, int n_rows, int tile,
                      void* stream) {
+  if (tile < kWarp || tile > kWarp * kMinPer || tile % kWarp || n_edges < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n_rows > 0) {
-    csr_min_i32_kernel<<<(n_rows + kWarps - 1) / kWarps, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(vals, row_ptr, out, n_rows);
+    const int n_tiles = static_cast<int>((static_cast<long long>(n_edges) + tile - 1) / tile);
+    const int blocks = n_tiles > 0 ? (n_tiles + kMinWarps - 1) / kMinWarps : 1;
+    csr_min_i32_kernel<<<blocks, kMinThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        vals, recv, row_ptr, out, arrivals, partials, n_tiles, n_rows, tile);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file is compiled on its own into a shared library with a
 plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -shared``),
 at first use, into the git-ignored ``build/kernels/`` directory beside the
-package.  A library's name carries a hash of its source and flags, so an
-edited source is rebuilt and an unchanged one is reused.  Nothing here runs
+package.  A library's name carries a hash of its source, the headers it
+includes and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused.  Nothing here runs
 at import time: a CPU-only host imports the module without a compiler.
 """
 
@@ -14,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -39,8 +41,8 @@ SIGNATURES = {
         # (data, w, recv, row_ptr, out, partials, n_edges, n_rows, d, tile, lanes, stream)
         "hgnn_csr_wsum_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
         "hgnn_csr_wsum_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-        # (vals, row_ptr, out, n_rows, stream)
-        "hgnn_csr_min_i32": (_P, _P, _P, _I, _P),
+        # (vals, recv, row_ptr, out, arrivals, partials, n_edges, n_rows, tile, stream)
+        "hgnn_csr_min_i32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
     "sddmm_csr.cu": {
         # (data, rows, recv, row_ptr, out, n_edges, n_rows, d, stream)
@@ -51,9 +53,10 @@ SIGNATURES = {
         "hgnn_scaled_gather_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
     "segment_gather.cu": {
-        # (data, perm, row_ptr, out, n_rows, d, stream)
-        "hgnn_csr_gather_sum_bf16": (_P, _P, _P, _P, _I, _I, _P),
-        "hgnn_csr_gather_sum_f32": (_P, _P, _P, _P, _I, _I, _P),
+        # (data, perm, recv, row_ptr, out, partials, n_edges, n_rows, d, tile, lanes,
+        #  width, stream)
+        "hgnn_csr_gather_sum_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "hgnn_csr_gather_sum_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
     "ring_gather.cu": {
         # (in[], out[], flags[], n_ranks, block_bytes, generation,
@@ -74,9 +77,29 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (looked on PATH and in /usr/local/cuda/bin)")
 
 
+def included_headers(source: str) -> list[Path]:
+    """The headers of ``csrc/`` that ``source`` includes, directly or through
+    another header, in the order they are first met."""
+    found, todo = [], [CSRC_DIR / source]
+    while todo:
+        text = todo.pop(0).read_text()
+        for name in re.findall(r'^\s*#include\s+"([^"]+)"', text, re.M):
+            path = CSRC_DIR / name
+            if path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
+
+
 def library_path(source: str) -> Path:
+    """The library of ``source``: its name carries a hash of the source, of
+    the headers it includes and of the flags, so a change to any of them
+    builds a new one."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in included_headers(source):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}_{digest.hexdigest()[:12]}.so"
 
 

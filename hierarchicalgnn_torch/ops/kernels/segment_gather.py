@@ -7,27 +7,31 @@ built once per graph, is a stable sort of the valid edges by receiver, and
   K7 :func:`csr_segment_sum`   out[i] = sum_{e valid, recv(e)=i} data[e]
 
 loads each edge row through ``perm`` inside the kernel
-(``csrc/segment_gather.cu``), in f32, with no sorted copy of the data.  The
-wrapper takes its plain PyTorch version only for tensors on the CPU; for a
-CUDA tensor it launches the kernel or raises.  ``LAUNCHES["K7"]`` counts
-the launches.
+(``csrc/segment_gather.cu``), in f32, with no sorted copy of the data.  It
+is K1's edge-balanced cut (``sorted_agg.csr_tiling``: tiles of slots, a
+fix-up for the rows the tiles cut), each slot's row read through ``perm``.
+The wrapper takes its plain PyTorch version only for tensors on the CPU; for
+a CUDA tensor it launches the kernel or raises.  ``LAUNCHES["K7"]`` counts
+the calls (two device launches each: the tile kernel and its fix-up).
 
 The JAX layout bins edges into row groups under a chunk budget and falls
 back to XLA when a group overflows it; CSR needs no budget, so the port has
 no ``overflowed`` flag.  The TPU's width rule (``D % 128``) has no
-counterpart either: rows of whole 16-byte vectors are read by vector loads,
-any other width element by element, in the same kernel.
+counterpart either: a lane loads the widest of 16, 8, 4 or 2 bytes that
+divides both the row's bytes and the base's alignment (:func:`load_width`),
+so any width and any base go to the kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from hierarchicalgnn_torch.ops.kernels.build import library
 from hierarchicalgnn_torch.ops.kernels.sorted_agg import (
-    LAUNCHES, _on_cpu, _raise_on, _stream, _wants_grad)
+    COUNT_LOCK, LAUNCHES, _on_cpu, _partials, _raise_on, _stream, _wants_grad, csr_tiling)
 
 SOURCE = "segment_gather.cu"
 _ENTRY = {torch.bfloat16: "hgnn_csr_gather_sum_bf16",
@@ -43,6 +47,7 @@ class CSRLayout:
     receivers: torch.Tensor  # int64[E]: original segment ids (for the gradient's gather)
     edge_mask: torch.Tensor  # bool[E]: original validity, out-of-range ids dropped
     num_segments: int
+    slot_receivers: torch.Tensor  # int32[E]: receiver per slot (N in the invalid slots)
 
 
 def make_csr_layout(receivers, edge_mask, num_segments) -> CSRLayout:
@@ -53,11 +58,12 @@ def make_csr_layout(receivers, edge_mask, num_segments) -> CSRLayout:
     valid = edge_mask & (receivers >= 0) & (receivers < num_segments)
     key = torch.where(valid, receivers, num_segments)
     perm = torch.argsort(key, stable=True)
+    key_sorted = key[perm]
     row_ptr = torch.searchsorted(
-        key[perm], torch.arange(num_segments + 1, device=key.device))
+        key_sorted, torch.arange(num_segments + 1, device=key.device))
     return CSRLayout(perm=perm.to(torch.int32), row_ptr=row_ptr.to(torch.int32),
                      receivers=torch.where(valid, receivers, 0), edge_mask=valid,
-                     num_segments=num_segments)
+                     num_segments=num_segments, slot_receivers=key_sorted.to(torch.int32))
 
 
 def csr_segment_sum_plain(data, layout: CSRLayout):
@@ -68,10 +74,29 @@ def csr_segment_sum_plain(data, layout: CSRLayout):
     return out.index_add_(0, layout.receivers, vals)
 
 
+def load_width(d: int, element_size: int, data_ptr: int) -> int:
+    """The bytes a lane of K7 loads at once: the widest of 16, 8, 4 and 2
+    that divides both a row's bytes and the base address (and is no
+    narrower than one element)."""
+    for width in (16, 8, 4, 2):
+        if width >= element_size and (d * element_size) % width == 0 and data_ptr % width == 0:
+            return width
+    raise ValueError(f"rows of {d} x {element_size} bytes at {data_ptr:#x} are not "
+                     f"element-aligned")
+
+
+@functools.cache
+def _entry(dtype):
+    return getattr(library(SOURCE), _ENTRY[dtype])
+
+
 def _k7(data, layout: CSRLayout):
     """K7 without autograd: the kernel, or its plain version on the CPU."""
     if _on_cpu(data, layout.perm, layout.row_ptr):
         return csr_segment_sum_plain(data, layout)
+    if data.get_device() != torch.cuda.current_device():
+        with torch.cuda.device(data.device):  # launch with its card current
+            return _k7(data, layout)
     if data.ndim != 2 or data.dtype not in _ENTRY:
         raise ValueError(f"data must be 2-D bfloat16 or float32, got "
                          f"{data.dtype} {tuple(data.shape)}")
@@ -80,15 +105,20 @@ def _k7(data, layout: CSRLayout):
                          f"{layout.perm.shape[0]} edges")
     if not data.is_contiguous():
         raise ValueError("data must be contiguous")
-    n, d = layout.num_segments, data.shape[1]
-    out = torch.empty((n, d), dtype=torch.float32, device=data.device)
-    entry = _ENTRY[data.dtype]
-    with torch.cuda.device(data.device):
-        rc = getattr(library(SOURCE), entry)(
-            data.data_ptr(), layout.perm.data_ptr(), layout.row_ptr.data_ptr(),
-            out.data_ptr(), n, d, _stream(data))
-    _raise_on(rc, entry)
-    LAUNCHES["K7"] += 1
+    (e, d), n = data.shape, layout.num_segments
+    out = data.new_empty((n, d), dtype=torch.float32)
+    size, ptr = data.element_size(), data.data_ptr()
+    width = load_width(d, size, ptr)
+    cut = csr_tiling(e, n, d, size, width)
+    stream = _stream(data)
+    partials = _partials(data.device, stream, cut.scratch_rows * d)
+    entry = _entry(data.dtype)
+    rc = entry(ptr, layout.perm.data_ptr(), layout.slot_receivers.data_ptr(),
+               layout.row_ptr.data_ptr(), out.data_ptr(), partials.data_ptr(), e, n, d,
+               cut.tile, cut.lanes, width, stream)
+    _raise_on(rc, entry.__name__)
+    with COUNT_LOCK:
+        LAUNCHES["K7"] += 1
     return out
 
 

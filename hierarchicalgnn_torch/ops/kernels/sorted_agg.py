@@ -14,7 +14,8 @@ its plain PyTorch version only for tensors on the CPU; for a CUDA tensor
 it launches the kernel or raises.  ``LAUNCHES`` counts kernel launches, so
 a run can show that its path went through them; a K1 or K2 call counts
 once, though it is two device launches (the tile kernel and its fix-up,
-cut as :func:`csr_tiling` says).
+cut as :func:`csr_tiling` says).  K5 is one device launch a call, cut by
+edges as :func:`min_tiling` says.
 
 K1 and K2 are differentiable (``torch.autograd.Function``): their
 backward runs the K3/K4 kernels of ``ops/kernels/sddmm.py``
@@ -158,8 +159,8 @@ _TILE_THREADS, _FIXUP_THREADS = 64, 256  # threads per block of the two kernels
 
 @dataclasses.dataclass(frozen=True)
 class CsrTiling:
-    """How K1/K2 cut one call: ``lanes`` threads (a power of two up to 32,
-    16 bytes of columns each) per worker, ``slices`` column slices of
+    """How K1/K2 (and K7) cut one call: ``lanes`` threads (a power of two up
+    to 32, 16 bytes of columns each, or K7's load width) per worker, ``slices`` column slices of
     ``lanes`` vectors, one worker per tile of ``tile`` edges in the tile
     kernel and per row in the fix-up, ``scratch_rows`` f32 rows of width D
     for the cut rows' partials (two per tile).  Grids are (blocks, slices)."""
@@ -183,12 +184,15 @@ def tile_edges(n_edges: int) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def csr_tiling(n_edges: int, n_rows: int, d: int, element_size: int) -> CsrTiling:
-    """The cut of a K1/K2 call over ``n_edges`` edge slots (valid or not:
-    the grid is sized on the host, and a tile past ``row_ptr[N]`` exits),
-    as the C launcher takes it.  Cached: the wrapper asks at every call."""
+def csr_tiling(n_edges: int, n_rows: int, d: int, element_size: int,
+               width: int = 16) -> CsrTiling:
+    """The cut of a K1/K2 (or K7) call over ``n_edges`` edge slots (valid or
+    not: the grid is sized on the host, and a tile past ``row_ptr[N]``
+    exits), as the C launcher takes it, for lanes that load ``width`` bytes
+    of a row each (K1/K2 16, K7 ``segment_gather.load_width``).  Cached: the
+    wrapper asks at every call."""
     tile = tile_edges(n_edges)
-    vectors = -(-d * element_size // 16)
+    vectors = -(-d * element_size // width)
     lanes = min(32, 1 << max(0, vectors - 1).bit_length())
     slices = -(-vectors // lanes)
     n_tiles = -(-n_edges // tile)
@@ -216,6 +220,62 @@ def _partials(device, stream: int, n_floats: int):
             buf = _PARTIALS[key] = torch.empty(max(n_floats, 1), dtype=torch.float32,
                                                device=device)
     return buf
+
+
+# K5 cuts the valid edges into tiles of up to 256 edges, one warp each (a lane
+# a run of tile / 32 edges); a smaller tile where larger ones would leave fewer
+# than MIN_MIN_TILES warps, about two a SM
+MIN_TILE_SIZES = (256, 128, 64, 32)
+MIN_MIN_TILES = 264
+
+
+@dataclasses.dataclass(frozen=True)
+class MinTiling:
+    """How K5 cuts one call: ``n_tiles`` tiles of ``tile`` edges, one warp
+    each (the C launcher puts 4 in a block, and launches one block at least:
+    with no valid edge the kernel fills every row)."""
+
+    tile: int
+    n_tiles: int
+
+
+def min_tile_edges(n_edges: int) -> int:
+    """The largest of MIN_TILE_SIZES that cuts ``n_edges`` into
+    MIN_MIN_TILES tiles or more, else the smallest."""
+    for tile in MIN_TILE_SIZES:
+        if -(-n_edges // tile) >= MIN_MIN_TILES:
+            return tile
+    return MIN_TILE_SIZES[-1]
+
+
+@functools.lru_cache(maxsize=1024)
+def min_tiling(n_edges: int) -> MinTiling:
+    """The cut of a K5 call over ``n_edges`` edge slots, from E alone (a
+    tile past ``row_ptr[N]`` exits).  Cached: the wrapper asks at every
+    call."""
+    tile = min_tile_edges(n_edges)
+    return MinTiling(tile=tile, n_tiles=-(-n_edges // tile))
+
+
+# K5's scratch, one per (device, stream): an arrival counter per tile, zeroed
+# once when allocated and set back to 0 by the kernel that uses it, then two
+# int32 partials per tile.  Grown as needed, never shrunk.
+_MIN_SCRATCH = {}
+
+
+def _min_scratch(device, stream: int, n_tiles: int):
+    """(arrivals, partials) for a K5 call of ``n_tiles`` tiles: views of one
+    zeroed int32 buffer of 3 * capacity, the counters first."""
+    key = (device.index, stream)
+    found = _MIN_SCRATCH.get(key)
+    if found is None or found[0].numel() < n_tiles:
+        with _PARTIALS_LOCK:
+            found = _MIN_SCRATCH.get(key)
+            if found is None or found[0].numel() < n_tiles:
+                cap = max(n_tiles, 1)
+                buf = torch.zeros(3 * cap, dtype=torch.int32, device=device)
+                found = _MIN_SCRATCH[key] = (buf[:cap], buf[cap:])
+    return found
 
 
 def _on_cpu(*tensors) -> bool:
@@ -456,20 +516,31 @@ def gather_receivers(nodes, plan: SortedPlan):
 def sorted_segment_min_i32(values_sorted, plan: SortedPlan):
     """K5: int32 segment min of plan-order values, INT32_MAX for empty rows.
 
-    Replaces ``_sorted_min_kernel`` (sorted_agg.py:390).
+    Replaces ``_sorted_min_kernel`` (sorted_agg.py:390).  One device launch
+    a call, cut by edges as :func:`min_tiling` says.
     """
     if _on_cpu(values_sorted, plan.row_ptr):
         return sorted_segment_min_i32_plain(values_sorted, plan)
+    if values_sorted.get_device() != torch.cuda.current_device():
+        with torch.cuda.device(values_sorted.device):  # launch with its card current
+            return sorted_segment_min_i32(values_sorted, plan)
     if values_sorted.dtype != torch.int32 or values_sorted.ndim != 1:
         raise ValueError(f"values must be 1-D int32, got {values_sorted.dtype}")
     _check_edges(values_sorted, plan, "values")
-    n = plan.num_segments
-    out = torch.empty((n,), dtype=torch.int32, device=values_sorted.device)
-    with torch.cuda.device(values_sorted.device):
-        rc = library().hgnn_csr_min_i32(
-            values_sorted.data_ptr(), plan.row_ptr.data_ptr(), out.data_ptr(), n,
-            _stream(values_sorted))
+    e, n = values_sorted.shape[0], plan.num_segments
+    out = values_sorted.new_empty((n,))
+    cut = min_tiling(e)
+    stream = _stream(values_sorted)
+    arrivals, partials = _min_scratch(values_sorted.device, stream, cut.n_tiles)
+    rc = _min_entry()(values_sorted.data_ptr(), plan.receivers_i32.data_ptr(),
+                      plan.row_ptr.data_ptr(), out.data_ptr(), arrivals.data_ptr(),
+                      partials.data_ptr(), e, n, cut.tile, stream)
     _raise_on(rc, "hgnn_csr_min_i32")
     with COUNT_LOCK:
         LAUNCHES["K5"] += 1
     return out
+
+
+@functools.cache
+def _min_entry():
+    return library().hgnn_csr_min_i32
