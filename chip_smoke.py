@@ -766,31 +766,52 @@ def kernel_gather_sum(torch, gen, bound_ms, rows):
                                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                                   "library_ms": lib_ms, "device_ms": dev_ms,
                                   "device_ms_fixup": fix_ms, "shape": label}
+    # the boundary inputs at each tile size (forced: the wrapper picks it from
+    # E and the lanes a tile takes)
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+
+    pick = sa.tile_for_threads
     checked = 0
-    for label, degrees, n_invalid in tile_cases(128):
-        plan = degree_plan(torch, degrees, n_invalid, dev)
-        lay = sg.make_csr_layout(plan.unsort(plan.receivers_sorted),
-                                 plan.unsort(plan.edge_mask_sorted), len(degrees))
-        e_case = plan.perm.shape[0]
-        empty = torch.tensor(degrees, device=dev) == 0
-        for d in (256, 100, 3):
-            for dtype in (torch.bfloat16, torch.float32):
-                flat = torch.randn(e_case * d + 1, generator=gen).to(dev, dtype)
-                for offset in (0, 1):
-                    data = flat[offset:offset + e_case * d].view(e_case, d)
-                    out, again = sg.csr_segment_sum(data, lay), sg.csr_segment_sum(data, lay)
-                    torch.cuda.synchronize()
-                    what = f"K7 tile boundaries, {label}, {str(dtype)[6:]} D={d} offset {offset}"
-                    bound = sg.csr_segment_sum_plain(data.abs(), lay)
-                    if not bool(((out - sg.csr_segment_sum_plain(data, lay)).abs()
-                                 <= SUM_TOL * bound + 1e-6).all()):
-                        raise AssertionError(f"{what}: disagrees with its plain version")
-                    assert not out[empty].any(), f"{what}: an empty row is not zero"
-                    assert torch.equal(out, again), f"{what}: two calls differ"
-                    checked += 1
-    log(f"K7 tile boundaries: {checked} comparisons (tile_cases at T 128, D 256/100/3, bf16 "
-        f"and f32, aligned and one element off) within {SUM_TOL} of |terms|, empty rows zero, "
-        f"two calls bitwise equal")
+    try:
+        for tile in sa.TILE_SIZES:
+            sa.tile_for_threads = lambda *args, tile=tile: tile
+            sa.csr_tiling.cache_clear()
+            for label, degrees, n_invalid in tile_cases(tile):
+                checked += gather_boundary_case(torch, gen, sg, label, degrees, n_invalid)
+    finally:
+        sa.tile_for_threads = pick
+        sa.csr_tiling.cache_clear()
+    log(f"K7 tile boundaries: {checked} comparisons (tile_cases at T {sa.TILE_SIZES}, D 256, "
+        f"100 and 3, bf16 and f32, aligned and one element off) within {SUM_TOL} of |terms|, "
+        f"empty rows zero, two calls bitwise equal")
+
+
+def gather_boundary_case(torch, gen, sg, label, degrees, n_invalid):
+    """K7 on one input of :func:`tile_cases`, its edges in a shuffled
+    original order; returns the number of comparisons."""
+    dev = torch.device("cuda")
+    plan = degree_plan(torch, degrees, n_invalid, dev)
+    lay = sg.make_csr_layout(plan.unsort(plan.receivers_sorted),
+                             plan.unsort(plan.edge_mask_sorted), len(degrees))
+    e = plan.perm.shape[0]
+    empty = torch.tensor(degrees, device=dev) == 0
+    checked = 0
+    for d in (256, 100, 3):
+        for dtype in (torch.bfloat16, torch.float32):
+            flat = torch.randn(e * d + 1, generator=gen).to(dev, dtype)
+            for offset in (0, 1):
+                data = flat[offset:offset + e * d].view(e, d)
+                out, again = sg.csr_segment_sum(data, lay), sg.csr_segment_sum(data, lay)
+                torch.cuda.synchronize()
+                what = f"K7 tile boundaries, {label}, {str(dtype)[6:]} D={d} offset {offset}"
+                bound = sg.csr_segment_sum_plain(data.abs(), lay)
+                if not bool(((out - sg.csr_segment_sum_plain(data, lay)).abs()
+                             <= SUM_TOL * bound + 1e-6).all()):
+                    raise AssertionError(f"{what}: disagrees with its plain version")
+                assert not out[empty].any(), f"{what}: an empty row is not zero"
+                assert torch.equal(out, again), f"{what}: two calls differ"
+                checked += 1
+    return checked
 
 
 def phase_aggregator(torch):

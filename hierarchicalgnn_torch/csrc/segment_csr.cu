@@ -67,18 +67,22 @@
 //    row carries a row that crosses lanes to the lane where it ends.  Each
 //    tile writes INT32_MAX to the rows strictly between two consecutive
 //    receivers it reads (it reads the receiver before its start): they have
-//    no edge.  Tile 0 also fills the rows before the first edge, the tile of
-//    the last valid edge the rows after it, and with no valid edge at all
-//    every warp fills a grid-stride share of the rows.
-//  * A row cut by a tile boundary is finished in the same launch.  A min is
-//    exact and order-free, so whoever folds it gives the same bits.  Each tile
-//    that covers a cut row writes its partial (slot 0 for the row across its
-//    start, slot 1 for the row across its end, as in K1) and then adds one to
-//    the arrival counter of the row's first tile t0, with release and acquire
-//    semantics.  The tile that draws t1 - t0 (the last of the row's t1 - t0 + 1
-//    tiles to arrive) folds the partials with its whole warp, writes the row
-//    and sets the counter back to 0.  The counters are scratch that the
-//    wrapper keeps per stream, zeroed once when allocated: no memset per call.
+//    no edge.  The rows before the first edge and after the last (the flat
+//    graph's padding rows), or every row when no edge is valid, are filled in
+//    grid-stride shares by every thread of the grid.
+//  * A row cut by a tile boundary is finished in the same launch.  Most are
+//    short: a row that begins in a tile and ends within 32 slots of its end is
+//    finished by that tile, which reads those 32 slots (one a lane) with its
+//    other loads, and the next tile drops it; both decide so from the same
+//    receivers.  A longer cut row (a hub) is folded through two words of
+//    scratch per row: each tile that covers it takes its piece's min into the
+//    row's min word and then adds to the row's arrival counter, amounts that
+//    sum to a fixed total only once every covering tile has arrived (see
+//    arrive()).  A min is exact and order-free, so whoever folds it gives the
+//    same bits; the tile that completes the total writes the row and sets
+//    both words back.  The words are scratch that the wrapper keeps per
+//    stream, set once when allocated: no memset per call, and no tile reads
+//    a row's extent from row_ptr.
 //
 // Interface: plain C, loaded with ctypes.  Each entry launches on the given
 // stream, allocates nothing, and returns cudaGetLastError().
@@ -99,7 +103,6 @@ constexpr int kThreads = 256;  // the fix-up's block
 constexpr int kTileThreads = 64;
 constexpr int kMinWarps = 4;  // K5: warps (tiles) per block
 constexpr int kMinThreads = kWarp * kMinWarps;
-constexpr int kMinPer = 8;  // K5: most edges a lane holds (tiles of up to 256 edges)
 constexpr unsigned kAll = 0xffffffffu;
 
 template <typename T, bool kWeighted>
@@ -125,83 +128,101 @@ csr_tile_fixup_kernel(const float* __restrict__ partials, const int* __restrict_
   csr_tiles::fixup_rows<Vec<T, 16>::N, kThreads>(partials, row_ptr, out, n_rows, d, tile, lanes);
 }
 
-// The arrival on a cut row's counter: release of this thread's partial,
-// acquire of the partials of the tiles that arrived before.
-__device__ __forceinline__ int arrive(int* counter) {
+// A long cut row (one that is not finished by the tile it begins in) is
+// finished in the same launch through two words of scratch per row, kept
+// between calls: its arrival counter (0) and its min word (INT32_MAX).  Every
+// tile that covers the row takes the min of its piece into the min word and
+// then adds to the counter: the tile the row begins in (t0) kHalf + t0 + 1,
+// a tile it covers wholly 1, the tile it ends in (t1) kHalf - t1.  These sum
+// to 2 kHalf only when all t1 - t0 + 1 have arrived (any subset sums to less,
+// as t0, t1 < kHalf), so no tile needs the row's extent.  The add releases the
+// piece and acquires the others'; the tile that completes the sum takes the
+// min word back to INT32_MAX, writes the row and sets the counter to 0.
+constexpr int kHalf = 1 << 29;
+
+__device__ __forceinline__ bool arrive(int* counter, int* min_word, int piece, int add) {
+  atomicMin(min_word, piece);
   int old;
-  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
-               : "=r"(old) : "l"(counter) : "memory");
-  return old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;"
+               : "=r"(old) : "l"(counter), "r"(add) : "memory");
+  return old + add == 2 * kHalf;
 }
 
-// INT32_MAX to out[lo, hi), by the 32 lanes of a warp
-__device__ __forceinline__ void fill_rows(int* __restrict__ out, int lo, int hi, int lane) {
-  for (int i = lo + lane; i < hi; i += kWarp) out[i] = INT_MAX;
+__device__ __forceinline__ void finish_cut_row(int* __restrict__ out, int* arrivals, int* mins,
+                                               int row) {
+  out[row] = atomicExch(mins + row, INT_MAX);
+  arrivals[row] = 0;  // ready for the next call on this stream
 }
 
+// INT32_MAX to out[0, lead) and out[tail, n_rows), a grid-stride share per thread
+__device__ __forceinline__ void fill_ends(int* __restrict__ out, int lead, int tail,
+                                          int n_rows) {
+  const int stride = gridDim.x * kMinThreads;
+  const int n_ends = lead + n_rows - tail;
+  for (int i = blockIdx.x * kMinThreads + threadIdx.x; i < n_ends; i += stride)
+    out[i < lead ? i : tail + i - lead] = INT_MAX;
+}
+
+// kPer = tile / 32: the edges of a lane's run, a compile-time count so that
+// the run's loads and walk unroll without predicates
+template <int kPer>
 __global__ void __launch_bounds__(kMinThreads)
 csr_min_i32_kernel(const int* __restrict__ vals, const int* __restrict__ recv,
                    const int* __restrict__ row_ptr, int* __restrict__ out,
-                   int* __restrict__ arrivals, int* __restrict__ partials, int n_tiles,
-                   int n_rows, int tile) {
+                   int* __restrict__ arrivals, int* __restrict__ mins, int n_edges,
+                   int n_tiles, int n_rows) {
+  constexpr int tile = kPer * kWarp;
   const int lane = threadIdx.x % kWarp;
   const int t = blockIdx.x * kMinWarps + threadIdx.x / kWarp;
+  const int start = t * tile;
+  const int base = start + lane * kPer;
+  const int e_last = n_edges - 1;
+
+  // The loads, all at once and before row_ptr[N] is known, so that the walk
+  // waits for one round trip to memory: the lane's values and receivers, the
+  // receivers around the tile, and one slot a lane of the kWarp slots after
+  // it.  Slots past the valid ones are read and dropped below.
   const int n_valid = __ldg(row_ptr + n_rows);
+  const int lead = n_edges > 0 ? __ldg(recv) : 0;  // rows [0, lead) have no edge
+  int r[kPer], v[kPer];
+  int first = 0, before = -1, at31 = -1, before_prev = -1, after = -1, xr = -1, xv = INT_MAX;
+  if (t < n_tiles) {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int e = min(base + j, e_last);
+      r[j] = __ldg(recv + e);
+      v[j] = __ldg(vals + e);
+    }
+    first = __ldg(recv + start);  // the tile's first row
+    before = start > 0 ? __ldg(recv + start - 1) : -1;
+    at31 = __ldg(recv + min(start + kWarp - 1, e_last));
+    before_prev = start > tile ? __ldg(recv + start - tile - 1) : -1;
+    after = start + tile <= e_last ? __ldg(recv + start + tile) : -1;
+    const int xe = min(start + tile + lane, e_last);
+    xr = __ldg(recv + xe);
+    xv = __ldg(vals + xe);
+  }
   if (n_valid == 0) {  // no edge: every row is empty
     for (int i = blockIdx.x * kMinThreads + threadIdx.x; i < n_rows; i += gridDim.x * kMinThreads)
       out[i] = INT_MAX;
     return;
   }
-  const int start = t * tile;
-  if (t >= n_tiles || start >= n_valid) return;  // the whole warp leaves together
+  // The rows before the first edge and after the last have none: every thread
+  // of the grid fills a share of them, so that no warp walks a long empty tail
+  // (the flagship's flat graph has thousands of rows past its last hit).
+  const int tail = __ldg(recv + n_valid - 1) + 1;  // rows [tail, n_rows)
+  if (t >= n_tiles || start >= n_valid) {  // the whole warp leaves together
+    fill_ends(out, lead, tail, n_rows);
+    return;
+  }
   const int stop = min(start + tile, n_valid);
-  const int per = tile / kWarp;
-  const int base = start + lane * per;
-  const int cnt = max(0, min(per, stop - base));  // the lane's edges: [base, base + cnt)
-
-  // the loads, all before the first min: the lane's values and receivers, the
-  // receivers around the tile, and one slot a lane of the kWarp slots after it
-  int r[kMinPer], v[kMinPer];
-#pragma unroll
-  for (int j = 0; j < kMinPer; ++j) {
-    if (j < per) {
-      const int e = min(base + j, stop - 1);
-      r[j] = __ldg(recv + e);
-      v[j] = __ldg(vals + e);
-    }
+  const int cnt = max(0, min(kPer, stop - base));  // the lane's edges: [base, base + cnt)
+  if (start + kWarp > n_valid) at31 = -1;
+  if (stop == n_valid) after = -1;  // else stop = start + tile
+  if (stop + lane >= n_valid) {
+    xr = -1;
+    xv = INT_MAX;
   }
-  const int first = __ldg(recv + start);     // the tile's first row
-  const int last = __ldg(recv + stop - 1);   // and its last
-  const int before = start > 0 ? __ldg(recv + start - 1) : -1;
-  const int after = stop < n_valid ? __ldg(recv + stop) : -1;
-  const int at31 = start + kWarp <= n_valid ? __ldg(recv + start + kWarp - 1) : -1;
-  const int before_prev = start > tile ? __ldg(recv + start - tile - 1) : -1;
-  const int xe = stop + lane;
-  const int xr = xe < n_valid ? __ldg(recv + xe) : -1;
-  const int xv = xe < n_valid ? __ldg(vals + xe) : INT_MAX;
-
-  // The rows across the tile's two boundaries.  One that begins in a tile and
-  // ends within kWarp slots of its end ("short") is finished by that tile
-  // with the slots after it, and the next tile drops it; both decide it from
-  // the same receivers.  Any other cut row (longer, or over three tiles or
-  // more) takes the partials and the arrival counter.
-  const bool cut_start = before == first;  // the first row began in an earlier tile
-  const bool cut_end = after == last;      // the last row goes on in a later tile
-  const bool drop_first = cut_start && at31 != first && (start == tile || before_prev != first);
-  const bool short_last =
-      cut_end && (last != first || !cut_start) && __shfl_sync(kAll, xr, kWarp - 1) != last;
-  int next_min = xr == last ? xv : INT_MAX;  // the last row's values after the tile
-  if (short_last) {
-#pragma unroll
-    for (int off = kWarp / 2; off > 0; off >>= 1)
-      next_min = min(next_min, __shfl_xor_sync(kAll, next_min, off));
-  }
-  // the long cut rows' extents, for their arrival counts (uniform over the warp)
-  const bool long_first = cut_start && !drop_first;
-  const bool long_last = cut_end && !short_last && !(last == first && cut_start);
-  const int first_begin = long_first ? __ldg(row_ptr + first) : 0;
-  const int first_end = long_first ? __ldg(row_ptr + first + 1) : 1;
-  const int last_end = long_last ? __ldg(row_ptr + last + 1) : 1;
 
   // the lane's run: the rows that end inside it are written here, its head
   // row's min (if another row follows it in the run) kept in head_min, the
@@ -209,7 +230,7 @@ csr_min_i32_kernel(const int* __restrict__ vals, const int* __restrict__ recv,
   int head_min = INT_MAX, run_min = INT_MAX, row = r[0];
   bool split = false;  // the head row ended inside the run
 #pragma unroll
-  for (int j = 0; j < kMinPer; ++j) {
+  for (int j = 0; j < kPer; ++j) {
     if (j < cnt) {
       if (r[j] != row) {
         if (split) {
@@ -238,8 +259,28 @@ csr_min_i32_kernel(const int* __restrict__ vals, const int* __restrict__ recv,
   const int prev_key = __shfl_up_sync(kAll, key, 1);
   const int prev_scan = __shfl_up_sync(kAll, scan, 1);
   const int next_head = __shfl_down_sync(kAll, cnt > 0 ? head : -1, 1);
+  const int last = __shfl_sync(kAll, key, (stop - 1 - start) / kPer);  // the tile's last row
 
-  // the rows that end in this lane; a long cut row's min goes to its slot
+  // The rows across the tile's two boundaries.  One that begins in a tile and
+  // ends within kWarp slots of its end ("short") is finished by that tile
+  // with the slots after it, and the next tile drops it; both decide it from
+  // the same receivers.  Any other cut row (longer, or over three tiles or
+  // more) takes the row's min word and arrival counter.
+  const bool cut_start = before == first;  // the first row began in an earlier tile
+  const bool cut_end = after == last;      // the last row goes on in a later tile
+  const bool drop_first = cut_start && at31 != first && (start == tile || before_prev != first);
+  const bool short_last =
+      cut_end && (last != first || !cut_start) && __shfl_sync(kAll, xr, kWarp - 1) != last;
+  int next_min = xr == last ? xv : INT_MAX;  // the last row's values after the tile
+  if (short_last) {
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off >>= 1)
+      next_min = min(next_min, __shfl_xor_sync(kAll, next_min, off));
+  }
+  const bool long_first = cut_start && !drop_first;
+  const bool long_last = cut_end && !short_last && !(last == first && cut_start);
+
+  // the rows that end in this lane; a long cut row's min is this tile's piece
   bool has0 = false, has1 = false;
   int min0 = INT_MAX, min1 = INT_MAX;
   auto finish = [&](int x, int m) {
@@ -261,56 +302,23 @@ csr_min_i32_kernel(const int* __restrict__ vals, const int* __restrict__ recv,
   };
   if (cnt > 0) {
     // rows with no edge between the previous lane's (or tile's) last row and
-    // this lane's first; tile 0's leading rows are filled below
+    // this lane's first (fill_ends takes those before the first edge)
     const int from = lane > 0 ? prev_key : (start > 0 ? before : head);
     for (int g = from + 1; g < head; ++g) out[g] = INT_MAX;
     if (split) finish(head, min(head_min, lane > 0 && prev_key == head ? prev_scan : INT_MAX));
     if (lane == kWarp - 1 || next_head != row) finish(row, scan);
   }
-  if (start == 0) fill_rows(out, 0, first, lane);
-  if (stop == n_valid) fill_rows(out, last + 1, n_rows, lane);
+  fill_ends(out, lead, tail, n_rows);
 
-  // the long cut rows: partial, arrival, and the fold by the tile that
-  // arrives last (slot 0's row began in tile first_begin / tile, slot 1's in
-  // this one)
-  const int t0_first = first_begin / tile, t0_last = t;
-  const int n_first = (first_end - 1) / tile - t0_first + 1;
-  const int n_last = (last_end - 1) / tile - t0_last + 1;
-  bool won0 = false, won1 = false;
-  if (has0) {
-    partials[2 * t] = min0;
-    won0 = arrive(arrivals + t0_first) == n_first - 1;
+  // the long cut rows: each tile's piece into the row's min word, then its
+  // arrival; the tile that completes the count writes the row
+  if (has0) {  // the row began in an earlier tile: this tile covers it wholly, or ends it
+    if (arrive(arrivals + first, mins + first, min0, last == first && cut_end ? 1 : kHalf - t))
+      finish_cut_row(out, arrivals, mins, first);
   }
-  if (has1) {
-    partials[2 * t + 1] = min1;
-    won1 = arrive(arrivals + t0_last) == n_last - 1;
-  }
-#pragma unroll
-  for (int slot = 0; slot < 2; ++slot) {
-    if (__ballot_sync(kAll, slot == 0 ? won0 : won1)) {
-      // partial 0 is slot 1 of tile t0, partial k > 0 slot 0 of tile t0 + k;
-      // written by other warps of this launch, so read from L2
-      __syncwarp();
-      const int t0 = slot == 0 ? t0_first : t0_last;
-      const int n = slot == 0 ? n_first : n_last;
-      int m = INT_MAX;
-      for (int k0 = lane; k0 < n; k0 += 4 * kWarp) {
-        int q[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int k = min(k0 + i * kWarp, n - 1);
-          q[i] = __ldcg(partials + (k == 0 ? 2 * t0 + 1 : 2 * (t0 + k)));
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) m = min(m, q[i]);
-      }
-#pragma unroll
-      for (int off = kWarp / 2; off > 0; off >>= 1) m = min(m, __shfl_xor_sync(kAll, m, off));
-      if (lane == 0) {
-        out[slot == 0 ? first : last] = m;
-        arrivals[t0] = 0;  // ready for the next call on this stream
-      }
-    }
+  if (has1) {  // the row begins in this tile
+    if (arrive(arrivals + last, mins + last, min1, kHalf + t + 1))
+      finish_cut_row(out, arrivals, mins, last);
   }
 }
 
@@ -379,20 +387,37 @@ int hgnn_csr_wsum_f32(const void* data, const float* w, const int* recv, const i
                                       d, tile, lanes, stream);
 }
 
-// (vals, recv, row_ptr, out, arrivals, partials, n_edges, n_rows, tile, stream):
-// `arrivals` holds ceil(n_edges / tile) zeros and is left so; `partials`
-// 2 * ceil(n_edges / tile) ints (sorted_agg.py::min_tiling and _min_scratch)
+// (vals, recv, row_ptr, out, arrivals, mins, n_edges, n_rows, tile, stream):
+// `arrivals` holds n_rows zeros and `mins` n_rows INT32_MAX, and both are left
+// so (sorted_agg.py::_min_scratch); `tile` from sorted_agg.py::min_tiling
 int hgnn_csr_min_i32(const int* vals, const int* recv, const int* row_ptr, int* out,
-                     int* arrivals, int* partials, int n_edges, int n_rows, int tile,
+                     int* arrivals, int* mins, int n_edges, int n_rows, int tile,
                      void* stream) {
-  if (tile < kWarp || tile > kWarp * kMinPer || tile % kWarp || n_edges < 0) {
+  if ((tile != 32 && tile != 64 && tile != 128 && tile != 256) || n_edges < 0 ||
+      n_edges / tile >= kHalf) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_rows > 0) {
     const int n_tiles = static_cast<int>((static_cast<long long>(n_edges) + tile - 1) / tile);
     const int blocks = n_tiles > 0 ? (n_tiles + kMinWarps - 1) / kMinWarps : 1;
-    csr_min_i32_kernel<<<blocks, kMinThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        vals, recv, row_ptr, out, arrivals, partials, n_tiles, n_rows, tile);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (tile / kWarp) {
+      case 1:
+        csr_min_i32_kernel<1><<<blocks, kMinThreads, 0, s>>>(vals, recv, row_ptr, out, arrivals,
+                                                             mins, n_edges, n_tiles, n_rows);
+        break;
+      case 2:
+        csr_min_i32_kernel<2><<<blocks, kMinThreads, 0, s>>>(vals, recv, row_ptr, out, arrivals,
+                                                             mins, n_edges, n_tiles, n_rows);
+        break;
+      case 4:
+        csr_min_i32_kernel<4><<<blocks, kMinThreads, 0, s>>>(vals, recv, row_ptr, out, arrivals,
+                                                             mins, n_edges, n_tiles, n_rows);
+        break;
+      default:
+        csr_min_i32_kernel<8><<<blocks, kMinThreads, 0, s>>>(vals, recv, row_ptr, out, arrivals,
+                                                             mins, n_edges, n_tiles, n_rows);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

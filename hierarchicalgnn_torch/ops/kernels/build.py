@@ -41,7 +41,7 @@ SIGNATURES = {
         # (data, w, recv, row_ptr, out, partials, n_edges, n_rows, d, tile, lanes, stream)
         "hgnn_csr_wsum_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
         "hgnn_csr_wsum_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-        # (vals, recv, row_ptr, out, arrivals, partials, n_edges, n_rows, tile, stream)
+        # (vals, recv, row_ptr, out, arrivals, mins, n_edges, n_rows, tile, stream)
         "hgnn_csr_min_i32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
     "sddmm_csr.cu": {

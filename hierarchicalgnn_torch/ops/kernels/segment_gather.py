@@ -36,6 +36,11 @@ from hierarchicalgnn_torch.ops.kernels.sorted_agg import (
 SOURCE = "segment_gather.cu"
 _ENTRY = {torch.bfloat16: "hgnn_csr_gather_sum_bf16",
           torch.float32: "hgnn_csr_gather_sum_f32"}
+# K7's tiles: the largest of sorted_agg.TILE_SIZES that gives this many
+# threads (1536 warps, about 12 a SM), so that a narrow row's few lanes a tile
+# walk shorter tiles (scripts/k5_k7_sweep.py: D 3 takes T 32 and 0.0085 ms
+# device against 0.0187 at T 128 on an H100)
+MIN_THREADS = 1536 * 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,7 +114,7 @@ def _k7(data, layout: CSRLayout):
     out = data.new_empty((n, d), dtype=torch.float32)
     size, ptr = data.element_size(), data.data_ptr()
     width = load_width(d, size, ptr)
-    cut = csr_tiling(e, n, d, size, width)
+    cut = csr_tiling(e, n, d, size, width, MIN_THREADS)
     stream = _stream(data)
     partials = _partials(data.device, stream, cut.scratch_rows * d)
     entry = _entry(data.dtype)

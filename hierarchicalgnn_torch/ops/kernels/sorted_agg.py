@@ -183,18 +183,31 @@ def tile_edges(n_edges: int) -> int:
     return TILE_SIZES[-1]
 
 
+def tile_for_threads(n_edges: int, threads_per_tile: int, min_threads: int) -> int:
+    """The largest of TILE_SIZES whose tiles give ``min_threads`` threads or
+    more at ``threads_per_tile`` each, else the smallest (K7's rule: a
+    gathered row costs a round trip for ``perm`` before its load, so narrow
+    rows, few lanes a tile, take shorter tiles)."""
+    for tile in TILE_SIZES:
+        if -(-n_edges // tile) * threads_per_tile >= min_threads:
+            return tile
+    return TILE_SIZES[-1]
+
+
 @functools.lru_cache(maxsize=1024)
-def csr_tiling(n_edges: int, n_rows: int, d: int, element_size: int,
-               width: int = 16) -> CsrTiling:
+def csr_tiling(n_edges: int, n_rows: int, d: int, element_size: int, width: int = 16,
+               min_threads: int | None = None) -> CsrTiling:
     """The cut of a K1/K2 (or K7) call over ``n_edges`` edge slots (valid or
     not: the grid is sized on the host, and a tile past ``row_ptr[N]``
     exits), as the C launcher takes it, for lanes that load ``width`` bytes
-    of a row each (K1/K2 16, K7 ``segment_gather.load_width``).  Cached: the
-    wrapper asks at every call."""
-    tile = tile_edges(n_edges)
+    of a row each (K1/K2 16, K7 ``segment_gather.load_width``).  The tile is
+    :func:`tile_edges`, or with ``min_threads`` :func:`tile_for_threads`.
+    Cached: the wrapper asks at every call."""
     vectors = -(-d * element_size // width)
     lanes = min(32, 1 << max(0, vectors - 1).bit_length())
     slices = -(-vectors // lanes)
+    tile = (tile_edges(n_edges) if min_threads is None
+            else tile_for_threads(n_edges, lanes * slices, min_threads))
     n_tiles = -(-n_edges // tile)
     return CsrTiling(tile=tile, lanes=lanes, slices=slices, n_tiles=n_tiles,
                      scratch_rows=2 * n_tiles,
@@ -224,9 +237,11 @@ def _partials(device, stream: int, n_floats: int):
 
 # K5 cuts the valid edges into tiles of up to 256 edges, one warp each (a lane
 # a run of tile / 32 edges); a smaller tile where larger ones would leave fewer
-# than MIN_MIN_TILES warps, about two a SM
+# than MIN_MIN_TILES warps: the CC hop (E 98304) takes T 64, one rank's hop
+# (36864) T 32, where a lane's short walk and the spread over the card set the
+# time (scripts/k5_k7_sweep.py)
 MIN_TILE_SIZES = (256, 128, 64, 32)
-MIN_MIN_TILES = 264
+MIN_MIN_TILES = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,23 +272,25 @@ def min_tiling(n_edges: int) -> MinTiling:
     return MinTiling(tile=tile, n_tiles=-(-n_edges // tile))
 
 
-# K5's scratch, one per (device, stream): an arrival counter per tile, zeroed
-# once when allocated and set back to 0 by the kernel that uses it, then two
-# int32 partials per tile.  Grown as needed, never shrunk.
+# K5's scratch, one per (device, stream): an arrival counter and a min word
+# per row, for the rows that cross tiles, set once when allocated (0 and
+# INT32_MAX) and set back by the kernel that uses them.  Grown as needed,
+# never shrunk.
 _MIN_SCRATCH = {}
 
 
-def _min_scratch(device, stream: int, n_tiles: int):
-    """(arrivals, partials) for a K5 call of ``n_tiles`` tiles: views of one
-    zeroed int32 buffer of 3 * capacity, the counters first."""
+def _min_scratch(device, stream: int, n_rows: int):
+    """(arrivals, mins) for a K5 call over ``n_rows`` rows: views of one
+    int32 buffer of 2 * capacity, the counters first."""
     key = (device.index, stream)
     found = _MIN_SCRATCH.get(key)
-    if found is None or found[0].numel() < n_tiles:
+    if found is None or found[0].numel() < n_rows:
         with _PARTIALS_LOCK:
             found = _MIN_SCRATCH.get(key)
-            if found is None or found[0].numel() < n_tiles:
-                cap = max(n_tiles, 1)
-                buf = torch.zeros(3 * cap, dtype=torch.int32, device=device)
+            if found is None or found[0].numel() < n_rows:
+                cap = max(n_rows, 1)
+                buf = torch.zeros(2 * cap, dtype=torch.int32, device=device)
+                buf[cap:] = INT32_MAX
                 found = _MIN_SCRATCH[key] = (buf[:cap], buf[cap:])
     return found
 
@@ -531,10 +548,10 @@ def sorted_segment_min_i32(values_sorted, plan: SortedPlan):
     out = values_sorted.new_empty((n,))
     cut = min_tiling(e)
     stream = _stream(values_sorted)
-    arrivals, partials = _min_scratch(values_sorted.device, stream, cut.n_tiles)
+    arrivals, mins = _min_scratch(values_sorted.device, stream, n)
     rc = _min_entry()(values_sorted.data_ptr(), plan.receivers_i32.data_ptr(),
                       plan.row_ptr.data_ptr(), out.data_ptr(), arrivals.data_ptr(),
-                      partials.data_ptr(), e, n, cut.tile, stream)
+                      mins.data_ptr(), e, n, cut.tile, stream)
     _raise_on(rc, "hgnn_csr_min_i32")
     with COUNT_LOCK:
         LAUNCHES["K5"] += 1

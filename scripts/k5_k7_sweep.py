@@ -17,7 +17,8 @@ graph's unsorted edge rows at D 256, 128, 100 and 3, bf16 and f32.  One line
 per input: ``ms`` (CUDA events over 20 calls), the profiler's device ms per
 call (K7: tile kernel + fix-up), the bytes bound, then host microseconds per
 call (100 calls enqueued without a wait) of the wrapper, of the bare ctypes
-entry with its arguments made beforehand, and of the library call.  Where the
+entry with its arguments made beforehand, and of the library call.  The
+device time of a one-element fill stands for the floor of a launch.  Where the
 package cuts K5 or K7 into tiles, the device ms at each tile size follows.
 Needs a card.
 """
@@ -73,11 +74,10 @@ def k5_entry(vals, plan):
     if len(build.SIGNATURES["segment_csr.cu"]["hgnn_csr_min_i32"]) == 5:  # one warp a row
         args = (vals.data_ptr(), plan.row_ptr.data_ptr(), out.data_ptr(), n, stream)
     else:
-        cut = sa.min_tiling(e)
-        arrivals, partials = sa._min_scratch(vals.device, stream, cut.n_tiles)
+        arrivals, mins = sa._min_scratch(vals.device, stream, n)
         args = (vals.data_ptr(), plan.receivers_i32.data_ptr(), plan.row_ptr.data_ptr(),
-                out.data_ptr(), arrivals.data_ptr(), partials.data_ptr(), e, n, cut.tile,
-                stream)
+                out.data_ptr(), arrivals.data_ptr(), mins.data_ptr(), e, n,
+                sa.min_tiling(e).tile, stream)
     return lambda: lib.hgnn_csr_min_i32(*args)
 
 
@@ -93,7 +93,7 @@ def k7_entry(data, layout):
                 out.data_ptr(), n, d, stream)
     else:
         width = sg.load_width(d, data.element_size(), data.data_ptr())
-        cut = sa.csr_tiling(e, n, d, data.element_size(), width)
+        cut = sa.csr_tiling(e, n, d, data.element_size(), width, sg.MIN_THREADS)
         partials = sa._partials(data.device, stream, cut.scratch_rows * d)
         args = (data.data_ptr(), layout.perm.data_ptr(), layout.slot_receivers.data_ptr(),
                 layout.row_ptr.data_ptr(), out.data_ptr(), partials.data_ptr(), e, n, d,
@@ -137,6 +137,8 @@ def main():
                 ("rows of degree 5000 and 50000", None, None, hub_input)]
     tag5 = (c.PROFILE_TAGS["K5"],)
     tiled5 = hasattr(sa, "min_tiling")
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    log(f"launch floor: a one-element fill, device_ms {fmt(dev_ms(lambda: one.fill_(7), ('',)))}")
     for label, e, n, make in k5_cases:
         if e is None:
             degrees, n_invalid = make(torch, e, n, gen)
@@ -195,17 +197,17 @@ def main():
             how = ""
             if tiled7:
                 width = sg.load_width(d, data.element_size(), data.data_ptr())
-                cut = sa.csr_tiling(e, n, d, data.element_size(), width)
+                cut = sa.csr_tiling(e, n, d, data.element_size(), width, sg.MIN_THREADS)
                 how = f" (T {cut.tile}, {width}-byte loads, {cut.lanes} lanes)"
             log(f"K7 {str(dtype)[6:]} E={e} N={n} D={d}{how}: ms {c.time_ms(torch, fn):.4f} "
                 f"device_ms {fmt(dev_ms(fn, tags7))} bound_ms {bound:.4f} library "
                 f"device_ms {fmt(dev_ms(library, ('',)))} | host us "
                 + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
-            if tiled7 and d == 256:
-                default = sa.tile_edges
+            if tiled7:
+                default = sa.tile_for_threads
 
                 def set_tile(size):
-                    sa.tile_edges = default if size is None else (lambda n_edges: size)
+                    sa.tile_for_threads = default if size is None else (lambda *args: size)
                 log("  K7 device ms by tile: " + forced_tiles(
                     set_tile, sa.csr_tiling.cache_clear, fn, tags7, sa.TILE_SIZES))
     # K7 with its base off a 16-byte boundary: narrower loads, the same kernel

@@ -4,18 +4,18 @@
 K5, the int32 segment min, is one launch: a warp per tile of 32-256 edges,
 a lane per run of tile / 32 edges, a shuffle scan for the rows that cross
 lanes, the empty rows filled by the tile that reads the receivers around
-them, the rows cut by a tile boundary finished by the tile they begin in
+them (those before the first edge and after the last by the whole grid), the rows cut by a tile boundary finished by the tile they begin in
 when they end within 32 slots of its end (it reads those slots), and
-otherwise through partials and an arrival counter per row, folded by the
-tile that arrives last, which sets the counter back to 0.  K7 is K1's tile
+otherwise through a min word and an arrival counter per row, whose amounts
+sum to 2**30 only when every tile that covers the row has arrived; that tile
+writes the row and sets both words back.  K7 is K1's tile
 walk and fix-up with each slot's row read through ``perm``, at the widest
 load that divides the row's bytes and the base's alignment.
 
 On the CPU: both cuts written out in numpy (``k5_walk``, ``k7_walk``, the
-same steps as the kernels), every row written exactly once and every
-partial read written in the same call, the tiles of K5 taken in shuffled
-orders (the order in which they arrive) and two calls on one scratch (the
-counters reset), on the boundary inputs of ``chip_smoke.tile_cases`` at
+same steps as the kernels), every row written exactly once, the tiles
+of K5 taken in shuffled orders (the order in which they arrive) and two
+calls on one scratch (the counters and min words set back), on the boundary inputs of ``chip_smoke.tile_cases`` at
 each tile size -- against the port's plain versions and the JAX package's
 K5 and K7 (Pallas in interpret mode, with a chunk budget that covers every
 chunk, so that neither plan overflows).  The min is exact; K7's sums agree
@@ -41,6 +41,7 @@ from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
 
 W = 32  # lanes of a warp
 INT_MAX = sa.INT32_MAX
+HALF = 1 << 29  # the kernel's kHalf
 CASES = chip_smoke.tile_cases(128)
 HUB = CASES[-1]  # rows of degree 5000 and 50000: the 50000 spans 196-1563 tiles
 
@@ -57,13 +58,13 @@ def _k5_inputs(degrees, n_invalid, seed=0):
 def k5_walk(vals, recv, row_ptr, tile, scratch, order):
     """K5 as the CUDA kernel cuts it, in numpy, the tiles taken in ``order``
     (each tile's steps at once, as if it ran alone).  ``scratch`` is
-    (arrivals, partials), kept between calls as the wrapper keeps it."""
+    (arrivals, mins), a counter and a min word per row, kept between calls
+    as the wrapper keeps them."""
     n = row_ptr.shape[0] - 1
     n_valid = int(row_ptr[-1])
-    arrivals, partials = scratch
+    arrivals, mins = scratch
     out = np.zeros(n, dtype=np.int64)
     writes = np.zeros(n, dtype=int)
-    fresh = np.zeros(partials.shape[0], dtype=bool)  # slots written in this call
 
     def put(row, m):
         out[row] = m
@@ -154,38 +155,36 @@ def k5_walk(vals, recv, row_ptr, tile, scratch, order):
                 finish(head[lane], min(head_min[lane], carry))
             if lane == W - 1 or next_head[lane] != key[lane]:
                 finish(key[lane], scan[lane])
-        if start == 0:
-            for g in range(0, first):
-                put(g, INT_MAX)
-        if stop == n_valid:
-            for g in range(last + 1, n):
-                put(g, INT_MAX)
         assert (0 in slots) == long_first and (1 in slots) == long_last, (t, slots)
 
-        # arrivals, and the fold by the tile that arrives last
+        # each piece into the row's min word, then the arrival; the tile that
+        # completes the sum writes the row and sets both words back
         for slot, m in sorted(slots.items()):
-            partials[2 * t + slot] = m
-            fresh[2 * t + slot] = True
             x = first if slot == 0 else last
-            t0 = row_ptr[x] // tile if slot == 0 else t
-            n_cover = (row_ptr[x + 1] - 1) // tile - t0 + 1
-            assert n_cover >= 2
-            arrivals[t0] += 1
-            if arrivals[t0] == n_cover:
-                read = [2 * t0 + 1] + [2 * (t0 + k) for k in range(1, n_cover)]
-                assert fresh[read].all(), (x, read)
-                put(x, partials[read].min())
-                arrivals[t0] = 0
+            if slot == 1:  # the row begins here
+                add = HALF + t + 1
+            else:  # covers this tile wholly, or ends in it
+                add = 1 if last == first and cut_end else HALF - t
+            mins[x] = min(mins[x], m)
+            arrivals[x] += add
+            t0, t1 = row_ptr[x] // tile, (row_ptr[x + 1] - 1) // tile
+            assert t1 > t0 and 0 < arrivals[x] <= 2 * HALF
+            if arrivals[x] == 2 * HALF:
+                put(x, mins[x])
+                mins[x], arrivals[x] = INT_MAX, 0
+    if n_valid:  # the grid-stride fill of the rows before the first edge and after the last
+        for g in [*range(recv[0]), *range(recv[n_valid - 1] + 1, n)]:
+            put(g, INT_MAX)
     assert (writes == 1).all(), np.nonzero(writes != 1)
-    assert not arrivals.any()  # every counter is back at 0
+    assert not arrivals.any() and (mins == INT_MAX).all()  # set back for the next call
     return out
 
 
 def _k5_walk_twice(plan, vals, tile, seed=0):
     """Two calls on one scratch, the tiles in two shuffled orders; both equal."""
-    e = vals.shape[0]
-    n_tiles = -(-e // tile)
-    scratch = (np.zeros(n_tiles, dtype=int), np.full(2 * n_tiles, -7, dtype=np.int64))
+    n_tiles = -(-vals.shape[0] // tile)
+    n = plan.num_segments
+    scratch = (np.zeros(n, dtype=np.int64), np.full(n, INT_MAX, dtype=np.int64))
     rng = np.random.default_rng(seed)
     args = (vals.numpy().astype(np.int64), plan.receivers_i32.numpy(), plan.row_ptr.numpy(),
             tile, scratch)
@@ -200,25 +199,27 @@ def _k5_walk_twice(plan, vals, tile, seed=0):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("e,want", [(0, (32, 0)), (11, (32, 1)), (8447, (32, 264)),
-                                    (8448, (32, 264)), (16896, (64, 264)),
-                                    (36864, (128, 288)), (98304, (256, 384)),
-                                    (55113, (128, 431)), (2 * 98304, (256, 768))])
+@pytest.mark.parametrize("e,want", [(0, (32, 0)), (11, (32, 1)), (32768, (32, 1024)),
+                                    (36864, (32, 1152)), (55113, (32, 1723)),
+                                    (65472, (32, 2046)), (65473, (64, 1024)),
+                                    (98304, (64, 1536)), (196608, (128, 1536)),
+                                    (262144, (256, 1024))])
 def test_min_tiling(e, want):
     """The largest tile of MIN_TILE_SIZES that leaves MIN_MIN_TILES warps,
-    from E alone: the CC hop (98304) T 256, one rank's hop (36864) T 128."""
+    from E alone: the CC hop (98304) T 64, one rank's hop (36864) T 32."""
     cut = sa.min_tiling(e)
     assert (cut.tile, cut.n_tiles) == want
     assert cut.tile * 8 >= 256 and cut.tile % W == 0 and cut.tile // W <= 8
 
 
 def test_min_scratch_per_stream():
-    """One zeroed scratch per (device, stream): counters then partials, the
-    counters' capacity grown when a call needs more, reused otherwise."""
+    """One scratch per (device, stream): a zeroed counter and an INT32_MAX
+    min word per row, grown when a call has more rows, reused otherwise."""
     dev = torch.device("cpu")
-    arrivals, partials = sa._min_scratch(dev, 4242, 100)
-    assert arrivals.numel() == 100 and partials.numel() == 200
-    assert not arrivals.any() and partials.data_ptr() == arrivals.data_ptr() + 400
+    arrivals, mins = sa._min_scratch(dev, 4242, 100)
+    assert arrivals.numel() == mins.numel() == 100
+    assert not arrivals.any() and (mins == INT_MAX).all()
+    assert mins.data_ptr() == arrivals.data_ptr() + 400
     assert sa._min_scratch(dev, 4242, 60)[0] is arrivals
     grown = sa._min_scratch(dev, 4242, 1000)[0]
     assert grown.numel() == 1000 and sa._min_scratch(dev, 4243, 10)[0].numel() == 10
@@ -327,6 +328,22 @@ def test_load_width(d, dtype, offset, want):
     assert cut.lanes * (cut.slices - 1) < vectors <= cut.lanes * cut.slices
     assert cut.lanes == min(32, 1 << max(0, vectors - 1).bit_length())
     assert sa.csr_tiling(98304, 24576, d, size) == sa.csr_tiling(98304, 24576, d, size, 16)
+
+
+@pytest.mark.parametrize("d,dtype,width,want", [
+    (256, torch.bfloat16, 16, (64, 32, 1)), (256, torch.float32, 16, (128, 32, 2)),
+    (128, torch.bfloat16, 16, (32, 16, 1)), (128, torch.float32, 16, (64, 32, 1)),
+    (100, torch.bfloat16, 8, (64, 32, 1)), (3, torch.float32, 4, (32, 4, 1)),
+    (256, torch.bfloat16, 2, (128, 32, 8))])
+def test_k7_tile_rule(d, dtype, width, want):
+    """K7's tile on the flat graph (E 98304): the largest that gives
+    MIN_THREADS threads at lanes * slices a tile, so narrow rows take short
+    tiles; K1/K2's cut of the same shape is unchanged (tile_edges)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    cut = sa.csr_tiling(98304, 24576, d, size, width, sg.MIN_THREADS)
+    assert (cut.tile, cut.lanes, cut.slices) == want
+    assert cut.tile == sa.TILE_SIZES[-1] or cut.n_tiles * cut.lanes * cut.slices >= sg.MIN_THREADS
+    assert sa.csr_tiling(98304, 24576, d, size).tile == sa.tile_edges(98304) == 128
 
 
 def _k7_inputs(degrees, n_invalid, d, seed=0):
@@ -516,12 +533,15 @@ def test_k5_reuse_and_two_streams(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [256, 100, 3])
+@pytest.mark.parametrize("tile", sa.TILE_SIZES)
 @pytest.mark.parametrize("index", range(len(CASES)), ids=[c[0] for c in CASES])
-def test_k7_tile_cases_on_the_card(dev, index, d, dtype):
-    """K7 on the boundary inputs, aligned and one element off: within
-    SUM_TOL of |terms| of its plain version, empty rows exactly 0, two calls
-    equal bit for bit."""
-    label, degrees, n_invalid = CASES[index]
+def test_k7_tile_cases_on_the_card(dev, monkeypatch, index, tile, d, dtype):
+    """K7 on the boundary inputs at each tile size (forced), aligned and one
+    element off: within SUM_TOL of |terms| of its plain version, empty rows
+    exactly 0, two calls equal bit for bit."""
+    monkeypatch.setattr(sa, "tile_for_threads", lambda *args: tile)
+    sa.csr_tiling.cache_clear()
+    label, degrees, n_invalid = chip_smoke.tile_cases(tile)[index]
     layout, data, _, _ = _k7_inputs(degrees, n_invalid, d)
     layout = sg.make_csr_layout(layout.receivers.to(dev), layout.edge_mask.to(dev),
                                 len(degrees))
@@ -534,3 +554,4 @@ def test_k7_tile_cases_on_the_card(dev, index, d, dtype):
         assert ((got - sg.csr_segment_sum_plain(x, layout)).abs()
                 <= chip_smoke.SUM_TOL * bound + 1e-6).all()
         assert not got[empty].any() and torch.equal(got, again)
+    sa.csr_tiling.cache_clear()
