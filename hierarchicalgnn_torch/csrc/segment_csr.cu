@@ -53,16 +53,18 @@
 // Design, K5: an edge-balanced segment min in one launch.
 //  * Bound: 4E + 4(N + 1) bytes read and 4N written; on the CC hop of the
 //    flagship (E 98304, N 24576) 0.0002 ms at 3.35 TB/s.  That is below the
-//    floor of any launch (a few microseconds on an H100), so the floor and the
-//    round trips to memory bound it, not the bytes: the design keeps both to
-//    one launch and few dependent round trips.
-//  * The valid edges are cut into tiles of `tile` edges (32-256, from E alone:
-//    sorted_agg.min_tile_edges); a warp owns a tile, each lane a run of
-//    tile / 32 consecutive edges, whose values and receivers it loads all at
-//    once (up to 8 of each in flight) before the first min.  The one-warp-a-row
-//    kernel this replaces walked a hub row of 5000 edges in 157 strided loads
-//    on one warp while the rest of the card idled; here a hub is 20-160 warps
-//    side by side, and no warp walks more than its tile.
+//    floor of any launch (0.0010 ms for a one-element fill on an H100,
+//    scripts/k5_k7_sweep.py), so the floor and the round trips to memory bound
+//    it, not the bytes: the design keeps to one launch and one round trip
+//    before the walk.
+//  * The valid edges are cut into tiles of 64 edges, or of 32 where tiles of
+//    64 would be fewer than 1024 (sorted_agg.min_tile_edges, from E alone);
+//    a warp owns a tile, each lane a run of 2 (or 1) consecutive edges, whose
+//    values and receivers it loads with the rest of the tile's loads before
+//    the first min.  The one-warp-a-row kernel this replaces walked a hub row
+//    of 5000 edges in 157 strided loads on one warp while the rest of the
+//    card idled; here a hub is 80-160 warps side by side, and no warp walks
+//    more than its tile.
 //  * A lane writes the rows that end inside its run; a shuffle scan keyed by
 //    row carries a row that crosses lanes to the lane where it ends.  Each
 //    tile writes INT32_MAX to the rows strictly between two consecutive
@@ -393,7 +395,7 @@ int hgnn_csr_wsum_f32(const void* data, const float* w, const int* recv, const i
 int hgnn_csr_min_i32(const int* vals, const int* recv, const int* row_ptr, int* out,
                      int* arrivals, int* mins, int n_edges, int n_rows, int tile,
                      void* stream) {
-  if ((tile != 32 && tile != 64 && tile != 128 && tile != 256) || n_edges < 0 ||
+  if ((tile != 32 && tile != 64) || n_edges < 0 ||
       n_edges / tile >= kHalf) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -401,22 +403,12 @@ int hgnn_csr_min_i32(const int* vals, const int* recv, const int* row_ptr, int* 
     const int n_tiles = static_cast<int>((static_cast<long long>(n_edges) + tile - 1) / tile);
     const int blocks = n_tiles > 0 ? (n_tiles + kMinWarps - 1) / kMinWarps : 1;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (tile / kWarp) {
-      case 1:
-        csr_min_i32_kernel<1><<<blocks, kMinThreads, 0, s>>>(vals, recv, row_ptr, out, arrivals,
-                                                             mins, n_edges, n_tiles, n_rows);
-        break;
-      case 2:
-        csr_min_i32_kernel<2><<<blocks, kMinThreads, 0, s>>>(vals, recv, row_ptr, out, arrivals,
-                                                             mins, n_edges, n_tiles, n_rows);
-        break;
-      case 4:
-        csr_min_i32_kernel<4><<<blocks, kMinThreads, 0, s>>>(vals, recv, row_ptr, out, arrivals,
-                                                             mins, n_edges, n_tiles, n_rows);
-        break;
-      default:
-        csr_min_i32_kernel<8><<<blocks, kMinThreads, 0, s>>>(vals, recv, row_ptr, out, arrivals,
-                                                             mins, n_edges, n_tiles, n_rows);
+    if (tile == 32) {
+      csr_min_i32_kernel<1><<<blocks, kMinThreads, 0, s>>>(vals, recv, row_ptr, out, arrivals,
+                                                           mins, n_edges, n_tiles, n_rows);
+    } else {
+      csr_min_i32_kernel<2><<<blocks, kMinThreads, 0, s>>>(vals, recv, row_ptr, out, arrivals,
+                                                           mins, n_edges, n_tiles, n_rows);
     }
   }
   return static_cast<int>(cudaGetLastError());

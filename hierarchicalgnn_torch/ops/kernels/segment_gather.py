@@ -83,11 +83,10 @@ def load_width(d: int, element_size: int, data_ptr: int) -> int:
     """The bytes a lane of K7 loads at once: the widest of 16, 8, 4 and 2
     that divides both a row's bytes and the base address (and is no
     narrower than one element)."""
-    for width in (16, 8, 4, 2):
+    for width in (16, 8, 4):
         if width >= element_size and (d * element_size) % width == 0 and data_ptr % width == 0:
             return width
-    raise ValueError(f"rows of {d} x {element_size} bytes at {data_ptr:#x} are not "
-                     f"element-aligned")
+    return element_size  # a bf16 row of odd width, or a base off 4 bytes
 
 
 @functools.cache

@@ -235,12 +235,10 @@ def _partials(device, stream: int, n_floats: int):
     return buf
 
 
-# K5 cuts the valid edges into tiles of up to 256 edges, one warp each (a lane
-# a run of tile / 32 edges); a smaller tile where larger ones would leave fewer
-# than MIN_MIN_TILES warps: the CC hop (E 98304) takes T 64, one rank's hop
-# (36864) T 32, where a lane's short walk and the spread over the card set the
-# time (scripts/k5_k7_sweep.py)
-MIN_TILE_SIZES = (256, 128, 64, 32)
+# K5 cuts the valid edges into tiles of 64 edges, one warp each (a lane a run
+# of 2), or of 32 where tiles of 64 would be fewer than MIN_MIN_TILES: the CC
+# hop (E 98304) takes T 64, one rank's hop (36864) T 32 (scripts/k5_k7_sweep.py)
+MIN_TILE_SIZES = (64, 32)
 MIN_MIN_TILES = 1024
 
 
