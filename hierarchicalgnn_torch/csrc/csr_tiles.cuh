@@ -36,6 +36,7 @@ constexpr int kWarp = 32;
 constexpr int kBatch = 16;    // slots whose loads a worker issues before any add
 constexpr int kFixBatch = 8;  // partials whose loads the fix-up issues before any add
 constexpr int kLongParts = 16;  // a row of more partials is summed by a whole fix-up block
+constexpr int kShares = 8;  // in this many shares (a 256-thread block has 8 workers or more)
 
 // W bytes of a data row: the raw load, kept apart from its conversion so that
 // a worker can issue several loads before it uses one.
@@ -261,9 +262,11 @@ __device__ __forceinline__ void add_partials(const float* __restrict__ partials,
 // of its 32, and ran twice as long on the bipartite graph's 3072 rows on an
 // H100).  A row cut into more than kLongParts tiles (a hub: degree 5000 at
 // tile 32 is 156 partials, 20 round trips for one worker) is summed by all
-// the workers of the block instead: each adds a contiguous share in order,
-// and the first worker adds the shares in worker order, so the sum is still
-// the same bit for bit from run to run.  Called by every thread of a block of
+// the first kShares workers of the block instead: each adds a contiguous share
+// in order, and the first worker adds the shares in share order, so the sum is
+// still the same bit for bit from run to run, and the same at any number of
+// lanes a worker (K7 reads a row at any alignment: its lanes, and not its
+// sums, change with the load width).  Called by every thread of a block of
 // kThreads threads.
 template <int V, int kThreads>
 __device__ __forceinline__ void fixup_rows(const float* __restrict__ partials,
@@ -303,11 +306,11 @@ __device__ __forceinline__ void fixup_rows(const float* __restrict__ partials,
     const int r = long_rows[k];
     const int t0 = __ldg(row_ptr + r) / tile;
     const int n_parts = (__ldg(row_ptr + r + 1) - 1) / tile - t0 + 1;
-    const int per = (n_parts + workers - 1) / workers;
+    const int per = (n_parts + kShares - 1) / kShares;
     float acc[V];
 #pragma unroll
     for (int i = 0; i < V; ++i) acc[i] = 0.f;
-    if (active) {
+    if (active && worker < kShares) {
       add_partials<V>(partials, t0, min(worker * per, n_parts),
                       min((worker + 1) * per, n_parts), d, c, acc);
     }
@@ -318,7 +321,7 @@ __device__ __forceinline__ void fixup_rows(const float* __restrict__ partials,
       float sum[V];
 #pragma unroll
       for (int i = 0; i < V; ++i) sum[i] = 0.f;
-      for (int w = 0; w < workers; ++w) {
+      for (int w = 0; w < kShares; ++w) {
 #pragma unroll
         for (int i = 0; i < V; ++i) sum[i] += share[w * lanes + lane][i];
       }

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import threading
 
 import torch
@@ -194,6 +195,13 @@ def tile_for_threads(n_edges: int, threads_per_tile: int, min_threads: int) -> i
     return TILE_SIZES[-1]
 
 
+def _lanes_and_slices(vectors: int) -> tuple[int, int]:
+    """A worker's lanes (a power of two up to 32, one vector each) and the
+    column slices that cover ``vectors`` vectors of a row."""
+    lanes = min(32, 1 << max(0, vectors - 1).bit_length())
+    return lanes, -(-vectors // lanes)
+
+
 @functools.lru_cache(maxsize=1024)
 def csr_tiling(n_edges: int, n_rows: int, d: int, element_size: int, width: int = 16,
                min_threads: int | None = None) -> CsrTiling:
@@ -203,11 +211,13 @@ def csr_tiling(n_edges: int, n_rows: int, d: int, element_size: int, width: int 
     of a row each (K1/K2 16, K7 ``segment_gather.load_width``).  The tile is
     :func:`tile_edges`, or with ``min_threads`` :func:`tile_for_threads`.
     Cached: the wrapper asks at every call."""
-    vectors = -(-d * element_size // width)
-    lanes = min(32, 1 << max(0, vectors - 1).bit_length())
-    slices = -(-vectors // lanes)
-    tile = (tile_edges(n_edges) if min_threads is None
-            else tile_for_threads(n_edges, lanes * slices, min_threads))
+    lanes, slices = _lanes_and_slices(-(-d * element_size // width))
+    if min_threads is None:
+        tile = tile_edges(n_edges)
+    else:  # counted in 16-byte lanes at any width, so that the cut, and the order
+        # in which a row is summed, is the same at every alignment of the base
+        tile = tile_for_threads(n_edges, math.prod(_lanes_and_slices(-(-d * element_size // 16))),
+                                min_threads)
     n_tiles = -(-n_edges // tile)
     return CsrTiling(tile=tile, lanes=lanes, slices=slices, n_tiles=n_tiles,
                      scratch_rows=2 * n_tiles,

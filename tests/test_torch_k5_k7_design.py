@@ -332,16 +332,21 @@ def test_load_width(d, dtype, offset, want):
 @pytest.mark.parametrize("d,dtype,width,want", [
     (256, torch.bfloat16, 16, (64, 32, 1)), (256, torch.float32, 16, (128, 32, 2)),
     (128, torch.bfloat16, 16, (32, 16, 1)), (128, torch.float32, 16, (64, 32, 1)),
-    (100, torch.bfloat16, 8, (64, 32, 1)), (3, torch.float32, 4, (32, 4, 1)),
-    (256, torch.bfloat16, 2, (128, 32, 8))])
+    (100, torch.bfloat16, 8, (32, 32, 1)), (3, torch.float32, 4, (32, 4, 1)),
+    (256, torch.bfloat16, 2, (64, 32, 8)), (8, torch.bfloat16, 2, (32, 8, 1))])
 def test_k7_tile_rule(d, dtype, width, want):
     """K7's tile on the flat graph (E 98304): the largest that gives
-    MIN_THREADS threads at lanes * slices a tile, so narrow rows take short
-    tiles; K1/K2's cut of the same shape is unchanged (tile_edges)."""
+    MIN_THREADS threads of 16-byte lanes, so narrow rows take short tiles,
+    and the same tile at every load width (the base's alignment changes the
+    lanes, not the cut); K1/K2's cut of the same shape is unchanged
+    (tile_edges)."""
     size = torch.empty((), dtype=dtype).element_size()
     cut = sa.csr_tiling(98304, 24576, d, size, width, sg.MIN_THREADS)
     assert (cut.tile, cut.lanes, cut.slices) == want
-    assert cut.tile == sa.TILE_SIZES[-1] or cut.n_tiles * cut.lanes * cut.slices >= sg.MIN_THREADS
+    aligned = sa.csr_tiling(98304, 24576, d, size, 16, sg.MIN_THREADS)
+    assert cut.tile == aligned.tile
+    assert (aligned.tile == sa.TILE_SIZES[-1]
+            or aligned.n_tiles * aligned.lanes * aligned.slices >= sg.MIN_THREADS)
     assert sa.csr_tiling(98304, 24576, d, size).tile == sa.tile_edges(98304) == 128
 
 
