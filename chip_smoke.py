@@ -69,7 +69,29 @@ these phases and fails if any of them fails:
               forward of the same weights, for both ``shard_pooled`` values,
               and ``rdma`` against ``xla`` halo bit for bit;
  15. sharded models  one sharded event for each of the other four models at
-              its shipped widths, K8 counts asserted.
+              its shipped widths, K8 counts asserted;
+ 16. cli      ``python -m hierarchicalgnn_torch.run`` as ``run.main`` at the
+              flagship's width (capacities and 3000-particle events as in
+              phase 4, ``train_split [2,1,1]``): ``train`` 2 epochs, then
+              ``checkpoints/{last,best,hparams.json}`` and ``metrics.jsonl``
+              checked, ``resume`` to epoch 3, ``test`` (its ``track_eff``
+              line), ``transfer`` BC -> gMRT for 1 epoch; K1-K6 launched;
+ 17. checkpoint  f32 at depth 2 + 2 under deterministic algorithms: a save
+              at step 1 restored into a fresh ``Trainer`` takes step 2 as
+              the saving trainer did (loss and every parameter compared), and
+              ``InferenceEngine.from_run`` serves the restored run with the
+              trainer's scores;
+ 18. grid knn ``grid_knn_graph`` against the brute ``knn_graph`` on a seeded
+              Embedding-IN's embeddings (N 24576, k 100) and on a clustered
+              cloud of 131072 points (M 512, T 16, cap 512), edges equal
+              where ``exact``, both timed; then 2 Embedding-IN training steps
+              with ``knn_backend: grid``;
+ 19. streaming  ``write_event`` 3 events, then ``Trainer.fit_streaming`` one
+              epoch of 2 steps through the loader g++ builds from
+              ``native/hgnn_io.cc``.
+
+Each phase prints its seconds on a line of its own, and the script its
+total before the kernel table.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -80,6 +102,7 @@ from __future__ import annotations
 
 import faulthandler
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -138,6 +161,7 @@ K8_PATH_SHAPES = ((6144, 3), (6144, 8), (6144, 128), (6144, 256), (768, 128), (7
                   (36864, 128), (6144,), (36864,))
 K8_CHECKED = set()  # (shape, dtype) held against torch.cat at N_PARTS ranks
 WATCHDOG_S = 300  # a phase that waits on K8's flags longer than this ends the run
+GRID_FULL_N = 131072  # the grid kNN's full-event point (hierarchicalgnn_tpu/ops/grid_knn.py:33)
 
 
 def log(msg):
@@ -2068,29 +2092,306 @@ def phase_sharded_models(torch, events):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phases 16-19: the CLI, the checkpoint round trip, the grid kNN, streaming
+# ---------------------------------------------------------------------------
+
+def _flagship_sets(extra=()):
+    """``--set`` arguments of the flagship capacities (the shipped widths,
+    bf16, ``use_pallas: true``)."""
+    sets = []
+    for key, value in (*FLAGSHIP.items(), *extra):
+        sets += ["--set", f"{key}={json.dumps(value)}"]
+    return sets
+
+
+def _scratch_dir():
+    """A temporary directory inside the checkout's git-ignored build/ (the
+    run directories hold checkpoints of 0.4 GB)."""
+    import tempfile
+
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    return tempfile.TemporaryDirectory(dir=root, prefix="smoke_")
+
+
+def phase_cli(torch):
+    """The CLI on the card at the flagship's width: ``train`` 2 epochs on
+    ``train_split [2,1,1]``, ``resume`` to epoch 3, ``test``, and
+    ``transfer`` BC -> gMRT for 1 epoch.  Returns the launch counts of the
+    whole phase (this slice's main path)."""
+    import contextlib
+    import io
+
+    from hierarchicalgnn_torch import run
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+    from hierarchicalgnn_torch.train.checkpoint import restore_checkpoint
+
+    common = ["--synthetic-particles", str(N_PARTICLES), "--log-every-n-steps", "1",
+              *_flagship_sets((("train_split", [2, 1, 1]),))]
+    with _scratch_dir() as tmp:
+        bc, gmrt = f"{tmp}/bc", f"{tmp}/gmrt"
+        torch.cuda.synchronize()
+        sa.reset_launches()
+        t0 = time.perf_counter()
+        run.main(["train", "--model", "4", "--run-dir", bc, "--max-epochs", "2", *common])
+        t_train = time.perf_counter() - t0
+        files = sorted(p.name for p in Path(bc, "checkpoints").iterdir())
+        assert files == ["best", "hparams.json", "last"], files
+        records = [json.loads(line) for line in Path(bc, "metrics.jsonl").read_text().splitlines()]
+        assert [r["epoch"] for r in records if "val_loss" in r] == [0, 1], records
+        assert [r["step"] for r in records if "training_loss" in r] == [1, 2, 3, 4], records
+        for r in records:
+            assert all(math.isfinite(v) for v in r.values() if isinstance(v, float)), r
+            assert r.get("score_cut", 0.0) < SCORE_CUT_CLAMP, r
+        size = Path(bc, "checkpoints", "last").stat().st_size
+
+        t0 = time.perf_counter()
+        run.main(["resume", "--run-dir", bc, "--max-epochs", "3", *common])
+        t_resume = time.perf_counter() - t0
+        assert restore_checkpoint(bc, "last")["epoch"] == 2
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            run.main(["test", "--run-dir", bc, *common])
+        t_test = time.perf_counter() - t0
+        tested = json.loads(out.getvalue().strip().splitlines()[-1])
+        log(f"cli test: {out.getvalue().strip().splitlines()[-1]}")
+        assert set(tested) == {"val_loss", "track_eff", "track_pur", "hit_eff", "hit_pur"}
+        assert math.isfinite(tested["val_loss"]) and 0.0 <= tested["track_eff"] <= 1.0
+
+        t0 = time.perf_counter()
+        run.main(["transfer", "--model", "5", "--run-dir", gmrt, "--source-run", bc,
+                  "--max-epochs", "1", *common])
+        t_transfer = time.perf_counter() - t0
+        moved = restore_checkpoint(gmrt, "last")
+        assert moved["epoch"] == 0 and moved["step"] == 2, (moved["epoch"], moved["step"])
+        torch.cuda.synchronize()
+    counts = dict(sa.LAUNCHES)
+    log(f"cli: train 2 epochs {t_train:.1f} s, resume 1 epoch {t_resume:.1f} s, test "
+        f"{t_test:.1f} s, transfer BC -> gMRT 1 epoch {t_transfer:.1f} s (host clock, each "
+        f"with its model build and 4 synthetic events); checkpoint {size / 2**20:.1f} MiB; "
+        f"launches {counts}")
+    for kernel in ("K1", "K2", "K3", "K4", "K5", "K6"):
+        assert counts[kernel] > 0, f"the CLI never launched {kernel}"
+    return counts
+
+
+def phase_checkpoint(torch, events):
+    """Save at step 1, take step 2; restore the save into a fresh trainer
+    and take step 2 again: f32, full width at depth 2 + 2, under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``.  The
+    restored run served through ``InferenceEngine.from_run`` gives the
+    trainer's scores."""
+    from hierarchicalgnn_torch.inference import InferenceEngine
+    from hierarchicalgnn_torch.models.models import build_model
+    from hierarchicalgnn_torch.train.pipelines import BipartitePipeline
+    from hierarchicalgnn_torch.train.trainer import Trainer
+    from hierarchicalgnn_torch.utils.config import load_config
+
+    hp = load_config("bc_hgnn_gmm", {**FLAGSHIP, "compute_dtype": None, "remat": False,
+                                     "n_interaction_graph_iters": 2,
+                                     "n_hierarchical_graph_iters": 2})
+
+    def trainer(run_dir, seed):
+        model = build_model(hp, seed=seed)
+        return Trainer(hp, model, BipartitePipeline(model, hp), run_dir=run_dir,
+                       log_every_n_steps=0)
+
+    with _scratch_dir() as tmp, warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            a = trainer(tmp, 0)
+            a.init_state(seed=0)
+            trainset = a.make_datasets(events)[0]
+            a.train_step(trainset[0][2], TRAIN_EPOCH)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a._save("last", 0)
+            save_s = time.perf_counter() - t0
+            step_a = a.train_step(trainset[1][2], TRAIN_EPOCH)
+            params_a = {k: v.detach().clone() for k, v in a.model.named_parameters()}
+            del a
+
+            b = trainer(tmp, 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            epoch = b.restore("last")
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            assert epoch == 0 and b.step == 1
+            engine = InferenceEngine.from_run(tmp, "last")
+            batch = trainset[1][2]
+            ours, served = b._val_forward(batch), engine.forward(batch)
+            score_err = float((ours[1] - served[1]).abs().max())
+            assert torch.equal(ours[0].receivers, served[0].receivers) and score_err == 0.0, \
+                score_err
+            step_b = b.train_step(batch, TRAIN_EPOCH)
+            params_b = dict(b.model.named_parameters())
+        finally:
+            torch.use_deterministic_algorithms(False)
+    loss_err = abs(step_b["training_loss"] - step_a["training_loss"])
+    param_err = max(float((params_b[k].detach() - v).abs().max()) for k, v in params_a.items())
+    bitwise = step_a == step_b and param_err == 0.0
+    nondet = sorted({str(w.message).split(" does not have")[0][:80] for w in caught
+                     if "deterministic" in str(w.message)})
+    log(f"checkpoint round trip (f32, 2 + 2, full width): save {1e3 * save_s:.1f} ms, "
+        f"restore {1e3 * restore_s:.1f} ms (host clock); step 2 after the save {step_a}; "
+        f"after the restore {step_b}; |loss diff| {loss_err:.3e}, max |param diff| "
+        f"{param_err:.3e}, {'bitwise equal' if bitwise else 'not bitwise'}; from_run scores "
+        f"equal the restored trainer's; nondeterministic ops warned: {nondet or 'none'}")
+    # the same ops on the same values: equal unless an op without a
+    # deterministic form (warned above) added in a run-dependent order
+    assert bitwise or (nondet and loss_err <= 1e-6 * abs(step_a["training_loss"])
+                       and param_err <= 1e-6), (step_a, step_b, param_err)
+    return {"save_ms": 1e3 * save_s, "restore_ms": 1e3 * restore_s, "bitwise": bitwise}
+
+
+def _clustered_sphere(torch, n, gen, n_centers=2048, spread=0.05):
+    """The JAX grid benchmark's cloud: points around 2048 random unit centres
+    in 8-D, normalised (``scripts/bench_grid_knn.py``)."""
+    centers = torch.nn.functional.normalize(torch.randn(n_centers, 8, generator=gen), dim=1)
+    pts = centers[torch.randint(0, n_centers, (n,), generator=gen)]
+    pts = pts + spread * torch.randn(n, 8, generator=gen)
+    return torch.nn.functional.normalize(pts, dim=1).cuda()
+
+
+def phase_grid_knn(torch, events):
+    """``grid_knn_graph`` against the brute ``knn_graph`` on the card: the
+    embeddings of a seeded Embedding-IN at N 24576 (d 8, k 100, ``train_r``,
+    the shipped grid defaults M = N // 256, T 16) and a clustered cloud at
+    N 131072 (M 512, T 16, cap 512); equal edges where ``exact``.  Then 2
+    Embedding-IN training steps with ``knn_backend: grid``."""
+    from hierarchicalgnn_torch.data.event import preprocess_event
+    from hierarchicalgnn_torch.inference import InferenceEngine
+    from hierarchicalgnn_torch.models.registry import model_selector
+    from hierarchicalgnn_torch.ops.grid_knn import grid_knn_graph
+    from hierarchicalgnn_torch.ops.knn import knn_graph
+    from hierarchicalgnn_torch.train.trainer import Trainer
+
+    hp, model, pipeline = model_selector("Embedding-IN", FLAGSHIP)
+    engine = InferenceEngine(hp, model)
+    batch = preprocess_event(events[0], hp, stage="test")
+    emb = engine.forward(batch)
+    mask = torch.as_tensor(batch.node_mask, device=engine.device)
+    n = emb.shape[0]
+    gen = torch.Generator().manual_seed(0)
+    cases = [("Embedding-IN embeddings", emb, mask, hp["train_r"], hp["knn"],
+              dict(n_cells=max(n // 256, 16), n_probe=16), hp["knn_block_size"]),
+             ("clustered cloud", _clustered_sphere(torch, GRID_FULL_N, gen), None, 1.0, 100,
+              dict(n_cells=512, n_probe=16, cell_capacity=512), hp["knn_block_size"])]
+    rows = {}
+    for label, pts, pmask, r, k, kw, block in cases:
+        grid = lambda: grid_knn_graph(pts, r, k, mask=pmask, **kw)
+        brute = lambda: knn_graph(pts, r, k, mask=pmask, block_size=block)
+        s, rcv, m, _, exact = grid()
+        s_b, r_b, m_b, _ = brute()
+        exact = bool(exact)
+        if exact:
+            assert torch.equal(m, m_b) and torch.equal(s[m], s_b[m_b]) \
+                and torch.equal(rcv[m], r_b[m_b]), label
+        grid_ms, brute_ms = time_ms(torch, grid, iters=3), time_ms(torch, brute, iters=3)
+        rows[label] = {"n": pts.shape[0], "grid_ms": grid_ms, "brute_ms": brute_ms,
+                       "exact": exact, "edges": int(m.sum()), **kw}
+        log(f"grid kNN, {label}: N {pts.shape[0]} k {k} r {r} {kw}: grid {grid_ms:.2f} ms, "
+            f"brute {brute_ms:.2f} ms (CUDA events, 3 calls), exact {exact}, "
+            f"{int(m.sum())} edges{' equal to brute force' if exact else ''}")
+    del engine, emb, cases
+    torch.cuda.empty_cache()
+
+    hp, model, pipeline = model_selector("Embedding-IN", {**FLAGSHIP, "knn_backend": "grid"})
+    trainer = Trainer(hp, model, pipeline)
+    trainer.init_state(seed=0)
+    trainset, _, _ = trainer.make_datasets(events)
+    for step in range(2):
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(trainset[step][2], MODELS_EPOCH)
+        torch.cuda.synchronize()
+        log(f"Embedding-IN grid train step {step}: {1e3 * (time.perf_counter() - t0):.1f} ms "
+            f"(host clock), metrics={metrics}")
+        assert metrics["knn_exact"] in (0.0, 1.0), metrics
+        assert all(math.isfinite(v) for v in metrics.values()) and metrics["grad_norm"] > 0
+    return rows
+
+
+def phase_streaming(torch, events):
+    """``write_event`` 3 flagship events, then ``fit_streaming`` one epoch of
+    2 steps through the loader built with g++ from native/hgnn_io.cc."""
+    from hierarchicalgnn_torch.data import native_loader
+    from hierarchicalgnn_torch.models.models import build_model
+    from hierarchicalgnn_torch.train.pipelines import BipartitePipeline
+    from hierarchicalgnn_torch.train.trainer import Trainer
+    from hierarchicalgnn_torch.utils.config import load_config
+
+    with _scratch_dir() as tmp:
+        t0 = time.perf_counter()
+        native_loader.library()
+        build_s = time.perf_counter() - t0
+        paths = []
+        for i, raw in enumerate(events):
+            paths.append(f"{tmp}/event{i}.hgnn")
+            native_loader.write_event(paths[-1], raw)
+        hp = load_config("bc_hgnn_gmm", FLAGSHIP)
+        model = build_model(hp, seed=0)
+        trainer = Trainer(hp, model, BipartitePipeline(model, hp), run_dir=f"{tmp}/run",
+                          log_every_n_steps=1)
+        t0 = time.perf_counter()
+        history = trainer.fit_streaming(paths, events[:1], steps_per_epoch=2, max_epochs=1,
+                                        n_threads=2)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        records = [json.loads(line)
+                   for line in Path(trainer.run_dir, "metrics.jsonl").read_text().splitlines()]
+        assert sorted(p.name for p in Path(trainer.run_dir, "checkpoints").iterdir()) == [
+            "best", "hparams.json", "last"]
+    steps = [r for r in records if "training_loss" in r]
+    assert [r["step"] for r in steps] == [1, 2] and len(history) == 1, records
+    assert all(math.isfinite(v) for r in records for v in r.values() if isinstance(v, float))
+    step_s = steps[1]["time"] - steps[0]["time"]
+    log(f"streaming: loader {native_loader.library_path().name} built and loaded in "
+        f"{build_s:.1f} s; "
+        f"fit_streaming 1 epoch of 2 steps + validation + 2 saves {total_s:.1f} s, the "
+        f"second step {1e3 * step_s:.1f} ms (host clock, between its log records); {history[0]}")
+    return {"step_ms": 1e3 * step_s, "epoch_s": total_s}
+
+
+def timed(name, fn, *args):
+    """Run one phase; print its seconds on a line of its own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     if not (Path(__file__).resolve().parent / "hierarchicalgnn_torch").is_dir():
         raise SystemExit("hierarchicalgnn_torch/ is not beside chip_smoke.py: "
                          "run it from a checkout of the repo")
     import torch
 
+    start = time.perf_counter()
     phase_device(torch)
-    phase_build()
-    rows = phase_kernels(torch)
-    aggregator = phase_aggregator(torch)
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels, torch)
+    aggregator = timed("aggregator", phase_aggregator, torch)
     events = flagship_events()
-    serving, serving_ms = phase_serving(torch, events)
-    phase_parity(torch)
-    phase_gradients(torch)
-    phase_auction(torch)
-    training, training_ms = phase_training(torch, events)
-    phase_training_parity(torch, events)
-    models, _ = phase_models(torch, events)
-    phase_models_parity(torch)
-    phase_halo(torch)
-    sharded, sharded_ms = phase_sharded_serving(torch, events)
-    phase_sharded_parity(torch)
-    sharded_models = phase_sharded_models(torch, events)
+    serving, serving_ms = timed("serving", phase_serving, torch, events)
+    timed("parity", phase_parity, torch)
+    timed("gradients", phase_gradients, torch)
+    timed("auction", phase_auction, torch)
+    training, training_ms = timed("training", phase_training, torch, events)
+    timed("training parity", phase_training_parity, torch, events)
+    models, _ = timed("models", phase_models, torch, events)
+    timed("models parity", phase_models_parity, torch)
+    timed("halo", phase_halo, torch)
+    sharded, sharded_ms = timed("sharded serving", phase_sharded_serving, torch, events)
+    timed("sharded parity", phase_sharded_parity, torch)
+    sharded_models = timed("sharded models", phase_sharded_models, torch, events)
+    cli = timed("cli", phase_cli, torch)
+    timed("checkpoint", phase_checkpoint, torch, events)
+    timed("grid knn", phase_grid_knn, torch, events)
+    timed("streaming", phase_streaming, torch, events)
     for kernel in NAMES:
         # K7's main path is its entry point make_aggregator, no model calls it;
         # K8's is the sharded forward
@@ -2102,17 +2403,19 @@ def main():
     table = [{"name": NAMES[k], "route": "cuda", "source": CSRC + SOURCES[k],
               "replaces": REPLACES[k],
               "launches": (serving[k] + training[k] + models[k] + aggregator[k]
-                           + sharded[k] + sharded_models[k]),
+                           + sharded[k] + sharded_models[k] + cli[k]),
               "launches_serving_2_events": serving[k],
               "launches_training_3_steps": training[k],
               "launches_four_models": models[k],
               "launches_aggregator": aggregator[k],
               "launches_sharded_serving_2_events": sharded[k],
-              "launches_sharded_four_models": sharded_models[k], **rows[k],
+              "launches_sharded_four_models": sharded_models[k],
+              "launches_cli": cli[k], **rows[k],
               "main_path_ms_per_launch": serving_ms.get(k, training_ms.get(k, sharded_ms.get(k))),
               "training_ms_per_launch": training_ms.get(k),
               "sharded_ms_per_launch": sharded_ms.get(k)}
              for k in NAMES]
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

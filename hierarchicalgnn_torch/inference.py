@@ -8,8 +8,7 @@ the model's own candidate function (``evaluation/candidates.py``).
     engine = InferenceEngine(hparams, model)           # device="cuda"
     tracks = engine.reconstruct(raw_event)             # [2, M]
 
-Loading a trained run (``from_run``) waits for a torch checkpoint format,
-which comes with the checkpoint slice.
+    engine = InferenceEngine.from_run("runs/bc")       # a trained run's "best"
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ import torch
 from hierarchicalgnn_torch.data.event import preprocess_event
 from hierarchicalgnn_torch.evaluation.tracking import eval_metrics
 from hierarchicalgnn_torch.ops.graph import graph_to
+from hierarchicalgnn_torch.train import checkpoint as ckpt_lib
 from hierarchicalgnn_torch.utils.device import resolve_device
 
 
@@ -32,6 +32,19 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.last_stats: dict = {}
+
+    @staticmethod
+    def from_run(run_dir: str, checkpoint: str = "best", device: str | torch.device = "cuda",
+                 sweep_configs: dict | None = None) -> "InferenceEngine":
+        """Serve a trained run: its ``hparams.json`` (with ``sweep_configs``
+        over it) builds the model through ``model_selector``, and the
+        checkpoint's parameters and buffers are loaded into it."""
+        from hierarchicalgnn_torch.models.registry import model_selector
+
+        saved = ckpt_lib.load_hparams(run_dir)
+        hparams, model, _ = model_selector(saved["model"], {**saved, **(sweep_configs or {})})
+        ckpt_lib.load_model_state(model, ckpt_lib.restore_checkpoint(run_dir, checkpoint))
+        return InferenceEngine(hparams, model, device=device)
 
     @torch.no_grad()
     def forward(self, batch):

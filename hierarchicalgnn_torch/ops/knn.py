@@ -33,7 +33,8 @@ def _block_topk(q_block, points, sq_norm_p, p_valid, k):
     d2 = torch.clamp(d2, min=0.0)
     d2 = torch.where(p_valid[None, :], d2, float("inf"))
     d2_sorted, idx = torch.sort(d2, dim=1, stable=True)
-    return d2_sorted[:, :k], idx[:, :k]
+    # copies: a slice would keep the block's whole sort alive until the end
+    return d2_sorted[:, :k].contiguous(), idx[:, :k].contiguous()
 
 
 def knn(queries, points, k, r_max, q_mask=None, p_mask=None, block_size=1024):

@@ -57,6 +57,19 @@ def segment_min(data, segment_ids, num_segments, mask=None, empty_value=0):
                                                   device=out.device), out)
 
 
+def segment_max(data, segment_ids, num_segments, mask=None, empty_value=0.0):
+    """Masked segment max of floats; empty segments yield ``empty_value``."""
+    ok = _valid(segment_ids, num_segments, mask)
+    ids = torch.where(ok, segment_ids, 0).long()
+    neutral = torch.full((), float("-inf"), dtype=data.dtype, device=data.device)
+    vals = torch.where(_expand(ok, data), data, neutral)
+    out = torch.full((num_segments,) + data.shape[1:], float("-inf"), dtype=data.dtype,
+                     device=data.device)
+    out.scatter_reduce_(0, _expand(ids, vals).expand_as(vals), vals, "amax")
+    return torch.where(out == neutral, torch.full((), empty_value, dtype=out.dtype,
+                                                  device=out.device), out)
+
+
 def gather_segment_sum(values, gather_ids, segment_ids, num_segments,
                        weights=None, mask=None):
     """scatter_add(w_e * values[gather_ids[e]]) into segments: the bipartite

@@ -19,6 +19,7 @@ import torch
 
 from hierarchicalgnn_torch.data.event import Event
 from hierarchicalgnn_torch.ops.graph import Graph, graph_to
+from hierarchicalgnn_torch.ops.grid_knn import grid_knn_graph
 from hierarchicalgnn_torch.ops.intersect import edges_in_set
 from hierarchicalgnn_torch.ops.kernels.sorted_agg import (
     build_sorted_plan, build_transposed_plan, gather_edge_endpoints)
@@ -84,17 +85,31 @@ class EmbeddingPipeline(_Pipeline):
     def __init__(self, model, hparams: dict, hierarchical: bool):
         super().__init__(model, hparams)
         self.hierarchical = hierarchical
-        if hparams.get("knn_backend", "brute") != "brute":
-            raise NotImplementedError(
-                f"knn_backend {hparams['knn_backend']!r}: only the brute-force "
-                f"kNN is ported")
+        self.knn_exact = None
+        if hparams.get("knn_backend", "brute") not in ("brute", "grid"):
+            raise ValueError(f"knn_backend {hparams['knn_backend']!r}: "
+                             f"expected 'brute' or 'grid'")
 
     def _training_samples(self, embeddings, batch: Event):
-        """(senders, receivers, y, mask) of the mined and the truth pairs."""
+        """(senders, receivers, y, mask) of the mined and the truth pairs.
+
+        ``knn_backend: grid`` mines with the cell-blocked search
+        (``ops/grid_knn.py``; ``knn_grid_cells``, by default one cell per 256
+        rows and at least 16, and ``knn_grid_probe``, 16) and leaves its
+        ``exact`` flag in ``knn_exact`` (None for the brute force), which the
+        loss reports as the ``knn_exact`` metric."""
         hp = self.hparams
-        ps, pr, pmask, _ = knn_graph(
-            embeddings.detach(), hp["train_r"], hp["knn"], mask=batch.node_mask,
-            block_size=hp.get("knn_block_size", 1024))
+        self.knn_exact = None
+        if hp.get("knn_backend", "brute") == "grid":
+            n = embeddings.shape[0]
+            ps, pr, pmask, _, self.knn_exact = grid_knn_graph(
+                embeddings.detach(), hp["train_r"], hp["knn"], mask=batch.node_mask,
+                n_cells=int(hp.get("knn_grid_cells") or max(n // 256, 16)),
+                n_probe=int(hp.get("knn_grid_probe", 16)))
+        else:
+            ps, pr, pmask, _ = knn_graph(
+                embeddings.detach(), hp["train_r"], hp["knn"], mask=batch.node_mask,
+                block_size=hp.get("knn_block_size", 1024))
         # bidirectional signal-masked truth
         tg = batch.true_graph
         ts = torch.cat([tg.senders, tg.receivers])
@@ -165,6 +180,8 @@ class EmbeddingPipeline(_Pipeline):
         else:
             s, r, y, mask = self._training_samples(out, batch)
             loss = self._hinge(out, s, r, y, mask, batch)
+        if self.knn_exact is not None:
+            metrics["knn_exact"] = self.knn_exact.float()
         metrics["training_loss"] = loss
         return loss, metrics
 

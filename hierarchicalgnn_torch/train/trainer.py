@@ -6,22 +6,29 @@ Counterpart of ``hierarchicalgnn_tpu/train/trainer.py``:
     pipeline's loss (for BC and gMRT with the matching truth), backward
     through the kernels, clip, AdamW(amsgrad)
   * gradient accumulation (an int, or an ``{epoch: k}`` schedule)
-  * per-epoch validation with the tracking metrics
+  * sanity validation before training, per-epoch validation with the
+    tracking metrics, epoch time and (gMRT) phase times, a JSONL metric log
+  * checkpoints: ``last`` every ``save_every_n_epochs``, ``best`` by
+    ``track_eff``, ``autosave`` on any exception; ``restore``; ``test``
+  * the ``debug_numerics`` guard; training from the native streaming loader
 
     hparams, model, pipeline = model_selector("BC-HGNN-GMM")
-    trainer = Trainer(hparams, model, pipeline)      # device="cuda"
-    trainer.init_state(seed=0)
+    trainer = Trainer(hparams, model, pipeline, run_dir="runs/bc")  # device="cuda"
     history = trainer.fit(raw_events, max_epochs=2)
+    epoch = trainer.restore("last")                 # resume from the run
+    trainer.fit(raw_events, max_epochs=4, start_epoch=epoch + 1)
 
 The model holds the parameters and buffers and the optimizer its moments,
-so there is no separate train state.  Not ported yet: checkpoints and
-resume, the streaming loader, phase timing, metric loggers, the numerics
-sanitizer and every sharded branch.
+so the train state is the trainer's own; ``state_dict``/``load_state``
+carry it as a checkpoint.  The sharded branches (``mesh_shape``) belong to
+the sharded training step, which is not ported (ROADMAP.md, Queue 1 item 5).
 """
 
 from __future__ import annotations
 
+import math
 import time
+import traceback
 from typing import Sequence
 
 import numpy as np
@@ -29,9 +36,15 @@ import torch
 
 from hierarchicalgnn_torch.data.event import Event, preprocess_event
 from hierarchicalgnn_torch.evaluation.tracking import eval_metrics
+from hierarchicalgnn_torch.ops.graph import bidirectionalize
+from hierarchicalgnn_torch.train import checkpoint as ckpt_lib
 from hierarchicalgnn_torch.train.optim import make_optimizer
 from hierarchicalgnn_torch.train.pipelines import event_to
 from hierarchicalgnn_torch.utils.device import resolve_device
+from hierarchicalgnn_torch.utils.logging import MetricLogger
+from hierarchicalgnn_torch.utils.sanitize import finite_report
+
+_MOMENTS = ("mu", "nu", "nu_max")
 
 
 def split_dataset(events: Sequence, train_split: Sequence[int],
@@ -50,17 +63,24 @@ def split_dataset(events: Sequence, train_split: Sequence[int],
 
 class Trainer:
     """``hparams``, ``model``, ``pipeline``: as ``model_selector`` returns
-    them.  ``device`` defaults to the card and raises without one."""
+    them.  ``run_dir``: where ``metrics.jsonl`` and ``checkpoints/`` go
+    (None: no file is written and no checkpoint saved).  ``device``
+    defaults to the card and raises without one."""
 
-    def __init__(self, hparams: dict, model, pipeline,
-                 device: str | torch.device = "cuda"):
+    def __init__(self, hparams: dict, model, pipeline, run_dir: str | None = None,
+                 log_every_n_steps: int = 50, device: str | torch.device = "cuda"):
         self.hparams = hparams
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.pipeline = pipeline
+        self.run_dir = run_dir
+        self.logger = MetricLogger(run_dir, log_every_n_steps,
+                                   wandb_project=hparams.get("wandb_project"))
         self.optimizer = None
         self.last_stats: dict = {}   # host syncs and auction rounds of the last step
         self.step_log: list[dict] = []  # one record per optimizer step of fit()
+        self._cur_epoch = 0          # the epoch in flight, for the autosave
+        self._probes = None
 
     # ------------------------------------------------------------------
     # data
@@ -76,14 +96,62 @@ class Trainer:
         return split_dataset(processed, self.hparams["train_split"])
 
     # ------------------------------------------------------------------
-    # steps
+    # state
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0):
         """Seeded weights, default buffers, zero optimizer moments."""
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
+        self._new_optimizer()
+
+    def _new_optimizer(self):
         self.optimizer = make_optimizer(self.model.parameters(), self.hparams,
                                         self._steps_per_epoch())
 
+    @property
+    def step(self) -> int:
+        """Optimizer steps taken (the checkpoint's ``step``)."""
+        return 0 if self.optimizer is None else self.optimizer.count
+
+    def state_dict(self, epoch: int) -> dict:
+        """The whole train state as a checkpoint (copies on the CPU)."""
+        if self.optimizer is None:
+            raise RuntimeError("call init_state() or restore() before state_dict()")
+        state = ckpt_lib.model_state(self.model)
+        moments = {key: {} for key in _MOMENTS}
+        for name, p in self.model.named_parameters():
+            slots = self.optimizer.state[p]
+            for key in _MOMENTS:
+                moments[key][name] = (slots[key] if slots else torch.zeros_like(p)).cpu().clone()
+        state["opt_state"] = {"count": self.optimizer.count, **moments}
+        state["step"] = self.optimizer.count
+        state["epoch"] = int(epoch)
+        return state
+
+    def load_state(self, state: dict):
+        """Parameters, buffers, optimizer moments and step from a
+        checkpoint dict; raises ValueError if it is another model's."""
+        ckpt_lib.load_model_state(self.model, state)
+        self._new_optimizer()
+        opt = state["opt_state"]
+        for name, p in self.model.named_parameters():
+            self.optimizer.state[p] = {key: opt[key][name].to(self.device).clone()
+                                       for key in _MOMENTS}
+        self.optimizer.count = int(opt["count"])
+
+    def _save(self, name: str, epoch: int):
+        if self.run_dir is not None:
+            ckpt_lib.save_checkpoint(self.run_dir, name, self.state_dict(epoch), self.hparams)
+
+    def restore(self, name: str) -> int:
+        """Load ``run_dir/checkpoints/name`` into the model and optimizer;
+        returns its epoch."""
+        state = ckpt_lib.restore_checkpoint(self.run_dir, name)
+        self.load_state(state)
+        return int(state["epoch"])
+
+    # ------------------------------------------------------------------
+    # steps
+    # ------------------------------------------------------------------
     def _steps_per_epoch(self) -> int:
         return max(self.hparams["train_split"][0], 1)
 
@@ -118,16 +186,31 @@ class Trainer:
         self.last_stats["host_syncs"] = self.last_stats.get("host_syncs", 0) + 1
         return dict(zip(names, vec.tolist()))
 
+    def _check_numerics(self, values: dict, epoch):
+        """The ``debug_numerics`` guard on a step's metrics (the values the
+        step's one readback brought): a non-finite one saves ``autosave``
+        and raises FloatingPointError naming the non-finite parameters and
+        buffers."""
+        if not self.hparams.get("debug_numerics") or all(map(math.isfinite, values.values())):
+            return
+        report = {"metrics": {k: v for k, v in values.items() if not math.isfinite(v)},
+                  "params": finite_report(dict(self.model.named_parameters()), max_leaves=8),
+                  "buffers": finite_report(dict(self.model.named_buffers()), max_leaves=8)}
+        self._save("autosave", self._cur_epoch)
+        raise FloatingPointError(f"non-finite training step (epoch {epoch}): {report}")
+
     def train_step(self, batch: Event, epoch) -> dict:
         """One optimizer step on one event; returns the pipeline's metrics
         (``training_loss`` and, by model, ``embedding_loss``,
         ``assignment_loss`` or ``intermediate_loss``, ``score_cut``,
-        ``clusters``) and ``grad_norm``."""
+        ``clusters``, ``knn_exact``) and ``grad_norm``."""
         if self.optimizer is None:
             raise RuntimeError("call init_state() before train_step()")
         grads, metrics = self._forward_backward(batch, epoch)
         self._apply(grads)
-        return self._read_metrics(metrics)
+        values = self._read_metrics(metrics)
+        self._check_numerics(values, epoch)
+        return values
 
     # ------------------------------------------------------------------
     # evaluation
@@ -165,21 +248,48 @@ class Trainer:
                 agg.setdefault(k, []).append(float(v))
         return {k: float(np.mean(v)) for k, v in agg.items()}
 
+    def test(self, raw_events: Sequence[dict]) -> dict:
+        """The validation metrics of the current weights on the test split,
+        logged as ``test_*``."""
+        _, _, testset = self.make_datasets(raw_events)
+        metrics = self.validate(testset, epoch=10 ** 9)
+        self.logger.log(metrics, step=-1, prefix="test_", force_print=True)
+        return metrics
+
+    def _phase_times(self, valset) -> dict:
+        """Pooling and graph-construction times of the first validation
+        event (reference ``gmrt_base.py:61-73``); on by default for gMRT,
+        ``log_phase_times`` for the other hierarchical pipelines."""
+        hp = self.hparams
+        if not hp.get("log_phase_times", hp.get("model") == "gMRT") or not valset:
+            return {}
+        if self._probes is None:
+            from hierarchicalgnn_torch.utils.phase_probe import PhaseProbes
+            self._probes = PhaseProbes(hp)
+        batch = valset[0][2]
+        out = self._val_forward(batch)
+        emb = out[2] if isinstance(out, tuple) else out
+        return self._probes.measure(emb, bidirectionalize(batch.graph), batch.node_mask)
+
     # ------------------------------------------------------------------
     # fit
     # ------------------------------------------------------------------
     def fit(self, raw_events: Sequence[dict], max_epochs: int | None = None,
+            state: dict | None = None, start_epoch: int = 0,
             num_sanity_val_steps: int = 2, shuffle_seed: int = 0) -> list[dict]:
-        """Train for ``max_epochs``; returns one validation record per epoch
-        (with ``epoch_time``).  Continues from the current weights when
-        ``init_state`` was already called."""
+        """Train epochs ``start_epoch .. max_epochs - 1``; returns one
+        validation record per epoch (with ``epoch_time``).  Starts from
+        ``state`` (a checkpoint dict) when given, else from the current
+        weights once ``init_state`` or ``restore`` ran, else from
+        ``init_state(init_seed)``.  Any exception saves ``autosave`` (with
+        the epoch in flight) and is re-raised."""
         hp = self.hparams
         max_epochs = max_epochs or hp["max_epochs"]
         trainset, valset, _ = self.make_datasets(raw_events)
-        if self.optimizer is None:
-            self.init_state(seed=int(hp.get("init_seed") or 0))
+        self._start_from(state)
         if num_sanity_val_steps:
-            self.validate(valset[:num_sanity_val_steps], 0)
+            sanity = self.validate(valset[:num_sanity_val_steps], 0)
+            self.logger.log(sanity, step=0, epoch=-1, prefix="sanity_", force_print=True)
 
         accum = hp.get("accumulate_grad_batches") or 1
 
@@ -191,8 +301,39 @@ class Trainer:
             return table[reached[-1]] if reached else 1
 
         rng = np.random.default_rng(shuffle_seed)
-        history = []
-        for epoch in range(max_epochs):
+        self._cur_epoch = start_epoch
+        try:
+            return self._fit_epochs(trainset, valset, rng, start_epoch, max_epochs,
+                                    accum_for_epoch)
+        except (Exception, KeyboardInterrupt):
+            self._autosave_safe()
+            raise
+
+    def _start_from(self, state):
+        """A checkpoint dict when given, else the current weights once
+        ``init_state`` or ``restore`` ran, else ``init_state(init_seed)``
+        (the parameter-init seed of seed studies; the data split and shuffle
+        seeds stay fixed)."""
+        if state is not None:
+            self.load_state(state)
+        elif self.optimizer is None:
+            self.init_state(seed=int(self.hparams.get("init_seed") or 0))
+
+    def _autosave_safe(self):
+        """The autosave of a failed fit; a failure of its own is printed and
+        never masks the original error."""
+        try:
+            self._save("autosave", self._cur_epoch)
+        except Exception:
+            print("autosave-on-exception failed (continuing to re-raise the original "
+                  "error):", flush=True)
+            traceback.print_exc()
+
+    def _fit_epochs(self, trainset, valset, rng, start_epoch, max_epochs, accum_for_epoch):
+        save_every = int(self.hparams.get("save_every_n_epochs") or 1)
+        best, history = -1.0, []
+        for epoch in range(start_epoch, max_epochs):
+            self._cur_epoch = epoch
             t0 = time.time()
             k = accum_for_epoch(epoch)
             acc, since, metrics = None, 0, None
@@ -207,13 +348,78 @@ class Trainer:
                     acc, since = None, 0
             if since:  # the ragged tail
                 self._flush(acc, since, metrics, epoch)
-            val = self.validate(valset, epoch)
-            val["epoch_time"] = time.time() - t0
+            val = self._end_epoch(valset, epoch, time.time() - t0, with_phase_times=True)
             history.append(val)
+            # the final epoch always saves
+            if (epoch + 1 - start_epoch) % save_every == 0 or epoch == max_epochs - 1:
+                self._save("last", epoch)
+            if val.get("track_eff", 0.0) >= best:
+                best = val.get("track_eff", 0.0)
+                self._save("best", epoch)
         return history
+
+    def _end_epoch(self, valset, epoch, epoch_time, with_phase_times=False) -> dict:
+        val = self.validate(valset, epoch)
+        val["epoch_time"] = epoch_time
+        if with_phase_times:
+            try:
+                val.update(self._phase_times(valset))
+            except Exception:
+                # the phase probes are a diagnostic: a failure is printed and
+                # the run goes on, as in the JAX package
+                print("phase-time probes failed (continuing):", flush=True)
+                traceback.print_exc()
+        self.logger.log(val, step=self.step, epoch=epoch, force_print=True)
+        return val
 
     def _flush(self, acc, count, metrics, epoch):
         """Apply the mean of ``count`` accumulated gradients; log the last
         event's metrics."""
         self._apply(acc if count == 1 else torch._foreach_div(acc, float(count)))
-        self.step_log.append({"epoch": epoch, **self._read_metrics(metrics)})
+        values = self._read_metrics(metrics)
+        self._check_numerics(values, epoch)
+        self.step_log.append({"epoch": epoch, **values})
+        self.logger.log(values, step=self.step, epoch=epoch)
+
+    def fit_streaming(self, train_paths: Sequence[str], val_events: Sequence[dict],
+                      steps_per_epoch: int, max_epochs: int | None = None,
+                      state: dict | None = None, n_threads: int = 4,
+                      queue_capacity: int = 8, shuffle_seed: int = 0) -> list[dict]:
+        """Train from the native prefetching loader (``data/native_loader.py``)
+        instead of preloaded events: the large-dataset path.  One event per
+        step, ``steps_per_epoch`` steps per epoch, then validation on
+        ``val_events`` (raw event dicts), ``last`` every epoch and ``best``
+        by ``track_eff``.  Returns one validation record per epoch."""
+        from hierarchicalgnn_torch.data.native_loader import NativeEventLoader
+
+        hp = self.hparams
+        if int((hp.get("mesh_shape") or {}).get("data", 1) or 1) > 1:
+            raise NotImplementedError(
+                "fit_streaming over a data axis (mesh_shape.data > 1) belongs to the "
+                "sharded training step, which is not ported yet (ROADMAP.md, Queue 1 "
+                "item 5)")
+        max_epochs = max_epochs or hp["max_epochs"]
+        rng = np.random.default_rng(12345)
+        valset = []
+        for raw in val_events:
+            ev = preprocess_event(raw, hp, rng=rng)
+            valset.append((raw, ev, event_to(ev, self.device)))
+        self._start_from(state)
+        best, history = -1.0, []
+        with NativeEventLoader(list(train_paths), loop=True, n_threads=n_threads,
+                               queue_capacity=queue_capacity,
+                               shuffle_seed=shuffle_seed) as loader:
+            for epoch in range(max_epochs):
+                self._cur_epoch = epoch
+                t0 = time.time()
+                for _ in range(steps_per_epoch):
+                    batch = event_to(preprocess_event(next(loader), hp, rng=rng), self.device)
+                    metrics = self.train_step(batch, epoch)
+                    self.logger.log(metrics, step=self.step, epoch=epoch)
+                val = self._end_epoch(valset, epoch, time.time() - t0)
+                history.append(val)
+                self._save("last", epoch)
+                if val.get("track_eff", 0.0) >= best:
+                    best = val.get("track_eff", 0.0)
+                    self._save("best", epoch)
+        return history

@@ -7,6 +7,7 @@ with seeded draws, then carried into the torch model by the converter.
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 SMALL = {"n_nodes_max": 512, "n_edges_max": 2048, "max_clusters": 128,
@@ -155,3 +156,14 @@ def assert_grads_match(trainer, grads, grads_j, convert):
                                    atol=1e-3 * np.abs(want_g).max() + 1e-7)
     assert not want
     return n_zero
+
+
+@pytest.fixture
+def one_thread():
+    """Torch's intra-op threads set to 1 for the test: the suite runs several
+    workers on a few cores, where more threads per tiny model only contend
+    (a 1 s test took 100 s beside the other workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -241,8 +241,9 @@ def test_model_selector_unknown_name():
         model_selector("EC")
     with pytest.raises(ValueError, match="Can't find model name"):
         models.build_model({**load_config("ec_in"), "model": "6"})
-    with pytest.raises(NotImplementedError, match="knn_backend 'grid'"):
-        model_selector("Embedding-IN", {"knn_backend": "grid"})
+    with pytest.raises(ValueError, match="knn_backend 'kd'"):
+        model_selector("Embedding-IN", {"knn_backend": "kd"})
+    model_selector("Embedding-IN", {"knn_backend": "grid"})
 
 
 @pytest.mark.parametrize("name", ["EC-IN", "Embedding-IN", "Embedding-HGNN-GMM", "gMRT"])
