@@ -88,7 +88,22 @@ these phases and fails if any of them fails:
               with ``knn_backend: grid``;
  19. streaming  ``write_event`` 3 events, then ``Trainer.fit_streaming`` one
               epoch of 2 steps through the loader g++ builds from
-              ``native/hgnn_io.cc``.
+              ``native/hgnn_io.cc``;
+ 20. sharded training  the flagship (as phase 4: bf16, full width and depth)
+              through ``Trainer.train_step`` with ``mesh_shape {data 1, graph
+              4}``, ``halo_backend: rdma``, ``shard_pooled`` and
+              ``shard_matching`` on: a warm-up and 2 timed steps, each with its
+              host ms, device busy and idle share, peak memory, auction rounds
+              and launches; K1-K6 and K8 must launch;
+ 21. sharded training parity  f32, depth 2 + 2, full width and capacities,
+              4 ranks: one sharded step against the unsharded step (loss,
+              every gradient, every buffer) for both ``shard_pooled`` values,
+              ``rdma`` against ``xla`` (forward bit for bit, gradients), and
+              the row-sharded auction against the unsharded one on phase 7's
+              instance with ``eps`` pinned;
+ 22. sharded models training  one sharded step of each of the other four
+              models at its shipped widths, K8 counted, and one ``Trainer.fit``
+              epoch of the flagship over ``mesh_shape {data 2, graph 4}``.
 
 Each phase prints its seconds on a line of its own, and the script its
 total before the kernel table.
@@ -1721,13 +1736,23 @@ def phase_ring_gather(torch, rows):
         log("K8 two groups on two streams, 30 calls each, unordered against each other: "
             "exact")
 
-        # a block that needs a gradient has no kernel yet
-        try:
-            rg.ring_all_gather([b.float().requires_grad_() for b in blocks])
-        except NotImplementedError:
-            pass
-        else:
-            raise AssertionError("K8 took a block that requires grad")
+        # blocks that need a gradient: K8 forward, and a backward that is the
+        # reduce-scatter of the ranks' cotangents, equal to autograd through
+        # one torch.cat (f32, integer-valued: exact)
+        leaves = [b.float().requires_grad_() for b in blocks]
+        ref = [b.float().requires_grad_() for b in blocks]
+        weights = [torch.full((1, b.shape[1]), float(q + 1), device=dev)
+                   for q, b in enumerate(blocks)]
+        before = sa.LAUNCHES["K8"]
+        outs = rg.ring_all_gather(leaves)
+        assert sa.LAUNCHES["K8"] == before + 1 and all(o.requires_grad for o in outs)
+        got = torch.autograd.grad(sum((o * w).sum() for o, w in zip(outs, weights)), leaves)
+        cat = torch.cat(ref, 0)
+        want = torch.autograd.grad(sum((cat * w).sum() for w in weights), ref)
+        assert all(torch.equal(o.detach(), cat.detach()) for o in outs)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), "K8's backward"
+        log(f"K8 under autograd at P {len(blocks)}: forward exact, backward (the "
+            f"reduce-scatter of the ranks' cotangents) equal to autograd through torch.cat")
 
         for p, b in ((4, 6144), (2, 12288), (8, 3072)):
             blocks = [make((b, 256), torch.bfloat16).to(dev) for _ in range(p)]
@@ -1921,6 +1946,42 @@ def canonical_scores(torch, bgraph, scores, n_clusters_max):
     return keys[order], scores[valid][order]
 
 
+def recording_knn(knn, found):
+    """``knn`` that also appends each result to ``found``."""
+    def recording(*args, **kwargs):
+        found.append(knn(*args, **kwargs))
+        return found[-1]
+
+    return recording
+
+
+def replaying_knn(found, n, c):
+    """A ``knn`` that hands a sharded forward the results an unsharded forward
+    recorded (``found``: the super graph's over ``c`` supernodes, then the
+    bipartite graph's over ``n`` nodes), by the order of each rank's calls
+    (super graph first): the whole bipartite result where the pooled space is
+    replicated, the calling rank's block of it where each rank mines its own
+    rows."""
+    from hierarchicalgnn_torch.parallel.comm import THREAD_PREFIX
+
+    calls = {}
+
+    def replayed(queries, *args, **kwargs):
+        thread = threading.current_thread().name
+        nth = calls[thread] = calls.get(thread, -1) + 1
+        if nth % 2 == 0:
+            assert queries.shape[0] == c, queries.shape
+            return found[0]
+        idx, d2 = found[1]
+        rows = queries.shape[0]
+        if rows == n:  # the replicated pooled space mines the whole event
+            return idx, d2
+        rank = int(thread.removeprefix(THREAD_PREFIX))
+        return idx[rank * rows:(rank + 1) * rows], d2[rank * rows:(rank + 1) * rows]
+
+    return replayed
+
+
 def phase_sharded_parity(torch):
     """f32, depth 2 + 2, full width and capacities, 4 ranks: the sharded
     forward against the unsharded forward of the same weights, for both
@@ -1942,7 +2003,6 @@ def phase_sharded_parity(torch):
     from hierarchicalgnn_torch.models import dynamic_graph
     from hierarchicalgnn_torch.models.registry import model_selector
     from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
-    from hierarchicalgnn_torch.parallel.comm import THREAD_PREFIX
     from hierarchicalgnn_torch.parallel.graph_shard import make_sharded_forward
 
     f32 = {**FLAGSHIP, "compute_dtype": None, "n_interaction_graph_iters": 2,
@@ -1951,26 +2011,12 @@ def phase_sharded_parity(torch):
     engine = InferenceEngine(hp, model)
     batch = preprocess_event(generate_event(np.random.default_rng(0),
                                             n_particles=N_PARTICLES), hp, stage="test")
-    found, knn = [], dynamic_graph.knn
-
-    def recording_knn(*args, **kwargs):
-        found.append(knn(*args, **kwargs))
-        return found[-1]
-
-    with mock.patch.object(dynamic_graph, "knn", recording_knn):
+    found = []
+    with mock.patch.object(dynamic_graph, "knn", recording_knn(dynamic_graph.knn, found)):
         ref = engine.forward(batch)
     assert len(found) == 2, "one kNN each for the super and the bipartite graph"
     n, c = hp["n_nodes_max"], hp["max_clusters"]
-
-    def replayed_knn(queries, *args, **kwargs):
-        rows = queries.shape[0]
-        if rows == c:
-            return found[0]
-        idx, d2 = found[1]
-        if rows == n:  # the replicated pooled space mines the whole event
-            return idx, d2
-        rank = int(threading.current_thread().name.removeprefix(THREAD_PREFIX))
-        return idx[rank * rows:(rank + 1) * rows], d2[rank * rows:(rank + 1) * rows]
+    replayed_knn = replaying_knn(found, n, c)
 
     ref_keys, ref_scores = canonical_scores(torch, ref[0], ref[1], c)
     with watchdog(), recording_k8("sharded parity f32"):
@@ -2356,6 +2402,350 @@ def phase_streaming(torch, events):
     return {"step_ms": 1e3 * step_s, "epoch_s": total_s}
 
 
+# ---------------------------------------------------------------------------
+# phases 20-22: the graph-partitioned training step
+# ---------------------------------------------------------------------------
+
+SHARDED_STEP_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K8")
+
+
+def phase_sharded_training(torch, events):
+    """The flagship's graph-partitioned training step at its shipped
+    operating point (bf16, full width and depth, the capacities of phase 4,
+    3000-particle events) through ``Trainer.train_step`` with ``mesh_shape
+    {data 1, graph 4}``, ``halo_backend: rdma`` and ``shard_pooled`` and
+    ``shard_matching`` on: a warm-up step, then 2 timed steps at epoch 50 of
+    ``emb_epoch`` 100.  Each step prints its host ms, the device's busy ms
+    and idle share (from a repeat of the step on the same event under the
+    profiler), its peak memory, the auction's rounds and its launches; K1-K6
+    and K8 must all launch.  Returns the launch counts of the 2 timed steps,
+    the kernels' device ms per launch (profiler) and one record per step."""
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+
+    hp, trainer = flagship_trainer({"mesh_shape": {"data": 1, "graph": N_PARTS},
+                                    "halo_backend": "rdma"})
+    assert (hp["latent"], hp["hidden"], hp["n_interaction_graph_iters"],
+            hp["n_hierarchical_graph_iters"], hp["compute_dtype"], hp["remat"],
+            hp["shard_pooled"], hp.get("shard_matching", True)) == (
+        256, 512, 6, 6, "bfloat16", False, True, True), hp
+    assert trainer._sharded is not None and trainer._sharded.matching_spmd == N_PARTS
+    trainset, _, _ = trainer.make_datasets(events)
+    n_hier = hp["n_hierarchical_graph_iters"]
+    totals = {k: 0 for k in sa.LAUNCHES}
+    per_launch, records = {}, []
+    with watchdog(), recording_k8("sharded flagship training"):
+        trainer.train_step(trainset[2][2], TRAIN_EPOCH)  # warm-up
+        torch.cuda.synchronize()
+        for step in range(2):
+            batch = trainset[step][2]
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(sa.LAUNCHES)
+            t0 = time.perf_counter()
+            metrics = trainer.train_step(batch, TRAIN_EPOCH)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            counts = {k: sa.LAUNCHES[k] - before[k] for k in sa.LAUNCHES}
+            stats = dict(trainer.last_stats)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            for k in totals:
+                totals[k] += counts[k]
+            per_launch, _, busy = profile_call(
+                torch, lambda: trainer.train_step(batch, TRAIN_EPOCH), ms,
+                f"sharded train step {step} (its repeat under the profiler)",
+                SHARDED_STEP_KERNELS, top=8)
+            idle = None if busy is None else 100 * (1 - busy / ms)
+            records.append({"host_ms": ms, "busy_ms": busy, "idle_pct": idle,
+                            "peak_gib": peak, "rounds": stats["auction_rounds_launched"],
+                            "launches": {k: counts[k] for k in SHARDED_STEP_KERNELS}})
+            log(f"sharded train step {step} P={N_PARTS}: {ms:.1f} ms (host clock), device "
+                f"busy {busy} ms, idle share {idle if idle is None else round(idle, 1)}%, "
+                f"peak {peak:.2f} GiB, auction rounds {stats['auction_rounds_launched']} "
+                f"(row-sharded), host_syncs={stats['host_syncs']} (all ranks), "
+                f"collectives={stats['collectives']}, partition_ok={stats['partition_ok']}, "
+                f"metrics={metrics}, launches={ {k: counts[k] for k in SHARDED_STEP_KERNELS} }")
+            assert all(math.isfinite(v) for v in metrics.values()), metrics
+            assert metrics["score_cut"] < SCORE_CUT_CLAMP, metrics
+            assert stats["partition_ok"], "a rank dropped edges (halo_slack too small)"
+            for kernel in SHARDED_STEP_KERNELS:
+                assert counts[kernel] > 0, (kernel, counts)
+            assert counts["K8"] == stats["collectives"]["all_gather"], (counts, stats)
+            assert counts["K6"] == N_PARTS * stats["auction_rounds_launched"], (counts, stats)
+            assert counts["K2"] == counts["K3"] == N_PARTS * (1 + 3 * n_hier), counts
+            assert counts["K5"] % N_PARTS == 0, counts
+    log("sharded training " + json.dumps(records))
+    del trainer, trainset
+    torch.cuda.empty_cache()
+    return totals, per_launch, records
+
+
+def phase_sharded_training_parity(torch, events):
+    """f32, depth 2 + 2, full width and capacities, 4 ranks: one sharded
+    training step against the unsharded step of the same weights and event,
+    for both ``shard_pooled`` values, ``halo_backend: rdma``: the loss within
+    1e-4 relative, every gradient within 1e-3 of its largest entry plus 1e-7,
+    every buffer after the step within 1e-4 relative of the unsharded step's
+    (each EMA moved once) and moved.  The sharded runs are given the
+    unsharded run's kNN results, as phase 14 does; the matching runs
+    row-sharded on its own, and the truth labels that differ are counted.
+    Then ``rdma`` against ``xla``: the training forward bit for bit (under
+    deterministic algorithms), the gradients within the same tolerance.  Then
+    the row-sharded auction on phase 7's warm-like instance at 4 ranks
+    against the unsharded auction with ``eps`` pinned: the same assignment
+    and rounds, both timed.  Returns the phase's launch counts."""
+    from unittest import mock
+
+    import numpy as np
+
+    from hierarchicalgnn_torch.models import dynamic_graph
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+    from hierarchicalgnn_torch.parallel.comm import run_sharded
+    from hierarchicalgnn_torch.parallel.graph_shard import make_sharded_train_step
+    from hierarchicalgnn_torch.train import auction, pipelines
+
+    launches = dict(sa.LAUNCHES)
+    hp, trainer = flagship_trainer({"compute_dtype": None, "n_interaction_graph_iters": 2,
+                                    "n_hierarchical_graph_iters": 2})
+    model, pipeline = trainer.model, trainer.pipeline
+    batch = trainer.make_datasets(events[:1])[0][0][2]
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    n, c = hp["n_nodes_max"], hp["max_clusters"]
+    truths, match = {}, pipelines.match_particles_to_candidates
+
+    def recording_match(label):
+        """The matching, recording its truth labels by edge key: the sharded
+        step's bipartite graph is in the kNN's edge order, the unsharded one's
+        receiver-sorted."""
+        def run(scores, senders, receivers, mask, *args, **kwargs):
+            out = match(scores, senders, receivers, mask, *args, **kwargs)
+            keys = (senders * c + receivers)[mask]
+            order = torch.argsort(keys)
+            truths[label] = (keys[order], out[0][mask][order])
+            return out
+        return run
+
+    def restart():
+        with torch.no_grad():
+            for k, v in model.state_dict().items():
+                v.copy_(start[k])
+
+    found = []
+    with mock.patch.object(dynamic_graph, "knn", recording_knn(dynamic_graph.knn, found)), \
+            mock.patch.object(pipelines, "match_particles_to_candidates",
+                              recording_match("unsharded")):
+        ref_grads, ref_metrics = trainer._forward_backward(batch, TRAIN_EPOCH)
+    assert len(found) == 2, "one kNN each for the super and the bipartite graph"
+    ref_buffers = {k: v.clone() for k, v in model.named_buffers()}
+    ref_loss = float(ref_metrics["training_loss"].detach())
+
+    def compare(grads, want, label):
+        """The worst gradient error as a share of its bound, and of its leaf's
+        largest entry (leaves above 1e-5)."""
+        worst, worst_rel = 0.0, 0.0
+        for (path, _), g, w in zip(model.named_parameters(), grads, want):
+            assert (g is None) == (w is None), (label, path)
+            if w is None:
+                continue
+            err = float((g.float() - w.float()).abs().max())
+            scale = float(w.abs().max())
+            worst = max(worst, err / (1e-3 * scale + 1e-7))
+            if scale > 1e-5:  # not the leaf whose true gradient is zero
+                worst_rel = max(worst_rel, err / scale)
+        return worst, worst_rel
+
+    def sharded_step(overrides):
+        return make_sharded_train_step(pipeline, trainer.optimizer, {"graph": N_PARTS},
+                                       {**hp, **overrides})
+
+    with watchdog(), recording_k8("sharded training parity f32"):
+        for pooled in (True, False):
+            restart()
+            step = sharded_step({"shard_pooled": pooled, "halo_backend": "rdma"})
+            label = f"sharded pooled={pooled}"
+            with mock.patch.object(dynamic_graph, "knn", replaying_knn(found, n, c)), \
+                    mock.patch.object(pipelines, "match_particles_to_candidates",
+                                      recording_match(label)):
+                grads, metrics = step.forward_backward(batch, TRAIN_EPOCH)
+            torch.cuda.synchronize()
+            loss = float(metrics["training_loss"])
+            loss_err = abs(loss / ref_loss - 1)
+            worst, worst_rel = compare(grads, ref_grads, label)
+            buffers = dict(model.named_buffers())
+            # each buffer's error as a share of 1e-4 of its value plus 1e-6
+            buf_err = max(float(((buffers[k] - v).abs() / (1e-4 * v.abs() + 1e-6)).max())
+                          for k, v in ref_buffers.items())
+            unmoved = [k for k, v in buffers.items() if torch.equal(v, start[k])]
+            (keys, truth), (ref_keys, ref_truth) = truths[label], truths["unsharded"]
+            assert torch.equal(keys, ref_keys), "the sharded step matched other edges"
+            flipped = int((truth != ref_truth).sum())
+            log(f"sharded training parity f32 (2 + 2) P={N_PARTS} shard_pooled={pooled}: "
+                f"loss {loss:.7f} vs {ref_loss:.7f} (rel {loss_err:.2e}), clusters "
+                f"{metrics['clusters']:.0f} vs {ref_metrics['clusters']}, worst gradient "
+                f"error {worst:.3f} of its bound ({worst_rel:.2e} of its leaf's largest "
+                f"entry), worst buffer error {buf_err:.3f} of its bound, matching truth "
+                f"labels that differ {flipped} of {truth.numel()}, auction rounds "
+                f"{step.last_stats['auction_rounds_launched']} (row-sharded), "
+                f"collectives {step.last_stats['collectives']}")
+            assert step.last_stats["partition_ok"]
+            assert float(metrics["clusters"]) == float(ref_metrics["clusters"])
+            if loss_err > 1e-4 or worst > 1 or buf_err > 1 or unmoved:
+                raise AssertionError(
+                    f"sharded training step differs from the unsharded one: loss {loss_err}, "
+                    f"gradients {worst} of the bound, buffers {buf_err}, unmoved {unmoved}")
+
+        # rdma against xla: the forward bit for bit, the gradients within tolerance
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            outs, grads = {}, {}
+            for label, backend in (("rdma", "rdma"), ("xla", "xla"), ("xla again", "xla")):
+                restart()
+                step = sharded_step({"halo_backend": backend})
+                before = sa.LAUNCHES["K8"]
+                with warnings.catch_warnings():  # ops without a deterministic form
+                    warnings.simplefilter("ignore", UserWarning)
+                    out, _ = step.forward(batch)
+                    outs[label] = [t.detach() for t in (out[0].senders, out[0].receivers,
+                                                         out[0].edge_mask, out[1], out[2],
+                                                         out[3]["clusters"])]
+                    del out
+                    if label != "xla again":
+                        restart()
+                        grads[label], _ = step.forward_backward(batch, TRAIN_EPOCH)
+                torch.cuda.synchronize()
+                assert (sa.LAUNCHES["K8"] > before) == (backend == "rdma"), backend
+        finally:
+            torch.use_deterministic_algorithms(False)
+    names = ("senders", "receivers", "edge_mask", "scores", "embeddings", "clusters")
+    repeat = [k for k, a, b in zip(names, outs["xla"], outs["xla again"]) if not torch.equal(a, b)]
+    across = [k for k, a, b in zip(names, outs["rdma"], outs["xla"]) if not torch.equal(a, b)]
+    worst, worst_rel = compare(grads["rdma"], grads["xla"], "rdma vs xla")
+    log(f"sharded training forward f32, deterministic: two xla runs differ in "
+        f"{repeat or 'nothing'}; rdma against xla differs in "
+        f"{across or 'nothing: equal bit for bit'}; gradients rdma against xla: worst "
+        f"{worst:.3f} of the bound ({worst_rel:.2e} of the leaf's largest entry)")
+    if repeat:
+        raise AssertionError(f"two runs of one backend differ in {repeat}")
+    if across or worst > 1:
+        raise AssertionError(f"rdma and xla training steps differ: {across}, {worst}")
+    restart()
+    del trainer, model, pipeline, ref_grads, grads
+    torch.cuda.empty_cache()
+
+    # the row-sharded auction against the unsharded one, eps pinned
+    scores, p, c_valid = warm_like_instance(np)
+    row_max = scores[:p, :c_valid].max(1)
+    eps = float(np.float32(1e-2) * row_max[row_max > 0].sum() / (row_max > 0).sum())
+    dev_scores = torch.from_numpy(scores).to(torch.device("cuda"))
+    rows = scores.shape[0] // N_PARTS
+
+    def unsharded():
+        return auction.auction_match(dev_scores, p, c_valid, eps=eps, return_iters=True)
+
+    def sharded():
+        outs, _ = run_sharded(lambda k: auction.auction_match(
+            dev_scores[k.index * rows:(k.index + 1) * rows], p, c_valid, eps=eps,
+            return_iters=True, comm=k), N_PARTS, device=dev_scores.device)
+        return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]),
+                outs[0][2], outs[0][3])
+
+    times = {}
+    for label, fn in (("unsharded", unsharded), ("row-sharded", sharded)):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        times[label] = (1e3 * (time.perf_counter() - t0), result)
+    (u_ms, u), (s_ms, s) = times["unsharded"], times["row-sharded"]
+    same = torch.equal(u[0], s[0]) and torch.equal(u[1], s[1])
+    log(f"auction {p} x {c_valid} eps pinned {eps:.6g}: unsharded {int(u[2])} rounds "
+        f"{u_ms:.1f} ms, row-sharded over {N_PARTS} ranks {int(s[2])} rounds {s_ms:.1f} ms "
+        f"(host clock); assignment {'equal' if same else 'DIFFERS'}, unassigned "
+        f"{int(u[3])} / {int(s[3])}")
+    assert same and int(u[2]) == int(s[2]) and int(s[3]) == int(u[3]) == 0
+    return {k: sa.LAUNCHES[k] - launches[k] for k in sa.LAUNCHES}
+
+
+def phase_sharded_models_training(torch, events):
+    """One sharded training step (4 ranks, ``halo_backend: rdma``, after a
+    warm-up step) of EC-IN, Embedding-IN, Embedding-HGNN-GMM and gMRT at their
+    shipped configs and the flagship capacities, with K8 counted; then one
+    ``Trainer.fit`` epoch of the flagship with ``mesh_shape {data 2, graph
+    4}`` and ``train_split [3,1,1]``: 2 steps of 2 events, the ragged tail
+    repeated.  Returns the summed launch counts."""
+    import numpy as np
+
+    from hierarchicalgnn_torch.data.synthetic import generate_event
+    from hierarchicalgnn_torch.models.registry import model_selector
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+    from hierarchicalgnn_torch.train.trainer import Trainer
+
+    mesh = {"mesh_shape": {"data": 1, "graph": N_PARTS}, "halo_backend": "rdma"}
+    totals = {k: 0 for k in sa.LAUNCHES}
+    for name in MODEL_LAUNCHES:
+        hp, model, pipeline = model_selector(name, {**FLAGSHIP, **mesh})
+        assert (hp["latent"], hp["hidden"], hp["n_interaction_graph_iters"],
+                hp.get("n_hierarchical_graph_iters")) == MODEL_WIDTHS[name], hp
+        trainer = Trainer(hp, model, pipeline)
+        trainer.init_state(seed=0)
+        trainset, _, _ = trainer.make_datasets(events)
+        with watchdog(), recording_k8(f"{name} sharded training"):
+            trainer.train_step(trainset[2][2], MODELS_EPOCH)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(sa.LAUNCHES)
+            t0 = time.perf_counter()
+            metrics = trainer.train_step(trainset[0][2], MODELS_EPOCH)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        counts = {k: sa.LAUNCHES[k] - before[k] for k in sa.LAUNCHES}
+        stats = trainer.last_stats
+        log(f"{name} sharded train step P={N_PARTS}: {ms:.1f} ms (host clock), peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, metrics={metrics}, "
+            f"stats={stats}, launches={ {k: v for k, v in counts.items() if v} }")
+        assert all(math.isfinite(v) for v in metrics.values()), (name, metrics)
+        assert stats["partition_ok"], name
+        assert counts["K8"] == stats["collectives"]["all_gather"] > 0, (name, counts, stats)
+        assert counts["K1"] > 0 and counts["K4"] > 0, (name, counts)
+        hier = name in ("Embedding-HGNN-GMM", "gMRT")
+        for kernel in ("K2", "K3", "K5"):
+            assert (counts[kernel] > 0) == hier, (name, kernel, counts)
+        if hier:
+            assert metrics["score_cut"] < SCORE_CUT_CLAMP, (name, metrics)
+        if name == "gMRT":
+            assert counts["K6"] == N_PARTS * stats["auction_rounds_launched"] > 0, counts
+        for k in totals:
+            totals[k] += counts[k]
+        del trainer, model, pipeline, trainset
+        torch.cuda.empty_cache()
+
+    # the data axis over the graph partition, through Trainer.fit
+    hp, trainer = flagship_trainer({"mesh_shape": {"data": 2, "graph": N_PARTS},
+                                    "halo_backend": "rdma", "train_split": [3, 1, 1]})
+    seen, forward = [], trainer._sharded.forward
+    trainer._sharded.forward = lambda ev, stats: seen.append(ev) or forward(ev, stats)
+    raw = events + [generate_event(np.random.default_rng(seed), n_particles=N_PARTICLES)
+                    for seed in (3, 4)]
+    before = dict(sa.LAUNCHES)
+    t0 = time.perf_counter()
+    with watchdog(), recording_k8("flagship fit over data 2 x graph 4"):
+        history = trainer.fit(raw, max_epochs=1, num_sanity_val_steps=0)
+    counts = {k: sa.LAUNCHES[k] - before[k] for k in sa.LAUNCHES}
+    log(f"flagship fit, mesh_shape data 2 x graph {N_PARTS}: {trainer.step} steps of "
+        f"{len(seen)} sharded event forwards in {time.perf_counter() - t0:.1f} s (host "
+        f"clock, validation included), steps per epoch {trainer._steps_per_epoch()}, "
+        f"step log {trainer.step_log}, validation {history[0]}, launches="
+        f"{ {k: v for k, v in counts.items() if v} }")
+    assert trainer.step == 2 == trainer._steps_per_epoch() and len(seen) == 4
+    assert seen[3] is seen[2], "the ragged tail repeats its last event"
+    assert all(math.isfinite(v) for rec in trainer.step_log for v in rec.values())
+    assert all(bool(torch.isfinite(p).all()) for p in trainer.model.parameters())
+    for k in totals:
+        totals[k] += counts[k]
+    del trainer
+    torch.cuda.empty_cache()
+    return totals
+
+
 def timed(name, fn, *args):
     """Run one phase; print its seconds on a line of its own."""
     t0 = time.perf_counter()
@@ -2392,6 +2782,12 @@ def main():
     timed("checkpoint", phase_checkpoint, torch, events)
     timed("grid knn", phase_grid_knn, torch, events)
     timed("streaming", phase_streaming, torch, events)
+    sharded_training, sharded_training_ms, _ = timed(
+        "sharded training", phase_sharded_training, torch, events)
+    sharded_parity = timed("sharded training parity", phase_sharded_training_parity,
+                           torch, events)
+    sharded_models_training = timed("sharded models training",
+                                    phase_sharded_models_training, torch, events)
     for kernel in NAMES:
         # K7's main path is its entry point make_aggregator, no model calls it;
         # K8's is the sharded forward
@@ -2400,20 +2796,29 @@ def main():
         if kernel not in ("K7", "K8"):
             assert models[kernel] > 0, f"the four models never launched {kernel}"
     assert sharded_models["K8"] > 0, "the four models' sharded forwards never launched K8"
+    for kernel in SHARDED_STEP_KERNELS:
+        assert sharded_training[kernel] > 0, f"the sharded training step never launched {kernel}"
+    assert sharded_models_training["K8"] > 0, "the other sharded training steps never launched K8"
     table = [{"name": NAMES[k], "route": "cuda", "source": CSRC + SOURCES[k],
               "replaces": REPLACES[k],
               "launches": (serving[k] + training[k] + models[k] + aggregator[k]
-                           + sharded[k] + sharded_models[k] + cli[k]),
+                           + sharded[k] + sharded_models[k] + cli[k] + sharded_training[k]
+                           + sharded_models_training[k]),
               "launches_serving_2_events": serving[k],
               "launches_training_3_steps": training[k],
               "launches_four_models": models[k],
               "launches_aggregator": aggregator[k],
               "launches_sharded_serving_2_events": sharded[k],
               "launches_sharded_four_models": sharded_models[k],
-              "launches_cli": cli[k], **rows[k],
+              "launches_cli": cli[k],
+              "launches_sharded_training_2_steps": sharded_training[k],
+              "launches_sharded_training_other_models_and_fit": sharded_models_training[k],
+              "launches_sharded_training_parity": sharded_parity[k],
+              **rows[k],
               "main_path_ms_per_launch": serving_ms.get(k, training_ms.get(k, sharded_ms.get(k))),
               "training_ms_per_launch": training_ms.get(k),
-              "sharded_ms_per_launch": sharded_ms.get(k)}
+              "sharded_ms_per_launch": sharded_ms.get(k),
+              "sharded_training_ms_per_launch": sharded_training_ms.get(k)}
              for k in NAMES]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": table}))

@@ -10,10 +10,11 @@ In training the flat and super graphs also get a transposed plan, so the
 endpoint gathers' backward runs K1 (``gather_edge_endpoints``); the two
 bipartite plans are each other's transposes, so the bipartite row gathers'
 backward runs K1 too; and the pooling updates the ``score_cut`` EMA.
-With ``shard`` (``parallel/graph_shard.py``, eval only) the blocks run as one
-rank of a shard group: node rows and edges are the rank's own, the halo and
-the pooled space go through the group's collectives, and the parameters are
-the same.
+With ``shard`` (``parallel/graph_shard.py``) the blocks run as one rank of a
+shard group: node rows and edges are the rank's own, the halo and the pooled
+space go through the group's collectives, and the parameters are the same.
+In training every gather of a rank keeps its K1 backward, and the buffer
+updates are staged (``models/buffers.py``) for the caller to apply once.
 
 f32 islands on the bf16 path: both embedding heads, the edge likelihood
 and the GMM stay f32, as in the JAX package.  Each block exists once,
@@ -38,7 +39,8 @@ from hierarchicalgnn_torch.ops.kernels.sorted_agg import (
 from hierarchicalgnn_torch.ops.sddmm import cosine_from_endpoints, normalize_unit_f32
 from hierarchicalgnn_torch.ops.segment import segment_mean, segment_sum
 from hierarchicalgnn_torch.parallel.graph_shard import (
-    NOT_PORTED, make_hier_shard_aggs, pooled_active, sharded_cluster_labels)
+    make_hier_shard_aggs, pooled_active, sharded_cluster_labels)
+from hierarchicalgnn_torch.models.buffers import read_buffer, write_buffer
 from hierarchicalgnn_torch.models.cells import (
     HierarchicalGNNCell, InteractionGNNCell, plain_gather)
 from hierarchicalgnn_torch.models.dynamic_graph import DynamicGraphConstruction
@@ -190,7 +192,7 @@ class HierarchicalGNNBlock(nn.Module):
         is the GMM means' midpoint; a fit without a valid cut leaves it) and
         cuts at the new value (``blocks.py:212-220``).
 
-        ``shard`` (eval only): ``graph`` is this rank's receiver-partitioned
+        ``shard``: ``graph`` is this rank's receiver-partitioned
         edge slice (global ids), ``embeddings`` and ``node_mask`` the whole
         event's; ``endpoint_gather()`` gives the unit embeddings at the local
         edges' ends through the halo.  The likelihood is computed on the
@@ -213,13 +215,13 @@ class HierarchicalGNNBlock(nn.Module):
                                     shard.all_gather(graph.edge_mask),
                                     iters=cfg.gmm_iters)
 
-        sc = self.score_cut[0]
+        sc = read_buffer(self.score_cut)[0]
         if training:
             gmm = fit_gmm()
             sc = torch.where(torch.isinf(sc), torch.mean(gmm.means), sc)
             cut, valid = gmm_ops.solve_cut(gmm, cfg.cluster_granularity)
             sc = torch.where(valid, 0.95 * sc + (1 - 0.95) * cut, sc)
-            self.score_cut.copy_(sc[None])
+            write_buffer(self.score_cut, sc[None])
         else:
             count_host_sync(stats)
             if bool(torch.isinf(sc)):
@@ -247,19 +249,21 @@ class HierarchicalGNNBlock(nn.Module):
             clusters, n_clusters = cluster(graph.edge_mask)
         return clusters, n_clusters
 
-    def _pool_sharded(self, embeddings, node_mask, shard, stats):
+    def _pool_sharded(self, embeddings, node_mask, shard, stats, training):
         """The pooling of one rank of a shard group: (clusters, n_clusters,
         cluster means [C, emb] before normalisation, the whole event's
         embeddings and node mask).  With the pooled space partitioned the
         clustering and the means work on the rank's own rows and edges;
-        otherwise every rank pools the whole gathered event."""
+        otherwise every rank pools the whole gathered event.  The means carry
+        the embeddings' gradient, through the sum over ranks or the
+        all-gather."""
         cfg = self.cfg
         emb_global = shard.all_gather(embeddings)
         mask_global = shard.all_gather(node_mask)
         if pooled_active(shard.spec, cfg.max_clusters):
             clusters, n_clusters = self.clustering(
-                emb_global, shard.local_graph, mask_global, None, stats, shard=shard,
-                endpoint_gather=lambda: shard.gather(
+                emb_global, shard.local_graph, mask_global, None, stats, training,
+                shard=shard, endpoint_gather=lambda: shard.gather(
                     normalize_unit_f32(embeddings.detach())))
             # cluster means from the LOCAL rows and one sum over the ranks of
             # the [C, emb] and [C] partial moments
@@ -278,7 +282,7 @@ class HierarchicalGNNBlock(nn.Module):
             fgraph = Graph(fplan.senders_sorted, fplan.receivers_sorted,
                            fplan.edge_mask_sorted)
             clusters, n_clusters = self.clustering(emb_global, fgraph, mask_global,
-                                                   fplan, stats)
+                                                   fplan, stats, training)
             in_cluster = clusters >= 0
             means = segment_mean(emb_global, torch.where(in_cluster, clusters, 0).long(),
                                  cfg.max_clusters, mask=in_cluster)
@@ -293,22 +297,21 @@ class HierarchicalGNNBlock(nn.Module):
         ``emb_output`` it returns (embeddings f32, aux).
 
         ``shard``: a ``parallel.graph_shard.ShardTools`` when this call is one
-        rank of a shard group (eval only).  ``embeddings``, ``nodes`` and
-        ``node_mask`` are then the rank's row blocks and ``graph`` its
-        receiver-partitioned edges (``agg``, ``gather`` and ``plan`` come from
-        ``shard``).  The bipartite graph comes back in the kNN's edge order
-        (the rank's own block with local sender ids when the pooled space is
-        partitioned, the whole graph otherwise), the supernodes whole, and
-        ``head_gather`` is None: the model slices for its score head."""
+        rank of a shard group.  ``embeddings``, ``nodes`` and ``node_mask``
+        are then the rank's row blocks and ``graph`` its receiver-partitioned
+        edges (``agg``, ``gather`` and ``plan`` come from ``shard``).  The
+        bipartite graph comes back in the kNN's edge order (the rank's own
+        block with local sender ids when the pooled space is partitioned, the
+        whole graph otherwise), the supernodes whole, and ``head_gather`` is
+        ``(gather, plan)`` over the rank's block of the bipartite edges
+        (``make_hier_shard_aggs``)."""
         cfg = self.cfg
         n = nodes.shape[0]
         pooled = False
         if shard is not None:
-            if training:
-                raise NotImplementedError(NOT_PORTED)
             pooled = pooled_active(shard.spec, cfg.max_clusters)
             clusters, n_clusters, means, emb_global, mask_global = self._pool_sharded(
-                embeddings, node_mask, shard, stats)
+                embeddings, node_mask, shard, stats, training)
         else:
             clusters, n_clusters = self.clustering(embeddings, graph, node_mask, plan,
                                                    stats, training)
@@ -332,13 +335,13 @@ class HierarchicalGNNBlock(nn.Module):
                 emb_global, means, training, src_mask=mask_global,
                 dst_mask=cluster_valid)
 
-        head_gather = None
         if shard is not None:
             # local flat edges, the local bipartite block + one sum over the
             # ranks into the supernode space, the halo gather for the edge update
-            aggs, gathers, super_graph, super_weights, s_ok = make_hier_shard_aggs(
-                shard, bipartite_graph, bipartite_weights, super_graph, super_weights,
-                cfg.max_clusters, cfg.bipartitegraph_sparsity)
+            aggs, gathers, super_graph, super_weights, s_ok, head_gather = \
+                make_hier_shard_aggs(shard, bipartite_graph, bipartite_weights,
+                                     super_graph, super_weights, cfg.max_clusters,
+                                     cfg.bipartitegraph_sparsity, training)
             if stats is not None:
                 stats.setdefault("partition_ok", []).append(s_ok)
         else:
@@ -408,7 +411,7 @@ class HierarchicalGNNBlock(nn.Module):
         # a copy: the buffer is updated in place by the next training forward
         aux = {"clusters": clusters, "n_clusters": n_clusters,
                "cluster_valid": cluster_valid,
-               "score_cut": self.score_cut[0].clone()}
+               "score_cut": read_buffer(self.score_cut)[0].clone()}
         if self.output_layer is not None:
             return l2_normalize(self.output_layer(nodes).float()), aux
         return (nodes, super_bcast(supernodes), (bipartite_graph, bipartite_weights),

@@ -4,14 +4,15 @@ Counterpart of ``hierarchicalgnn_tpu/models/dynamic_graph.py``: a kNN graph
 between two embedding sets, built from detached embeddings, then
 differentiable per-edge weights from the endpoint dot products through a
 batch norm and a sigmoid or exp.  ``knn_radius`` and the batch-norm
-statistics are registered buffers; training mode updates them in place
-(``r <- 0.9 r + 0.11 sqrt(max d2)``, ``dynamic_graph.py:70-79``).
+statistics are registered buffers; training mode updates them
+(``r <- 0.9 r + 0.11 sqrt(max d2)``, ``dynamic_graph.py:70-79``; in place,
+or staged under ``models/buffers.py``).
 
 With the query rows split over the ranks of a shard group (``comm``, the
 JAX module's ``axis_name``), each rank mines its own block and the weight
-normalisation's mean is taken over all ranks (one ``psum``).  The radius
-EMA's ``pmax`` and the batch norm's summed moments act only in training and
-come with the sharded training step.
+normalisation's mean is taken over all ranks (one ``psum``, differentiable);
+in training the radius EMA takes the ``pmax`` of the ranks' largest
+distances and the batch norm sums its moments over the ranks.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from torch import nn
 from hierarchicalgnn_torch.ops.graph import Graph, symmetrize
 from hierarchicalgnn_torch.ops.knn import knn, knn_to_edges
 from hierarchicalgnn_torch.ops.sddmm import edge_dot, edge_dot_from_knn
+from hierarchicalgnn_torch.models.buffers import read_buffer, write_buffer
 from hierarchicalgnn_torch.models.mlp import MaskedBatchNorm
 
 
@@ -49,20 +51,19 @@ class DynamicGraphConstruction(nn.Module):
         (2*Q*k when ``sym``), padded slots masked with zero weight.
         ``comm``: this rank's handle when ``src_embeddings`` are its block of
         the query rows."""
-        if training and comm is not None:
-            raise NotImplementedError(
-                "the radius EMA over a shard group (pmax): the sharded training "
-                "step is not ported yet (ROADMAP.md, Queue 1 item 5)")
         with torch.no_grad():
+            radius = read_buffer(self.knn_radius)
             idx, d2 = knn(src_embeddings, dst_embeddings, self.k,
-                          self.knn_radius[0], q_mask=src_mask, p_mask=dst_mask,
+                          radius[0], q_mask=src_mask, p_mask=dst_mask,
                           block_size=self.knn_block_size)
             graph = Graph(*knn_to_edges(idx))
             if training:
                 # EMA of the largest neighbour distance, from the kNN's own
                 # d2 (symmetric, so the symmetrized graph has the same max)
                 max_d2 = torch.max(torch.where(graph.edge_mask, d2.reshape(-1), 0.0))
-                self.knn_radius.mul_(0.9).add_(0.11 * torch.sqrt(max_d2))
+                if comm is not None:
+                    max_d2 = comm.pmax(max_d2)
+                write_buffer(self.knn_radius, radius * 0.9 + 0.11 * torch.sqrt(max_d2))
         if self.sym:
             graph = symmetrize(graph)
             likelihood = edge_dot(src_embeddings, dst_embeddings,

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from hierarchicalgnn_torch.models.buffers import read_buffer, write_buffer
 from hierarchicalgnn_torch.utils.device import torch_dtype
 
 _ACTIVATIONS = {
@@ -185,11 +186,12 @@ class MaskedBatchNorm(nn.Module):
     """BatchNorm over a masked 1-D batch of scalars (``mlp.py:166-212``).
 
     Training mode normalizes with the batch statistics of the unmasked
-    entries and updates the running buffers in place (momentum 0.1,
-    unbiased variance); eval mode uses the running statistics.  ``comm``:
-    the batch is split over the ranks of a shard group (``parallel/comm.py``);
-    the moments of a training batch would then be summed over the ranks,
-    which comes with the sharded training step.
+    entries and updates the running buffers (momentum 0.1, unbiased
+    variance; ``models/buffers.py``); eval mode uses the running statistics.
+    ``comm``: the batch is split over the ranks of a shard group
+    (``parallel/comm.py``); the moments of a training batch are then summed
+    over the ranks (``mlp.py:180-200`` of the JAX package), so every rank
+    normalizes with the whole batch's statistics.
     """
 
     def __init__(self, momentum: float = 0.1, epsilon: float = 1e-5):
@@ -202,19 +204,20 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(1))
 
     def forward(self, x, mask=None, training: bool = False, comm=None):
-        if training and comm is not None:
-            raise NotImplementedError(
-                "batch-norm moments summed over a shard group: the sharded "
-                "training step is not ported yet (ROADMAP.md, Queue 1 item 5)")
         if training:
+            psum = comm.psum if comm is not None else (lambda v: v)
             w = mask.float()
-            n = torch.clamp(torch.sum(w), min=1.0)
-            mean = torch.sum(w * x) / n
-            var = torch.sum(w * torch.square(x - mean)) / n
+            count, total = psum(torch.stack([torch.sum(w), torch.sum(w * x)]))
+            n = torch.clamp(count, min=1.0)
+            mean = total / n
+            var = psum(torch.sum(w * torch.square(x - mean))) / n
             with torch.no_grad():
                 unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
-                self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
-                self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+                m = self.momentum
+                write_buffer(self.running_mean,
+                             read_buffer(self.running_mean) * (1 - m) + m * mean)
+                write_buffer(self.running_var,
+                             read_buffer(self.running_var) * (1 - m) + m * unbiased)
         else:
             mean, var = self.running_mean[0], self.running_var[0]
         inv = torch.rsqrt(var + self.epsilon)

@@ -19,13 +19,16 @@ pooling GMM every forward, updates the buffers (``score_cut``,
 plans whose K1 backward the endpoint gathers use.
 
 ``spmd`` (a ``parallel.graph_shard.SpmdSpec`` with the calling rank's
-``comm``; eval only) runs the forward as one rank of a shard group: ``x`` and
-``node_mask`` are the rank's node-row blocks, ``graph`` the whole event's,
-and the node- and edge-space outputs are the rank's blocks, which
-``parallel.graph_shard.make_sharded_forward`` reassembles by the model's
+``comm``) runs the forward, in either mode, as one rank of a shard group:
+``x`` and ``node_mask`` are the rank's node-row blocks, ``graph`` the whole
+event's, and the node- and edge-space outputs are the rank's blocks, which
+``parallel.graph_shard.make_sharded_forward`` (eval) and
+``make_sharded_train_step`` (training) reassemble by the model's
 ``sharded_out_specs(spmd)``: a tree, shaped like the forward's output, of
 ``SHARDED`` (the ranks' blocks concatenate along dim 0) and ``REPLICATED``
-(every rank holds the whole), what ``out_specs`` is to a ``shard_map``.
+(every rank holds the whole), what ``out_specs`` is to a ``shard_map``.  In
+training the partition gets transposed plans, so every gather of a rank,
+the halo's included, has K1 as its backward.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from hierarchicalgnn_torch.models.blocks import (
 from hierarchicalgnn_torch.models.dynamic_graph import DynamicGraphConstruction
 from hierarchicalgnn_torch.models.mlp import MLP, MaskedBatchNorm, MatchDims
 from hierarchicalgnn_torch.parallel.graph_shard import (
-    NOT_PORTED, REPLICATED, SHARDED, bipartite_local_slice, make_shard_tools, pooled_active)
+    REPLICATED, SHARDED, make_shard_tools, pooled_active)
 from hierarchicalgnn_torch.utils.config import ArchConfig
 
 
@@ -90,11 +93,10 @@ class _Model(nn.Module):
 
     def _shard_tools(self, x, graph: Graph, spmd, stats):
         """This rank's partition of the bidirected input graph, its K1
-        aggregator and its halo gather; the partition's overflow flag goes
-        into ``stats["partition_ok"]``."""
-        if self.training:
-            raise NotImplementedError(NOT_PORTED)
-        tools = make_shard_tools(bidirectionalize(graph), x.shape[0], spmd)
+        aggregator and its halo gather (with a K1 backward in training); the
+        partition's overflow flag goes into ``stats["partition_ok"]``."""
+        tools = make_shard_tools(bidirectionalize(graph), x.shape[0], spmd,
+                                 transposed=self.training)
         if stats is not None:
             stats.setdefault("partition_ok", []).append(tools.ok)
         return tools
@@ -190,7 +192,8 @@ class EmbeddingHGNNGMM(_Model):
                 x, tools.local_graph, tools.agg, tools.gather, encode_gather=tools.gather)
             embeddings, aux = self.hgnn(
                 intermediate, nodes, edges, tools.local_graph, node_mask, tools.agg,
-                tools.local_plan, stats, gather=tools.gather, shard=tools)
+                tools.local_plan, stats, gather=tools.gather, training=self.training,
+                shard=tools)
             return embeddings, intermediate, aux
         node_mask, work, agg, gather, plan = self._work_graph(x, graph, node_mask)
         intermediate, nodes, edges = self.ignn(x, work, agg, gather)
@@ -244,24 +247,24 @@ class _BipartiteScorer(_Model):
         are made global for the returned graph, and the ranks' blocks
         concatenate into the unsharded kNN edge order.  Otherwise the whole
         graph comes back on every rank and the scores are those of this
-        rank's slice of it."""
+        rank's slice of it.  The head scores the rank's edges in the order of
+        the block's node-sorted plan (its row gathers' backward is K1) and
+        puts them back into the kNN's order."""
         cfg = self.cfg
         tools = self._shard_tools(x, graph, spmd, stats)
         embeddings, nodes, edges = self._encode(
             x, tools.local_graph, tools.agg, tools.gather, encode_gather=tools.gather)
-        nodes, supernodes, (bgraph, bweights), aux, _ = self.hgnn(
+        nodes, supernodes, (bgraph, _), aux, (head_gather, head_plan) = self.hgnn(
             embeddings, nodes, edges, tools.local_graph, node_mask, tools.agg,
-            tools.local_plan, stats, gather=tools.gather, shard=tools)
+            tools.local_plan, stats, gather=tools.gather, training=self.training,
+            shard=tools)
         if pooled_active(spmd, cfg.max_clusters):
             b_send, b_recv, b_mask = bgraph
             bgraph = Graph(b_send + tools.index * tools.n_local, b_recv, b_mask)
-        else:
-            b_send, b_recv, b_mask, _ = bipartite_local_slice(
-                tools, bgraph, bweights, cfg.bipartitegraph_sparsity)
         logits = self.bipartite_output_layer(torch.cat(
-            [nodes[b_send], supernodes[b_recv]], -1))[:, 0]
-        scores = torch.where(b_mask, torch.sigmoid(logits.float()), 0.0)
-        return bgraph, scores, embeddings, aux
+            head_gather(nodes, supernodes), -1))[:, 0]
+        scores = torch.where(head_plan.edge_mask_sorted, torch.sigmoid(logits.float()), 0.0)
+        return bgraph, head_plan.unsort(scores), embeddings, aux
 
     def sharded_out_specs(self, spmd):
         """With the pooled space partitioned the bipartite graph comes back

@@ -46,9 +46,15 @@ copies from its first 16-byte boundary.
 
 The wrapper takes its plain PyTorch version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  ``LAUNCHES["K8"]`` counts
-the launches (one per call, whatever P).  The JAX kernel's backward is
-``lax.psum_scatter``, an XLA collective; it comes with the sharded training
-step, and until then a block that requires grad raises.
+the launches (one per call, whatever P).
+
+Both gathers are differentiable through one ``autograd.Function``
+(``_AllGather``): its forward is K8 or ``torch.cat``, its backward the same
+for both, a reduce-scatter of the P ranks' cotangents
+(:func:`reduce_scatter_plain`: summed in rank order, bf16 and f16 added in
+f32 and rounded once, each rank given its own row block).  The JAX kernel's
+backward is ``lax.psum_scatter`` (``_ring_bwd``), an XLA collective and no
+Pallas kernel, so the plain reduce-scatter is the whole of its port.
 """
 
 from __future__ import annotations
@@ -174,9 +180,58 @@ def _table(n_ranks):
 
 def ring_all_gather_plain(blocks):
     """The plain version: one ``torch.cat`` along dim 0, shared by all ranks
-    (a list of P references to it; nobody writes into a gathered array)."""
-    out = torch.cat(list(blocks), 0)
+    (a list of P references to it; nobody writes into a gathered array).
+    Differentiable, with K8's backward (``_AllGather``)."""
+    blocks = list(blocks)
+    if _wants_grad(*blocks):
+        return _with_grad(ring_all_gather_plain, blocks)
+    out = torch.cat(blocks, 0)
     return [out] * len(blocks)
+
+
+def sum_in_rank_order(values):
+    """``values[0] + values[1] + ...`` in that order; bf16 and f16 are added
+    in f32 and rounded once."""
+    first = values[0]
+    wide = first.dtype in (torch.bfloat16, torch.float16)
+    total = first.float() if wide else first
+    for v in values[1:]:
+        total = total + (v.float() if wide else v)
+    return total.to(first.dtype)
+
+
+def reduce_scatter_plain(values, n_ranks=None):
+    """The sum of ``values`` (:func:`sum_in_rank_order`), cut into
+    ``n_ranks`` (by default one per value) row blocks: entry r is rank r's
+    (``lax.psum_scatter(..., scatter_dimension=0, tiled=True)``)."""
+    n_ranks = n_ranks or len(values)
+    total = sum_in_rank_order(values)
+    rows = total.shape[0] // n_ranks
+    return [total[r * rows:(r + 1) * rows] for r in range(n_ranks)]
+
+
+class _AllGather(torch.autograd.Function):
+    """The all-gather of P blocks under autograd: ``gather(blocks)`` forward
+    (K8 or ``torch.cat``), :func:`reduce_scatter_plain` of the P outputs'
+    cotangents backward.  The P outputs are views: nothing may write them in
+    place."""
+
+    @staticmethod
+    def forward(ctx, gather, *blocks):
+        ctx.set_materialize_grads(False)  # a rank that never reads its copy adds nothing
+        return tuple(out.view_as(out) for out in gather(blocks))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        given = [g for g in grads if g is not None]
+        if not given:
+            return (None,) * (1 + len(grads))
+        return (None, *reduce_scatter_plain(given, len(grads)))
+
+
+def _with_grad(gather, blocks):
+    """``gather(blocks)`` (K8 or its plain version) under autograd."""
+    return list(_AllGather.apply(gather, *blocks))
 
 
 def _check_blocks(blocks):
@@ -213,15 +268,14 @@ def ring_all_gather(blocks):
     entry q is rank q's own ``[P * B, ...]`` concatenation of all blocks.
 
     Replaces ``_ring_kernel`` (hierarchicalgnn_tpu/ops/pallas/ring_gather.py:32).
-    One launch serves all P ranks.  Not differentiable yet.
+    One launch serves all P ranks.  Differentiable: the backward is a plain
+    reduce-scatter (``_AllGather``).
     """
     blocks = list(blocks)
     if not blocks:
         raise ValueError("no blocks")
     if _wants_grad(*blocks):
-        raise NotImplementedError(
-            "K8 has no backward yet: the reduce-scatter comes with the sharded "
-            "training step (ROADMAP.md, Queue 1 item 5)")
+        return _with_grad(ring_all_gather, blocks)
     if _on_cpu(*blocks):
         return ring_all_gather_plain(blocks)
     _check_blocks(blocks)

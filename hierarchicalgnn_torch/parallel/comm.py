@@ -38,10 +38,19 @@ stream alone.
 
 ``all_gather`` under ``halo_backend: xla`` (the JAX package's name for the
 library collective, kept so that one config reads the same in both packages)
-is K8's plain version, a ``torch.cat``.  ``psum``, ``psum_scatter`` and
-``pmax`` are XLA collectives in the JAX package, no Pallas kernels, and are
-plain torch here: the partial results are added in rank order; bf16 and f16
-partials are added in f32 and rounded once.
+is K8's plain version, a ``torch.cat``.  ``psum``, ``psum_scatter``,
+``pmax`` and ``pmin`` are XLA collectives in the JAX package, no Pallas
+kernels, and are plain torch here: the partial results are added in rank
+order; bf16 and f16 partials are added in f32 and rounded once.
+
+Every collective is differentiable, so in a training forward the P ranks'
+graphs join into ONE autograd graph through the collectives, and one
+``torch.autograd.grad`` from the caller's thread runs every rank's backward:
+the all-gather's backward is a reduce-scatter of the ranks' cotangents
+(``ops/kernels/ring_gather.py``, the same for both backends),
+``psum``'s and ``psum_scatter``'s are autograd's own (each rank's input gets
+the sum of the cotangents of the shared result).  No rendezvous is needed in
+the backward.
 """
 
 from __future__ import annotations
@@ -52,19 +61,10 @@ import threading
 import torch
 
 from hierarchicalgnn_torch.ops.kernels.ring_gather import (
-    ring_all_gather, ring_all_gather_plain)
+    reduce_scatter_plain, ring_all_gather, ring_all_gather_plain, sum_in_rank_order)
 
 HALO_BACKENDS = ("xla", "rdma")
 THREAD_PREFIX = "shard-rank-"
-
-
-def _sum_in_rank_order(values):
-    first = values[0]
-    wide = first.dtype in (torch.bfloat16, torch.float16)
-    total = first.float() if wide else first
-    for v in values[1:]:
-        total = total + (v.float() if wide else v)
-    return total.to(first.dtype)
 
 
 class ShardGroup:
@@ -77,7 +77,8 @@ class ShardGroup:
                              f"got {halo_backend!r}")
         self.n_parts = n_parts
         self.halo_backend = halo_backend
-        self.collectives = {"all_gather": 0, "psum": 0, "psum_scatter": 0, "pmax": 0}
+        self.collectives = {"all_gather": 0, "psum": 0, "psum_scatter": 0, "pmax": 0,
+                            "pmin": 0}
         self._left = [None] * n_parts
         self._picked_up = None
         self._barrier = threading.Barrier(n_parts, action=self._complete)
@@ -92,18 +93,22 @@ class ShardGroup:
         return ring_all_gather_plain(values)
 
     def _psum(self, values):
-        return [_sum_in_rank_order(values)] * self.n_parts
+        return [sum_in_rank_order(values)] * self.n_parts
 
     def _psum_scatter(self, values):
-        total = _sum_in_rank_order(values)
-        rows = total.shape[0] // self.n_parts
-        return [total[r * rows:(r + 1) * rows] for r in range(self.n_parts)]
+        return reduce_scatter_plain(values)
 
     def _pmax(self, values):
         top = values[0]
         for v in values[1:]:
             top = torch.maximum(top, v)
         return [top] * self.n_parts
+
+    def _pmin(self, values):
+        low = values[0]
+        for v in values[1:]:
+            low = torch.minimum(low, v)
+        return [low] * self.n_parts
 
     def _complete(self):
         """Runs in the rank that arrives last, while the others wait."""
@@ -168,6 +173,9 @@ class Comm:
 
     def pmax(self, x):
         return self.group.meet(self.index, "pmax", x)
+
+    def pmin(self, x):
+        return self.group.meet(self.index, "pmin", x)
 
 
 def run_sharded(fn, n_parts: int, halo_backend: str = "xla", device=None):

@@ -1,6 +1,6 @@
-"""Graph-partitioned serving forward of the five models.
+"""Graph-partitioned forward and training step of the five models.
 
-Counterpart of the eval path of ``hierarchicalgnn_tpu/parallel/graph_shard.py``.
+Counterpart of ``hierarchicalgnn_tpu/parallel/graph_shard.py``.
 One event is split over ``n_parts`` ranks that share one process and one
 card (``parallel/comm.py``):
 
@@ -36,9 +36,17 @@ The cells and the parameter tree are the unsharded ones: shard awareness
 enters through their ``agg``/``gather``/``aggs``/``gathers`` arguments, so
 one ``state_dict`` serves both paths.
 
-Not ported yet (``ROADMAP.md``, Queue 1 item 5): the sharded training step
-with K8's backward, the training branches of the clustering, the dynamic
-graphs and the batch norm, the sharded auction.
+Training (:func:`make_sharded_train_step`, ``graph_shard.py:567`` of the JAX
+package): the ranks' forwards run with autograd and join into one autograd
+graph through the collectives (the all-gather's backward is a reduce-scatter,
+``ops/kernels/ring_gather.py``), so one backward from the caller's thread
+reaches every rank.  Every gather of a rank has K1 as its backward, the halo
+gather's too (:func:`halo_endpoint_gather`).  The loss runs on the caller's
+thread on the reassembled outputs; its matching's auction is row-sharded
+over the ranks (``train/matching.py``).  The ranks share one module, so
+their buffer writes are staged, checked to agree and applied once
+(``models/buffers.py``).  Over a data axis each step takes several events
+(``parallel/step.py``).
 """
 
 from __future__ import annotations
@@ -50,10 +58,13 @@ import torch
 from hierarchicalgnn_torch.ops.connected import compact_labels, count_host_sync
 from hierarchicalgnn_torch.ops.graph import Graph, graph_to
 from hierarchicalgnn_torch.ops.kernels.sorted_agg import (
-    INT32_MAX, SortedPlan, build_sorted_plan, sorted_aggregate,
+    INT32_MAX, SortedPlan, build_sorted_plan, build_transposed_plan, cross_permutation,
+    gather_edge_endpoints, gather_receivers, gather_senders, sorted_aggregate,
     sorted_aggregate_weighted, sorted_segment_min_i32)
 from hierarchicalgnn_torch.ops.segment import segment_sum
+from hierarchicalgnn_torch.models.buffers import agreed, staged_writes
 from hierarchicalgnn_torch.parallel.comm import HALO_BACKENDS, Comm, run_sharded
+from hierarchicalgnn_torch.parallel.step import EventMeanStep
 from hierarchicalgnn_torch.utils.config import SHARD_DEFAULTS
 from hierarchicalgnn_torch.utils.device import resolve_device
 
@@ -62,10 +73,6 @@ from hierarchicalgnn_torch.utils.device import resolve_device
 # block; the constant is kept so that both packages give the same capacities
 # and the same ``slot`` and ``ok``.
 BLOCK_E = 1024
-
-NOT_PORTED = ("the sharded training step is not ported yet "
-              "(ROADMAP.md, Queue 1 item 5)")
-
 
 class SpmdSpec(NamedTuple):
     """What threads the partition through a model's forward.  ``comm`` is
@@ -167,9 +174,31 @@ def partition_edges(graph: Graph, num_nodes: int, spec: SpmdSpec):
     return parts, slot, ok
 
 
-def make_shard_tools(directed: Graph, n_local: int, spec: SpmdSpec) -> ShardTools:
+def halo_endpoint_gather(graph: Graph, plan: SortedPlan, offset: int, num_rows: int,
+                         transposed: bool):
+    """``x_all -> (x_all[senders], x_all[receivers])`` over a rank's local
+    edges ``graph`` (GLOBAL ids of ``x_all``'s ``num_rows`` rows; the
+    receivers are the rank's own, ``offset`` on) and their receiver-sorted
+    ``plan`` (local receiver ids).  Without ``transposed`` this is plain
+    indexing.  With it the backward is K1, never autograd's index backward:
+    the sender side over a sender-sorted plan of the gathered rows, then the
+    all-gather's reduce-scatter hands each rank its rows' sums; the receiver
+    side over ``plan`` itself."""
+    if not transposed:
+        return lambda x_all: (x_all[graph.senders], x_all[graph.receivers])
+    plan_t, r2s = build_transposed_plan(plan, graph.senders, graph.receivers,
+                                        graph.edge_mask, num_rows)
+    rows = slice(offset, offset + plan.num_segments)
+    return lambda x_all: (gather_senders(x_all, plan, plan_t, r2s),
+                          gather_receivers(x_all[rows], plan))
+
+
+def make_shard_tools(directed: Graph, n_local: int, spec: SpmdSpec,
+                     transposed: bool = False) -> ShardTools:
     """One rank's partition, K1 aggregator and halo gather, from the
-    bidirected input graph.  Global N = ``n_local * n_parts``."""
+    bidirected input graph.  Global N = ``n_local * n_parts``.  With
+    ``transposed`` (training) the halo gather's backward is K1
+    (:func:`halo_endpoint_gather`)."""
     comm = spec.comm
     idx = comm.index
     num_nodes = n_local * spec.n_parts
@@ -179,10 +208,10 @@ def make_shard_tools(directed: Graph, n_local: int, spec: SpmdSpec) -> ShardTool
     # sort is the identity and edge tensors made from ``local`` are in plan order
     plan = build_sorted_plan(local.senders, local.receivers - idx * n_local,
                              local.edge_mask, n_local)
+    halo = halo_endpoint_gather(local, plan, idx * n_local, num_nodes, transposed)
 
     def gather(x_local):
-        x_all = comm.all_gather(x_local)
-        return x_all[local.senders], x_all[local.receivers]
+        return halo(comm.all_gather(x_local))
 
     return ShardTools(spec=spec, index=idx, n_local=n_local, full_graph=directed,
                       local_graph=local, slot=slot, ok=ok,
@@ -253,7 +282,7 @@ def sharded_cluster_labels(shard: ShardTools, keep_local, num_nodes: int,
 
 
 def make_hier_shard_aggs(shard: ShardTools, bgraph: Graph, bweights, sgraph: Graph,
-                         sweights, max_clusters: int, k: int):
+                         sweights, max_clusters: int, k: int, training: bool = False):
     """Shard-aware ``aggs`` and ``gathers`` for ``HierarchicalGNNCell``.
 
     Collectives per hierarchical iteration: one sum over ranks of the
@@ -272,8 +301,17 @@ def make_hier_shard_aggs(shard: ShardTools, bgraph: Graph, bweights, sgraph: Gra
     Otherwise ``bgraph`` is the global graph and this rank's slice is taken
     here, and the super graph stays whole on every rank.
 
-    Returns (aggs, gathers, sgraph, sweights, ok): the super graph as this
-    rank's cells must see it (receiver-sorted; local in pooled mode).
+    ``training``: every gather gets a K1 backward, as in the unsharded
+    block: the superedge endpoints through transposed plans, the bipartite
+    row gathers through the two bipartite plans, which are each other's
+    transposes.
+
+    Returns (aggs, gathers, sgraph, sweights, ok, head): the super graph as
+    this rank's cells must see it (receiver-sorted; local in pooled mode),
+    and the score head's ``(gather, plan)``: ``gather(nodes, supernodes)``
+    gives the rows at the two ends of this rank's bipartite edges in
+    ``plan``'s order, and ``plan.unsort`` puts per-edge values back into the
+    kNN's order.
     """
     comm = shard.comm
     n_local, idx = shard.n_local, shard.index
@@ -293,24 +331,34 @@ def make_hier_shard_aggs(shard: ShardTools, bgraph: Graph, bweights, sgraph: Gra
                        s_plan.edge_mask_sorted)
         sweights = s_plan.sort(sw_parts[idx])
         reduce_c = comm.psum_scatter
-        gather_super = lambda x_all: (x_all[sgraph.senders], x_all[sgraph.receivers])
+        gather_super = halo_endpoint_gather(sgraph, s_plan, idx * c_local, max_clusters,
+                                            training)
         extra = {"super_bcast": comm.all_gather}
     else:
         b_send_l, b_sup_l, b_m_l, b_w_l = bipartite_local_slice(shard, bgraph, bweights, k)
         s_plan = build_sorted_plan(sgraph.senders, sgraph.receivers, sgraph.edge_mask,
                                    max_clusters)
+        s_t = r2s = None
+        if training:
+            s_t, r2s = build_transposed_plan(s_plan, sgraph.senders, sgraph.receivers,
+                                             sgraph.edge_mask, max_clusters)
         sgraph = Graph(s_plan.senders_sorted, s_plan.receivers_sorted,
                        s_plan.edge_mask_sorted)
         sweights = s_plan.sort(sweights)
         reduce_c = comm.psum
-        gather_super = lambda x: (x[sgraph.senders], x[sgraph.receivers])
+        gather_super = lambda x: gather_edge_endpoints(x, s_plan, s_t, r2s)
         extra = {}
         ok = torch.ones((), dtype=torch.bool, device=sweights.device)
 
-    # the local bipartite block, one receiver-sorted plan per direction
+    # the local bipartite block, one receiver-sorted plan per direction; each
+    # is the other's transposed plan, so the row gathers' backward is K1
     p_bs = build_sorted_plan(b_send_l, b_sup_l, b_m_l, max_clusters)
     p_bn = build_sorted_plan(b_sup_l, b_send_l, b_m_l, n_local)
     w_bs, w_bn = p_bs.sort(b_w_l), p_bn.sort(b_w_l)
+    t_bs, t_bn = (p_bn, p_bs) if training else (None, None)
+    bs_of_bn = cross_permutation(p_bs, p_bn) if training else None
+    bn_of_bs = cross_permutation(p_bn, p_bs) if training else None
+    gather_cluster_rows = lambda x: gather_senders(x, p_bn, t_bn, bn_of_bs)
     aggs = {
         "edge_to_node": shard.agg,
         "bip_to_super": (lambda d: reduce_c(sorted_aggregate_weighted(d, w_bs, p_bs)),
@@ -320,8 +368,10 @@ def make_hier_shard_aggs(shard: ShardTools, bgraph: Graph, bweights, sgraph: Gra
         "super_to_super": lambda d: sorted_aggregate_weighted(d, sweights, s_plan),
     }
     gathers = {"graph": shard.gather, "super": gather_super,
-               "bip_to_super": lambda x: x[p_bs.senders_sorted], **extra}
-    return aggs, gathers, sgraph, sweights, ok
+               "bip_to_super": lambda x: gather_senders(x, p_bs, t_bs, bs_of_bn),
+               "bip_to_node": gather_cluster_rows, **extra}
+    head = (lambda x, sn: (gather_receivers(x, p_bn), gather_cluster_rows(sn)), p_bn)
+    return aggs, gathers, sgraph, sweights, ok, head
 
 
 # ---------------------------------------------------------------------------
@@ -363,6 +413,11 @@ class ShardedForward:
 
     @torch.no_grad()
     def __call__(self, batch):
+        return self._run(batch)[0]
+
+    def _run(self, batch):
+        """The ranks' forwards in the model's mode and the caller's grad mode.
+        Returns (the reassembled outputs, each rank's staged buffer writes)."""
         n_parts = self.spec.n_parts
         x = torch.as_tensor(batch.x, device=self.device)
         node_mask = torch.as_tensor(batch.node_mask, device=self.device)
@@ -375,11 +430,13 @@ class ShardedForward:
 
         def per_rank(comm):
             rows = slice(comm.index * n_local, (comm.index + 1) * n_local)
-            return self.model(x[rows], graph, node_mask[rows], stats=stats[comm.index],
-                              spmd=self.spec._replace(comm=comm))
+            with staged_writes() as staged:
+                out = self.model(x[rows], graph, node_mask[rows], stats=stats[comm.index],
+                                 spmd=self.spec._replace(comm=comm))
+            return out, staged
 
-        outs, group = run_sharded(per_rank, n_parts, self.spec.halo_backend, self.device)
-        out = _reassemble(self.out_specs, outs)
+        ranks, group = run_sharded(per_rank, n_parts, self.spec.halo_backend, self.device)
+        out = _reassemble(self.out_specs, [o for o, _ in ranks])
         flags = [flag for s in stats for flag in s.get("partition_ok", ())]
         self.last_stats = {
             "host_syncs": sum(s.get("host_syncs", 0) for s in stats) + 1,
@@ -387,7 +444,31 @@ class ShardedForward:
             "collectives": dict(group.collectives)}
         if isinstance(out, tuple):
             self.last_stats["n_clusters"] = out[-1]["n_clusters"]
-        return out
+        return out, [staged for _, staged in ranks]
+
+
+class ShardedTrainForward(ShardedForward):
+    """``forward(batch, stats) -> (out, staged)``: the TRAINING forward of one
+    event over ``n_parts`` ranks, with autograd.  The ranks' graphs are one
+    autograd graph through the collectives, so one backward from the
+    caller's thread reaches every rank.  The ranks' buffer writes are staged
+    and must agree (``models/buffers.py::agreed``); ``staged`` is rank 0's,
+    for the caller to apply.  ``stats`` receives ``last_stats``: host syncs
+    and collectives added up, ``partition_ok`` and-ed."""
+
+    def __call__(self, batch, stats=None):
+        self.model.train()
+        out, stages = self._run(batch)
+        if stats is not None:
+            last = self.last_stats
+            stats["host_syncs"] = stats.get("host_syncs", 0) + last["host_syncs"]
+            stats["partition_ok"] = stats.get("partition_ok", True) and last["partition_ok"]
+            total = stats.setdefault("collectives", {})
+            for kind, n in last["collectives"].items():
+                total[kind] = total.get(kind, 0) + n
+            if "n_clusters" in last:
+                stats["n_clusters"] = last["n_clusters"]
+        return out, agreed(stages)
 
 
 def make_sharded_forward(pipeline, n_parts: int, hparams: dict,
@@ -399,3 +480,31 @@ def make_sharded_forward(pipeline, n_parts: int, hparams: dict,
     device = resolve_device(device)
     model = pipeline.model.to(device).eval()
     return ShardedForward(model, spec_from_hparams(n_parts, hparams), hparams, device)
+
+
+def make_sharded_train_step(pipeline, optimizer, mesh_shape: dict, hparams: dict,
+                            device: str | torch.device = "cuda") -> EventMeanStep:
+    """The training step with the model's forward graph-partitioned over
+    ``mesh_shape["graph"]`` ranks and ``mesh_shape["data"]`` events a step
+    (``graph_shard.py:567`` of the JAX package; the mesh is given by its
+    shape).  ``step(batch, epoch) -> metrics`` takes one Event when ``data``
+    is 1, else a list or a stack (``parallel/step.py::stack_events``) of
+    ``data`` Events; ``step.forward_backward`` gives the gradients without
+    applying them.
+
+    The loss, the bipartite matching's truth included, runs on the caller's
+    thread on the reassembled outputs: the unsharded ``loss_from_outputs``.
+    With one event a step the matching's auction is row-sharded over the
+    ranks (``shard_matching``, default on); over several events it is
+    replicated, as in the JAX package.  ``device`` defaults to the card and
+    raises without one.
+    """
+    device = resolve_device(device)
+    n_parts = int(mesh_shape.get("graph", 1) or 1)
+    n_events = int(mesh_shape.get("data", 1) or 1)
+    model = pipeline.model.to(device)
+    forward = ShardedTrainForward(model, spec_from_hparams(n_parts, hparams), hparams,
+                                  device)
+    matching = (n_parts if n_events == 1 and bool(hparams.get("shard_matching", True))
+                else None)
+    return EventMeanStep(pipeline, optimizer, forward, n_events, matching_spmd=matching)

@@ -1,6 +1,6 @@
 """On-device auction algorithm for maximum-weight bipartite matching.
 
-Counterpart of ``hierarchicalgnn_tpu/train/auction.py``, single device.
+Counterpart of ``hierarchicalgnn_tpu/train/auction.py``.
 Bertsekas' auction, vectorized over rows: every unassigned particle bids
 ``(best - second_best + eps)`` above the current price of its best
 candidate; the highest bidder per candidate wins and displaces the
@@ -21,6 +21,17 @@ in which the count reached zero.  The same poll decides when to switch
 from sweeping the whole matrix to sweeping only the rows still unassigned
 (tail compaction); the unassigned count never rises, and only unassigned
 rows bid, so the outcome of a round is the same either way.
+
+With ``comm`` (``parallel/comm.py``, the JAX version's ``axis``) the particle
+rows are split over the ranks of a shard group: each rank sweeps its own
+``[P/G, C]`` block with K6, and the only cross-rank quantities of a round
+are the column-side ``best_bid`` (``pmax``), ``winner_row`` (``pmin``) and
+the unassigned count (``psum``), all exact, so with ``eps`` pinned the
+trajectory is the unsharded one bit for bit.  The data-scaled eps sums the
+ranks' row maxima (one ``psum``).  Every rank's poll reads the same
+stop decision (it comes from the summed count), so the ranks leave the loop
+after the same round; the tail compaction is each rank's own decision, as
+in the JAX version.
 """
 
 from __future__ import annotations
@@ -35,7 +46,7 @@ VIRTUAL_VALUE = 1e-12
 
 def auction_match(pair_scores, n_particles, n_clusters, eps=None,
                   max_iters=2048, escalate_every=256, return_iters=False,
-                  eps_scale=1e-3, tail_cap=256, poll_every=8, stats=None):
+                  eps_scale=1e-3, tail_cap=256, poll_every=8, stats=None, comm=None):
     """Maximum-weight matching of particles to candidates.
 
     pair_scores: [P, C] dense accumulated scores (padded entries ignored);
@@ -49,11 +60,21 @@ def auction_match(pair_scores, n_particles, n_clusters, eps=None,
     optimality gap at about ``eps_scale`` of the objective.  ``stats``:
     optional dict; ``host_syncs`` is increased by the polls and
     ``auction_rounds_launched`` set to the rounds launched (K6 launches).
+
+    ``comm``: this rank's handle when ``pair_scores`` is its row block
+    ``[P / G, C]`` of the whole matrix (rank r holds rows ``r * P / G`` on);
+    the results are then its rows too, and the unassigned count the whole's.
     """
     p, c = pair_scores.shape
     dev = pair_scores.device
     rows = torch.arange(p, device=dev)
-    row_valid = rows < n_particles
+    if comm is None:
+        gids, p_total = rows, p
+        gmax = gmin = gsum = lambda x: x
+    else:
+        gids, p_total = comm.index * p + rows, p * comm.n_parts
+        gmax, gmin, gsum = comm.pmax, comm.pmin, comm.psum
+    row_valid = gids < n_particles
     col_valid = torch.arange(c, device=dev) < n_clusters
     a = torch.where(row_valid[:, None] & col_valid[None, :],
                     pair_scores.float(), NEG).contiguous()
@@ -61,8 +82,10 @@ def auction_match(pair_scores, n_particles, n_clusters, eps=None,
     if eps is None:
         row_max = torch.max(a, dim=1).values
         pos = row_max > 0
-        eps = (eps_scale * torch.sum(torch.where(pos, row_max, 0.0))
-               / torch.clamp(torch.sum(pos), min=1))
+        total, count = torch.sum(torch.where(pos, row_max, 0.0)), torch.sum(pos)
+        if comm is not None:
+            total, count = gsum(torch.stack([total, count.float()]))
+        eps = eps_scale * total / torch.clamp(count, min=1)
         eps = torch.clamp(eps, min=1e-6)
     eps_cur = torch.as_tensor(eps, dtype=torch.float32, device=dev)
 
@@ -71,9 +94,9 @@ def auction_match(pair_scores, n_particles, n_clusters, eps=None,
     assign = torch.where(row_valid, -1, -2).to(torch.int64)
     active = torch.ones((), dtype=torch.bool, device=dev)
     iters = torch.zeros((), dtype=torch.int32, device=dev)
-    best_cnt = torch.full((), p, dtype=torch.int64, device=dev)
+    best_cnt = torch.full((), p_total, dtype=torch.int64, device=dev)
     stuck = torch.zeros((), dtype=torch.int64, device=dev)
-    n_unassigned = torch.sum(row_valid)
+    n_local = torch.sum(row_valid)  # this rank's unassigned rows
     use_tail = bool(tail_cap) and tail_cap < p
     tail = False
     launched = 0
@@ -81,7 +104,7 @@ def auction_match(pair_scores, n_particles, n_clusters, eps=None,
     for round_ in range(max_iters):
         if round_ % poll_every == 0:
             count_host_sync(stats)
-            still, n_un = torch.stack([active.long(), n_unassigned]).tolist()
+            still, n_un = torch.stack([active.long(), n_local]).tolist()
             if not still:
                 break
             tail = use_tail and n_un <= tail_cap
@@ -108,25 +131,27 @@ def auction_match(pair_scores, n_particles, n_clusters, eps=None,
         bid_amount = (prices[j1] + (v1 - torch.clamp(v2, min=VIRTUAL_VALUE))
                       + eps_cur)
 
-        # column auction: the highest bid wins, ties to the lowest row
+        # column auction: the highest bid wins, ties to the lowest (global) row
         bids = torch.where(bid_rows, bid_amount, NEG)
-        best_bid = torch.full((c,), NEG, device=dev).scatter_reduce_(
-            0, j1, bids, "amax")
+        best_bid = gmax(torch.full((c,), NEG, device=dev).scatter_reduce_(
+            0, j1, bids, "amax"))
         is_best = bid_rows & (bids >= best_bid[j1])
-        winner_row = torch.full((c,), p, dtype=torch.int64, device=dev).scatter_reduce_(
-            0, j1, torch.where(is_best, rows, p), "amin")
-        won = is_best & (winner_row[j1] == rows)
+        winner_row = gmin(torch.full((c,), p_total, dtype=torch.int64,
+                                     device=dev).scatter_reduce_(
+            0, j1, torch.where(is_best, gids, p_total), "amin"))
+        won = is_best & (winner_row[j1] == gids)
 
         # displace the previous owners of the won columns; the winner's
         # bid is best_bid, so the price update needs no scatter
-        col_won = winner_row < p
+        col_won = winner_row < p_total
         displaced = (assign >= 0) & col_won[torch.clamp(assign, 0, c - 1)]
         assign = torch.where(displaced, -1, assign)
         assign = torch.where(won, j1, assign)
         assign = torch.where(take_virtual, -2, assign)
         prices = torch.where(col_won, torch.maximum(prices, best_bid), prices)
 
-        n_unassigned = torch.sum((assign == -1) & row_valid)
+        n_local = torch.sum((assign == -1) & row_valid)
+        n_unassigned = gsum(n_local)
         if escalate_every:
             improved = n_unassigned < best_cnt
             stuck = torch.where(improved, 0, stuck + 1)
@@ -142,5 +167,5 @@ def auction_match(pair_scores, n_particles, n_clusters, eps=None,
     matched = (assign >= 0) & row_valid
     col_match = torch.where(matched, assign, 0).to(torch.int32)
     if return_iters:
-        return col_match, matched, iters, torch.sum((assign == -1) & row_valid)
+        return col_match, matched, iters, gsum(torch.sum((assign == -1) & row_valid))
     return col_match, matched

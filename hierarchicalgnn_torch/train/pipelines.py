@@ -11,6 +11,11 @@ bundles a model with its loss:
 
 ``loss(batch, epoch) -> (loss, metrics)`` runs the model in its own mode:
 ``model.train()`` makes the forward update the model's buffers.
+``loss_from_outputs(out, batch, epoch, matching_spmd=)`` is the loss of
+outputs already computed (the sharded training step's reassembled ones);
+``matching_spmd``, a number of ranks, row-shards the bipartite matching's
+auction over them (``train/matching.py``; the JAX package's ``(mesh,
+axis)``).
 """
 
 from __future__ import annotations
@@ -57,7 +62,8 @@ class ECPipeline(_Pipeline):
     are dropped from the loss.
     """
 
-    def loss_from_outputs(self, scores, batch: Event, epoch, stats=None):
+    def loss_from_outputs(self, scores, batch: Event, epoch, stats=None,
+                          matching_spmd=None):
         hp = self.hparams
         emask = batch.graph.edge_mask
         if hp["true_edges"] == "modulewise_true_edges":
@@ -159,7 +165,8 @@ class EmbeddingPipeline(_Pipeline):
         dist = losses.endpoint_distances(e_s, e_r)
         return losses.squared_hinge_loss(dist, y, weights, hp["train_r"])
 
-    def loss_from_outputs(self, out, batch: Event, epoch, stats=None):
+    def loss_from_outputs(self, out, batch: Event, epoch, stats=None,
+                          matching_spmd=None):
         hp = self.hparams
         metrics = {}
         if self.hierarchical:
@@ -192,7 +199,8 @@ class BipartitePipeline(_Pipeline):
     on the sine schedule (reference
     ``bipartite_classification_base.py:194-224``)."""
 
-    def loss_from_outputs(self, out, batch: Event, epoch, stats=None):
+    def loss_from_outputs(self, out, batch: Event, epoch, stats=None,
+                          matching_spmd=None):
         hp = self.hparams
         bgraph, scores, intermediate, aux = out
 
@@ -205,7 +213,8 @@ class BipartitePipeline(_Pipeline):
         emb_loss = losses.squared_hinge_loss(
             dist / hp["train_r"], y_pid, weights, margin=1.0)
 
-        asgmt_loss = self._bipartite_loss(scores, bgraph, batch, aux, stats)
+        asgmt_loss = self._bipartite_loss(scores, bgraph, batch, aux, stats,
+                                          matching_spmd)
 
         sched = losses.sine_loss_schedule(
             epoch, hp["emb_epoch"], hp.get("loss_schedule"))
@@ -215,15 +224,18 @@ class BipartitePipeline(_Pipeline):
                    "score_cut": aux["score_cut"], "clusters": aux["n_clusters"]}
         return loss, metrics
 
-    def _bipartite_loss(self, scores, bgraph: Graph, batch: Event, aux, stats=None):
-        """Assignment BCE against the matching truth (reference :152-191)."""
+    def _bipartite_loss(self, scores, bgraph: Graph, batch: Event, aux, stats=None,
+                        matching_spmd=None):
+        """Assignment BCE against the matching truth (reference :152-191);
+        ``matching_spmd`` ranks row-shard the auction."""
         hp = self.hparams
         truth, row_match, col_match, match_valid = match_particles_to_candidates(
             scores.detach(), bgraph.senders, bgraph.receivers, bgraph.edge_mask,
             batch.pid_compact, batch.particle_pid, batch.n_particles,
             aux["n_clusters"], hp["max_clusters"],
             backend=hp.get("matching_backend", "auction"),
-            eps_scale=float(hp.get("matching_eps_scale", 1e-3)), stats=stats)
+            eps_scale=float(hp.get("matching_eps_scale", 1e-3)), stats=stats,
+            n_parts=matching_spmd)
 
         # assignment weight: max(hit weight, matched-particle weight)
         # (reference get_asgmt_weight :123-138)

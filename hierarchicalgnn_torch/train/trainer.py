@@ -20,8 +20,14 @@ Counterpart of ``hierarchicalgnn_tpu/train/trainer.py``:
 
 The model holds the parameters and buffers and the optimizer its moments,
 so the train state is the trainer's own; ``state_dict``/``load_state``
-carry it as a checkpoint.  The sharded branches (``mesh_shape``) belong to
-the sharded training step, which is not ported (ROADMAP.md, Queue 1 item 5).
+carry it as a checkpoint.
+
+``mesh_shape`` routes the steps as in the JAX trainer (``trainer.py:253-277``):
+with ``graph`` > 1 every training step is the graph-partitioned step
+(``parallel/graph_shard.py::make_sharded_train_step``, ``graph`` ranks that
+share the device), and with ``data`` > 1 besides, each step takes ``data``
+events (a ragged tail repeats the last one).  ``data`` also sets the
+schedule's steps per epoch, ⌈n_train / data⌉.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import torch
 from hierarchicalgnn_torch.data.event import Event, preprocess_event
 from hierarchicalgnn_torch.evaluation.tracking import eval_metrics
 from hierarchicalgnn_torch.ops.graph import bidirectionalize
+from hierarchicalgnn_torch.parallel.graph_shard import make_sharded_train_step
 from hierarchicalgnn_torch.train import checkpoint as ckpt_lib
 from hierarchicalgnn_torch.train.optim import make_optimizer
 from hierarchicalgnn_torch.train.pipelines import event_to
@@ -77,6 +84,7 @@ class Trainer:
         self.logger = MetricLogger(run_dir, log_every_n_steps,
                                    wandb_project=hparams.get("wandb_project"))
         self.optimizer = None
+        self._sharded = None         # the graph-partitioned step, under mesh_shape.graph > 1
         self.last_stats: dict = {}   # host syncs and auction rounds of the last step
         self.step_log: list[dict] = []  # one record per optimizer step of fit()
         self._cur_epoch = 0          # the epoch in flight, for the autosave
@@ -106,6 +114,19 @@ class Trainer:
     def _new_optimizer(self):
         self.optimizer = make_optimizer(self.model.parameters(), self.hparams,
                                         self._steps_per_epoch())
+        if self._mesh("graph") > 1:
+            self._sharded = make_sharded_train_step(
+                self.pipeline, self.optimizer, self.hparams["mesh_shape"], self.hparams,
+                device=self.device)
+
+    def _mesh(self, axis: str) -> int:
+        """The size of ``mesh_shape``'s ``axis`` (1 without one)."""
+        return int((self.hparams.get("mesh_shape") or {}).get(axis, 1) or 1)
+
+    def _step_events(self) -> int:
+        """Events a training step takes: ``data`` under the graph partition,
+        else one (``trainer.py:265-266`` of the JAX package)."""
+        return self._mesh("data") if self._sharded is not None else 1
 
     @property
     def step(self) -> int:
@@ -153,16 +174,24 @@ class Trainer:
     # steps
     # ------------------------------------------------------------------
     def _steps_per_epoch(self) -> int:
-        return max(self.hparams["train_split"][0], 1)
+        """⌈n_train / data⌉: with a data axis the fit loop takes ``data``
+        events a step (``trainer.py:101-109`` of the JAX package)."""
+        n = max(self.hparams["train_split"][0], 1)
+        return max(-(-n // self._mesh("data")), 1)
 
     def _params(self):
         return list(self.model.parameters())
 
-    def _forward_backward(self, batch: Event, epoch):
+    def _forward_backward(self, batch, epoch):
         """One training forward and backward.  Returns (grads, metrics):
         this event's gradients, one per parameter (None where the loss does
         not reach it), and the metrics as tensors, ``grad_norm`` (before
-        any clipping) among them."""
+        any clipping) among them.  Under ``mesh_shape.graph`` > 1 it is the
+        graph-partitioned step's, over ``batch``'s ``data`` events."""
+        if self._sharded is not None:
+            grads, metrics = self._sharded.forward_backward(batch, epoch)
+            self.last_stats = dict(self._sharded.last_stats)
+            return grads, metrics
         self.model.train()
         self.last_stats = {}
         loss, metrics = self.pipeline.loss(batch, epoch, stats=self.last_stats)
@@ -199,8 +228,9 @@ class Trainer:
         self._save("autosave", self._cur_epoch)
         raise FloatingPointError(f"non-finite training step (epoch {epoch}): {report}")
 
-    def train_step(self, batch: Event, epoch) -> dict:
-        """One optimizer step on one event; returns the pipeline's metrics
+    def train_step(self, batch, epoch) -> dict:
+        """One optimizer step on one event (under ``mesh_shape`` {data B,
+        graph G > 1}: on a list of B events); returns the pipeline's metrics
         (``training_loss`` and, by model, ``embedding_loss``,
         ``assignment_loss`` or ``intermediate_loss``, ``score_cut``,
         ``clusters``, ``knn_exact``) and ``grad_norm``."""
@@ -332,13 +362,25 @@ class Trainer:
     def _fit_epochs(self, trainset, valset, rng, start_epoch, max_epochs, accum_for_epoch):
         save_every = int(self.hparams.get("save_every_n_epochs") or 1)
         best, history = -1.0, []
+        bs = self._step_events()
         for epoch in range(start_epoch, max_epochs):
             self._cur_epoch = epoch
             t0 = time.time()
             k = accum_for_epoch(epoch)
+            if k > 1 and bs > 1:
+                # accumulation would bypass the data axis (trainer.py:474-480)
+                raise ValueError("accumulate_grad_batches>1 is not supported with "
+                                 "mesh_shape.data>1 (the accumulation path would bypass "
+                                 "the data-sharded step)")
             acc, since, metrics = None, 0, None
-            for i in rng.permutation(len(trainset)):
-                grads, metrics = self._forward_backward(trainset[i][2], epoch)
+            order = list(rng.permutation(len(trainset)))
+            # ``bs`` events a step; a ragged tail repeats its last event
+            # (trainer.py:449-466 of the JAX package)
+            for j in range(0, len(order), bs):
+                group = [trainset[i][2] for i in order[j:j + bs]]
+                group += group[-1:] * (bs - len(group))
+                grads, metrics = self._forward_backward(group if bs > 1 else group[0],
+                                                        epoch)
                 grads = [torch.zeros_like(p) if g is None else g
                          for p, g in zip(self._params(), grads)]
                 acc = grads if acc is None else torch._foreach_add(acc, grads)
@@ -387,17 +429,13 @@ class Trainer:
                       queue_capacity: int = 8, shuffle_seed: int = 0) -> list[dict]:
         """Train from the native prefetching loader (``data/native_loader.py``)
         instead of preloaded events: the large-dataset path.  One event per
-        step, ``steps_per_epoch`` steps per epoch, then validation on
+        step (under ``mesh_shape`` {data B, graph G > 1}: B events),
+        ``steps_per_epoch`` steps per epoch, then validation on
         ``val_events`` (raw event dicts), ``last`` every epoch and ``best``
         by ``track_eff``.  Returns one validation record per epoch."""
         from hierarchicalgnn_torch.data.native_loader import NativeEventLoader
 
         hp = self.hparams
-        if int((hp.get("mesh_shape") or {}).get("data", 1) or 1) > 1:
-            raise NotImplementedError(
-                "fit_streaming over a data axis (mesh_shape.data > 1) belongs to the "
-                "sharded training step, which is not ported yet (ROADMAP.md, Queue 1 "
-                "item 5)")
         max_epochs = max_epochs or hp["max_epochs"]
         rng = np.random.default_rng(12345)
         valset = []
@@ -405,6 +443,7 @@ class Trainer:
             ev = preprocess_event(raw, hp, rng=rng)
             valset.append((raw, ev, event_to(ev, self.device)))
         self._start_from(state)
+        bs = self._step_events()
         best, history = -1.0, []
         with NativeEventLoader(list(train_paths), loop=True, n_threads=n_threads,
                                queue_capacity=queue_capacity,
@@ -413,8 +452,9 @@ class Trainer:
                 self._cur_epoch = epoch
                 t0 = time.time()
                 for _ in range(steps_per_epoch):
-                    batch = event_to(preprocess_event(next(loader), hp, rng=rng), self.device)
-                    metrics = self.train_step(batch, epoch)
+                    group = [event_to(preprocess_event(next(loader), hp, rng=rng),
+                                      self.device) for _ in range(bs)]
+                    metrics = self.train_step(group if bs > 1 else group[0], epoch)
                     self.logger.log(metrics, step=self.step, epoch=epoch)
                 val = self._end_epoch(valset, epoch, time.time() - t0)
                 history.append(val)

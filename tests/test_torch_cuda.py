@@ -242,8 +242,11 @@ def test_all_gather_kernel_reuse_and_refusals(dev):
             bad += (out != want).sum()
     torch.cuda.synchronize()
     assert int(bad) == 0
-    with pytest.raises(NotImplementedError, match="no backward"):
-        rg.ring_all_gather([b.float().requires_grad_() for b in blocks])
+    # under autograd: the backward is the reduce-scatter of the ranks' cotangents
+    leaves = [b[:64].float().requires_grad_() for b in blocks]
+    outs = rg.ring_all_gather(leaves)
+    grads = torch.autograd.grad(sum((o * (q + 1)).sum() for q, o in enumerate(outs)), leaves)
+    assert all(torch.equal(g, torch.full_like(g, 10.0)) for g in grads)
     with pytest.raises(ValueError, match="contiguous"):
         rg.ring_all_gather([b.T for b in blocks])
     with pytest.raises(ValueError, match="blocks differ"):

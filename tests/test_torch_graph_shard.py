@@ -11,6 +11,8 @@ order through 2 + 2 iterations).  The partition itself (integer work) is
 compared exactly.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,12 +29,14 @@ from hierarchicalgnn_torch import convert
 from hierarchicalgnn_torch.data.event import preprocess_event
 from hierarchicalgnn_torch.data.synthetic import generate_event
 from hierarchicalgnn_torch.inference import InferenceEngine
+from hierarchicalgnn_torch.models import buffers
 from hierarchicalgnn_torch.models.dynamic_graph import DynamicGraphConstruction
 from hierarchicalgnn_torch.models.mlp import MaskedBatchNorm
 from hierarchicalgnn_torch.models.registry import model_selector
 from hierarchicalgnn_torch.ops.graph import Graph, graph_to
 from hierarchicalgnn_torch.ops.kernels.sorted_agg import LAUNCHES
 from hierarchicalgnn_torch.parallel import comm, graph_shard as gs
+from hierarchicalgnn_torch.train.pipelines import event_to
 
 from _torch_parity import N, T, seeded_variables, to_dict
 
@@ -322,54 +326,81 @@ def test_sharded_forward_checks_its_inputs(raw, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# What waits for the sharded training step
+# The training mode of the sharded forward and of its modules
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("name", MODEL_NAMES)
 def test_sharded_training_mode_raises(raw, name):
-    """A model in training mode refuses ``spmd``, with a pointer to the
-    roadmap; in eval mode the same call runs."""
-    hp, model, _ = model_selector(name, TINY)
-    batch = preprocess_event(raw, hp, stage="test")
-    x, mask = T(batch.x), T(batch.node_mask)
-    graph = graph_to(batch.graph, "cpu")
-    call = lambda c: model(x, graph, mask, spmd=gs.SpmdSpec(n_parts=1, comm=c))
+    """A model in training mode takes ``spmd`` (it raised before the
+    sharded training step was ported): over one rank the sharded training
+    forward gives the unsharded training forward's loss (f32, 1e-5
+    relative) and moves the buffers as it does; in eval mode the same call
+    runs too."""
+    hp, model, pipeline = model_selector(name, TINY)
+    batch = event_to(preprocess_event(raw, hp, stage="test"), "cpu")
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    epoch = 50
     model.train()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        comm.run_sharded(call, 1)
+    want, _ = pipeline.loss(batch, epoch)
+    moved = {k: v.clone() for k, v in model.named_buffers()}
+    model.load_state_dict(start)
+    call = lambda c: model(batch.x, batch.graph, batch.node_mask,
+                           spmd=gs.SpmdSpec(n_parts=1, comm=c))
+    (out,), group = comm.run_sharded(call, 1)
+    got, _ = pipeline.loss_from_outputs(out, batch, epoch)
+    assert float(got.detach()) == pytest.approx(float(want.detach()), rel=1e-5)
+    assert group.collectives["all_gather"] > 0
+    for key, value in model.named_buffers():
+        np.testing.assert_allclose(N(value), N(moved[key]), rtol=1e-5, err_msg=key)
     model.eval()
     with torch.no_grad():
         comm.run_sharded(call, 1)
 
 
 def test_training_branches_of_the_modules_raise():
-    """The batch norm's summed moments, the radius EMA's pmax and the
-    hierarchical block's sharded training forward are not ported: with a
-    ``comm`` and ``training`` they raise; in eval mode, or without a
-    ``comm``, they run."""
-    group = comm.ShardGroup(1)
-    rank = comm.Comm(group, 0)
-    norm = MaskedBatchNorm()
-    gen = torch.Generator().manual_seed(0)  # torch's global generator stays untouched
-    x, mask = torch.randn(16, generator=gen), torch.ones(16, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        norm(x, mask, training=True, comm=rank)
-    assert torch.equal(norm(x, mask, training=False, comm=rank), norm(x, mask))
-    norm(x, mask, training=True)
+    """The batch norm's moments summed over the group, the radius EMA's
+    pmax and the hierarchical block's sharded training forward (each raised
+    with a ``comm`` in training before the sharded training step was
+    ported): a batch split over 2 ranks normalises as the whole batch does
+    and moves the running statistics as it does; the query rows of a
+    dynamic graph split over 2 ranks give the radius the whole's largest
+    distance; the hierarchical block runs as a rank in training mode."""
+    def over_ranks(fn, n_parts):
+        """``fn(comm)`` per rank with its buffer writes staged; the ranks'
+        writes agree and are applied once, as the sharded step applies them."""
+        def rank(c):
+            with buffers.staged_writes() as staged:
+                return fn(c), staged
 
-    construction = DynamicGraphConstruction("exp", k=3, norm=True)
+        outs, group = comm.run_sharded(rank, n_parts)
+        buffers.apply_mean([buffers.agreed([staged for _, staged in outs])])
+        return [out for out, _ in outs], group
+
+    gen = torch.Generator().manual_seed(0)  # torch's global generator stays untouched
+    x, mask = torch.randn(16, generator=gen), torch.rand(16, generator=gen) < 0.8
+    whole = MaskedBatchNorm()
+    want = whole(x, mask, training=True)
+    split = MaskedBatchNorm()
+    outs, group = over_ranks(lambda c: split(x[c.index * 8:(c.index + 1) * 8],
+                                             mask[c.index * 8:(c.index + 1) * 8],
+                                             training=True, comm=c), 2)
+    np.testing.assert_allclose(N(torch.cat(outs)), N(want), rtol=1e-6, atol=1e-6)
+    assert group.collectives["psum"] == 2
+    for a, b in ((whole.running_mean, split.running_mean), (whole.running_var, split.running_var)):
+        np.testing.assert_allclose(N(b), N(a), rtol=1e-6)
+    assert torch.equal(whole(x, mask, training=False), whole(x, mask))
+
     src, dst = torch.randn(8, 4, generator=gen), torch.randn(5, 4, generator=gen)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        construction(src, dst, True, comm=rank)
+    one = DynamicGraphConstruction("exp", k=3, norm=True)
+    two = DynamicGraphConstruction("exp", k=3, norm=True)
     with torch.no_grad():
-        _, w0 = construction(src, dst, False)
-        # one rank: the same mean, through one psum
-        ((_, w1),), ran = comm.run_sharded(lambda c: construction(src, dst, False, comm=c), 1)
-    assert torch.equal(w0, w1) and ran.collectives["psum"] == 1
+        _, w0 = one(src, dst, True)
+        outs, group = over_ranks(
+            lambda c: two(src[c.index * 4:(c.index + 1) * 4], dst, True, comm=c), 2)
+    np.testing.assert_allclose(N(torch.cat([w for _, w in outs])), N(w0), rtol=1e-5)
+    assert group.collectives["pmax"] == 1 and two.knn_radius.item() == one.knn_radius.item()
+    assert one.knn_radius.item() != 1.0
 
     hp, model, _ = model_selector("BC-HGNN-GMM", TINY)
-    tools = gs.ShardTools(gs.SpmdSpec(1, comm=rank), 0, 4, *([None] * 8), rank)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.hgnn(None, torch.zeros(4, 16), None, None, None, None, None, training=True,
-                   shard=tools)
+    assert "raise" not in inspect.getsource(model.hgnn.forward)

@@ -81,12 +81,16 @@ def test_all_gather_any_dtype_and_shape(dtype, shape):
 
 
 def test_all_gather_refuses_what_it_cannot_take():
-    """A block that requires grad raises (the backward comes with the
-    sharded training step); a device other than CPU or CUDA, or mixed
-    devices, never reach the plain version; ragged blocks raise."""
+    """A block that requires grad gathers under autograd (its rank gets the
+    sum of the cotangents of its rows; a block that needs none gets none); a
+    device other than CPU or CUDA, or mixed devices, never reach the plain
+    version; ragged blocks raise."""
     x = torch.ones(4, 8)
-    with pytest.raises(NotImplementedError, match="no backward yet"):
-        ring_gather.ring_all_gather([x.clone().requires_grad_(), x])
+    leaf = x.clone().requires_grad_()
+    outs = ring_gather.ring_all_gather([leaf, x])
+    assert outs[0].requires_grad and torch.equal(outs[1].detach(), torch.cat([x, x]))
+    (grad,) = torch.autograd.grad(outs[0][:4].sum() + 2 * outs[1][:4].sum(), leaf)
+    assert torch.equal(grad, torch.full((4, 8), 3.0))
     with torch.no_grad():  # nothing to differentiate: a copy
         assert ring_gather.ring_all_gather([x.clone().requires_grad_(), x])[0].shape == (8, 8)
     meta = torch.empty((4, 8), device="meta")
@@ -116,7 +120,8 @@ def test_group_reductions_equal_lax(n_dev):
     want = _over_ranks(lambda xl: jax.lax.psum(xl, "graph"), n_dev, jnp.asarray(x))
     outs, group = comm.run_sharded(lambda c: c.psum(block(c.index)), n_dev)
     np.testing.assert_allclose(N(torch.cat(outs)), want, rtol=0, atol=1e-6)
-    assert group.collectives == {"all_gather": 0, "psum": 1, "psum_scatter": 0, "pmax": 0}
+    assert group.collectives == {"all_gather": 0, "psum": 1, "psum_scatter": 0, "pmax": 0,
+                                 "pmin": 0}
 
     want = _over_ranks(lambda xl: jax.lax.psum_scatter(
         xl, "graph", scatter_dimension=0, tiled=True), n_dev, jnp.asarray(x))
@@ -201,7 +206,7 @@ def test_group_stress_more_ranks_than_cores():
             for i in range(rounds)]
     assert all(out == want for out in outs)
     assert group.collectives == {"all_gather": rounds, "psum": rounds, "psum_scatter": 0,
-                                 "pmax": 0}
+                                 "pmax": 0, "pmin": 0}
     assert not [t for t in threading.enumerate() if t.name.startswith(comm.THREAD_PREFIX)]
 
 
