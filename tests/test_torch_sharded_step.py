@@ -37,7 +37,10 @@ from hierarchicalgnn_torch.train.optim import make_optimizer
 from hierarchicalgnn_torch.train.pipelines import event_to
 from hierarchicalgnn_torch.train.trainer import Trainer
 
-from _torch_parity import N, T
+from _torch_parity import N, T, one_thread  # noqa: F401  (fixture)
+
+# the ranks are threads; several test workers share a few cores
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 TINY = {"n_nodes_max": 256, "n_edges_max": 1024, "max_clusters": 64, "max_particles": 64,
         "latent": 16, "hidden_ratio": 2, "n_interaction_graph_iters": 2,

@@ -40,7 +40,10 @@ from hierarchicalgnn_torch.parallel import graph_shard as gs
 from hierarchicalgnn_torch.train.optim import make_optimizer
 from hierarchicalgnn_torch.train.pipelines import event_to
 
-from _torch_parity import N, flax_leaves, seeded_variables, to_dict
+from _torch_parity import N, flax_leaves, one_thread, seeded_variables, to_dict  # noqa: F401
+
+# the ranks are threads; several test workers share a few cores
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 # tests/test_graph_shard.py's TINY: f32, the JAX side on its XLA reductions
 TINY = {"n_nodes_max": 256, "n_edges_max": 1024, "max_clusters": 64, "max_particles": 64,
