@@ -13,11 +13,14 @@ these phases and fails if any of them fails:
               other models' at latent 128 and bipartite k 8, the mined-pair
               hinge's at width 8; ragged rows, empty rows, a row of degree
               > 4096), in bf16 and f32, with times beside the bytes bound
-              and one PyTorch library call; K1, K2 and K5 also at the shapes
-              one rank of the sharded forwards gives them (receiver-partitioned
-              buffers of 36864 flat edges into 6144 nodes and 23552 superedges
-              into 768 supernodes, with the slack's padding at the tail; the
-              rank's block of the bipartite graph into 3072 and 6144 rows), each
+              and one PyTorch library call; K1-K5 also at the shapes one
+              rank of the sharded forwards and training steps gives them
+              (receiver-partitioned buffers of 36864 flat edges into 6144
+              nodes and 23552 superedges into 768 supernodes, with the
+              slack's padding at the tail; the rank's block of the bipartite
+              graph into 3072 and 6144 rows; K1 as the backward of the halo,
+              bipartite and superedge gathers), K6 at one rank's block of the
+              row-sharded auction (1024 and 2048 of 3072 columns), each
               K1/K2 row with its device time per call from the profiler (tile
               kernel + fix-up) and two calls compared bit for bit; K1 and K2
               on the inputs that put row ends on every kind of tile boundary
@@ -29,9 +32,10 @@ these phases and fails if any of them fails:
               the ranks of a shard group, exactly, at P 1, 2, 3, 4 and 8, in
               f32, bf16, int32 and bool, 2-D and 1-D, at block sizes and bases
               that are no multiple of 16 bytes, at every block shape the
-              sharded forwards hand it (phases 12-15 record those and fail on
-              one that was not checked here), 50 calls back to back on one
-              set of buffers, and two groups on two streams;
+              sharded forwards hand it, 50 calls back to back on one set of
+              buffers, and two groups on two streams.  Phases 12-15 and 20-22
+              record the inputs they hand K1-K6 and K8 (``path_keys``) and
+              fail on one whose shape and type were not checked here;
   4. serving  the BC-HGNN-GMM flagship (latent 256, hidden 512, 6 + 6
               iterations, bf16, capacities 24576/49152/3072/4096, seeded
               weights) reconstructs 2 synthetic events of 3000 particles
@@ -170,11 +174,13 @@ N_PARTS = 4  # ranks of the sharded phases; they share the one card
 # N_PARTS ranks and the flagship capacities (n_local 6144, e_cap 36864, c_local
 # 768): hit features, embeddings, node rows at latent 128 and 256, supernode
 # rows, EC-IN's edge rows, and the 1-D masks, labels and likelihood.  Each is
-# held against torch.cat in all four dtypes; the sharded phases record what
-# they really hand K8 and fail on a (shape, dtype) that was not.
+# held against torch.cat in all four dtypes.
 K8_PATH_SHAPES = ((6144, 3), (6144, 8), (6144, 128), (6144, 256), (768, 128), (768, 256),
                   (36864, 128), (6144,), (36864,))
-K8_CHECKED = set()  # (shape, dtype) held against torch.cat at N_PARTS ranks
+# (kernel, shape key) of every input that phase 3 held against the kernel's
+# plain version (``path_keys`` gives the keys); the sharded phases record what
+# they hand K1-K6 and K8 and fail on a key that is not here
+PATH_CHECKED = set()
 WATCHDOG_S = 300  # a phase that waits on K8's flags longer than this ends the run
 GRID_FULL_N = 131072  # the grid kNN's full-event point (hierarchicalgnn_tpu/ops/grid_knn.py:33)
 
@@ -363,11 +369,33 @@ def phase_kernels(torch):
         ("K2", "per-rank bipartite clusters->nodes", 6144 * 5, 6144, 256, both),
         ("K2", "per-rank bipartite k 8 nodes->clusters, latent 128", 6144 * 8, 3072, 128, both),
         ("K2", "per-rank bipartite k 8 clusters->nodes, latent 128", 6144 * 8, 6144, 128, both)]
+    # what the backward of one rank's training step gives K1 besides: the
+    # halo gather's sender side over all P * n_local gathered node rows (and
+    # Embedding-HGNN-GMM's f32 embeddings'), the
+    # bipartite row gathers' over the rank's block (each direction's plan is
+    # the other's transpose), the superedge gathers' over the rank's own 768
+    # and all 3072 supernode rows, and the replicated super graph's
+    rank_backward = [
+        ("K1", f"per-rank halo gather backward{w}", 36864, 24576, d, both)
+        for w, d in (("", 256), (", latent 128", 128))] + [
+        ("K1", "per-rank halo gather backward, embeddings of width 8", 36864, 24576, 8,
+         (torch.float32,))] + [
+        ("K1", f"per-rank bipartite gather backward -> {to}{w}", 6144 * k, rows_to, d, both)
+        for w, k, d in (("", 5, 256), (", k 8, latent 128", 8, 128))
+        for to, rows_to in (("clusters", 3072), ("nodes", 6144))] + [
+        ("K1", f"per-rank superedge gather backward -> {to}{w}", 23552, rows_to, d, both)
+        for w, d in (("", 256), (", latent 128", 128))
+        for to, rows_to in (("own supernodes", 768), ("all supernodes", 3072))] + [
+        ("K1", f"super graph gather backward{w}", 61440, 3072, d, both)
+        for w, d in (("", 256), (", latent 128", 128))]
     # the embedding pipeline's mined pairs (k 100 per hit and the doubled
-    # truth edges) over the f32 embeddings of width 8: K1 is their gathers' backward
-    hinge_case = ("K1", "mined-pair hinge plan, emb 8", 24576 * 100 + 2 * 49152, 24576, 8,
-                  (torch.float32,))
-    for case in sum_cases + rank_identity + rank_bipartite + [hinge_case]:
+    # truth edges) over the f32 embeddings of width 8, and Embedding-HGNN-GMM's
+    # hinge over the event's 49152 edges: K1 is their gathers' backward
+    hinge_cases = [("K1", "mined-pair hinge plan, emb 8", 24576 * 100 + 2 * 49152, 24576, 8,
+                    (torch.float32,)),
+                   ("K1", "edge-pair hinge plan, emb 8", 49152, 24576, 8, (torch.float32,))]
+    all_cases = sum_cases + rank_identity + rank_bipartite + rank_backward + hinge_cases
+    for case in all_cases:
         kernel, label, e, n, d, dtypes = case
         if case in rank_identity:
             s, r, m = partitioned_receivers(torch, e, n, gen)
@@ -427,6 +455,7 @@ def phase_kernels(torch):
             if not ok:
                 raise AssertionError(f"{kernel} {label} {dtype} disagrees with its plain "
                                      f"version beyond {SUM_TOL} of |terms|")
+            PATH_CHECKED.add((kernel, e, n, d, dtype))
             first = kernel not in rows
             if first and dtype == torch.bfloat16:
                 rows[kernel] = {"max_abs_err": float(err.max()), "ms": ms,
@@ -457,6 +486,7 @@ def phase_kernels(torch):
             raise AssertionError(f"K5 {label} disagrees with its plain version")
         assert (out[3::7] == sa.INT32_MAX).all(), "K5 wrote to an empty row"
         assert torch.equal(out, again), f"K5 {label}: two calls differ"
+        PATH_CHECKED.add(("K5", e, n))
         ms, plain_ms, lib_ms = (time_ms(torch, fn), time_ms(torch, plain),
                                 time_ms(torch, library))
         tag = PROFILE_TAGS["K5"]
@@ -470,7 +500,7 @@ def phase_kernels(torch):
                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                           "device_ms": dev_ms, "shape": f"{label} int32 E={e} N={n}"}
     kernel_min_boundaries(torch)
-    kernels_backward(torch, gen, sum_cases, bound_ms, rows)
+    kernels_backward(torch, gen, all_cases, rank_identity, bound_ms, rows)
     kernel_top2(torch, gen, bound_ms, rows)
     kernel_gather_sum(torch, gen, bound_ms, rows)
     phase_ring_gather(torch, rows)
@@ -578,16 +608,19 @@ def kernel_min_boundaries(torch):
         f"two streams exact")
 
 
-def kernels_backward(torch, gen, sum_cases, bound_ms, rows):
-    """K3 and K4 against their plain versions on the ragged inputs of the
-    flagship's four shapes and the latent-128 models' four: K3 with bf16 and
-    f32 data, K4 as the plain gather (the K1 shapes) and scaled (the K2
-    shapes), writing bf16 and f32."""
+def kernels_backward(torch, gen, cases, identity, bound_ms, rows):
+    """K3 and K4 against their plain versions on the inputs of phase 3's K1
+    and K2 ``cases`` (those in ``identity`` receiver-partitioned as one rank
+    holds them, the others ragged): K3 with bf16 and f32 data, K4 as the
+    plain gather (the K1 shapes) and scaled (the K2 shapes), writing bf16
+    and f32."""
     from hierarchicalgnn_torch.ops.kernels import sddmm, sorted_agg as sa
 
     dev = torch.device("cuda")
-    for kernel, label, e, n, d, dtypes in sum_cases:
-        s, r, m = ragged_receivers(torch, e, n, gen)
+    for case in cases:
+        kernel, label, e, n, d, dtypes = case
+        make = partitioned_receivers if case in identity else ragged_receivers
+        s, r, m = make(torch, e, n, gen)
         plan = sa.build_sorted_plan(s.to(dev), r.to(dev), m.to(dev), n)
         n_valid = int(plan.row_ptr[-1])
         recv = plan.receivers_sorted
@@ -610,6 +643,7 @@ def kernels_backward(torch, gen, sum_cases, bound_ms, rows):
                 if not bool((err <= DOT_TOL * abs_sum + 1e-6).all()):
                     raise AssertionError(f"K3 {label} {dtype} disagrees with its plain "
                                          f"version beyond {DOT_TOL} of |terms|")
+                PATH_CHECKED.add(("K3", e, n, d, dtype))
                 ms, plain_ms, lib_ms = (time_ms(torch, fn), time_ms(torch, plain),
                                         time_ms(torch, library))
                 b_ms, b_by = bound_ms(n_valid * d * data.element_size() + 4 * n * d
@@ -637,6 +671,7 @@ def kernels_backward(torch, gen, sum_cases, bound_ms, rows):
             assert not out[tail].any(), "K4 wrote to an invalid slot"
             if not bool((err <= DOT_TOL * ref.float().abs()).all()):
                 raise AssertionError(f"K4 {label} {dtype} disagrees with its plain version")
+            PATH_CHECKED.add(("K4", e, n, d, dtype, scale is not None))
             ms, plain_ms, lib_ms = (time_ms(torch, fn), time_ms(torch, plain),
                                     time_ms(torch, library))
             b_ms, b_by = bound_ms(4 * n * d + 4 * n_valid + 4 * (n + 1)
@@ -674,8 +709,10 @@ def plant_top2_ties(a, prices, first_row=1):
 
 
 def kernel_top2(torch, gen, bound_ms, rows):
-    """K6 against its plain version, exactly, at the auction's two sweep
-    shapes, with planted ties and a row of all NEG; then the boundary
+    """K6 against its plain version, exactly, at the unsharded auction's two
+    sweep shapes and at one rank's block of the row-sharded auction over 4
+    and 2 ranks (4 and 2 warps a row on 132 SMs), with planted ties and a
+    row of all NEG; then the boundary
     inputs: C 3071, 5 and 1 (no whole 16-byte rows), an ``a`` one float off
     a 16-byte boundary, P 1 and 37, ties across lane, batch and warp
     boundaries.  Every input: two calls equal bit for bit."""
@@ -693,13 +730,17 @@ def kernel_top2(torch, gen, bound_ms, rows):
                                  f"{int((j1 != rj).sum())} j1, {int((v1 != r1).sum())} v1, "
                                  f"{int((v2 != r2).sum())} v2 of {a.shape[0]} rows")
         assert all(torch.equal(x, y) for x, y in zip((v1, j1, v2), again)), f"K6 {label}: two calls"
+        PATH_CHECKED.add(("K6",) + tuple(a.shape))
         cut = top2.top2_schedule(*a.shape, sms)
         loads, staged = top2.top2_loads(cut, *a.shape, a.data_ptr(), prices.data_ptr())
         return (v1, j1, v2), (f"{cut.warps_per_row} warp(s) a row, grid {cut.grid}, {loads} "
                               f"loads, prices in {'shared' if staged else 'global'} memory")
 
+    # the unsharded auction's sweeps, then one rank's block of the row-sharded
+    # auction's sweep at 4 and 2 ranks (4 and 2 warps a row)
     c = 3072
-    for p, label in ((4096, "full sweep"), (256, "tail sweep")):
+    for p, label in ((4096, "full sweep"), (256, "tail sweep"), (1024, "per-rank sweep, 4 ranks"),
+                     (2048, "per-rank sweep, 2 ranks")):
         a = torch.rand(p, c, generator=gen) * 40.0
         a[torch.rand(p, c, generator=gen) < 0.99] = top2.NEG  # ~30 candidates a row
         a[0] = top2.NEG                       # a row of all NEG
@@ -730,7 +771,7 @@ def kernel_top2(torch, gen, bound_ms, rows):
                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                           "device_ms": dev_ms, "shape": f"{label} f32 P={p} C={c}"}
         else:
-            rows["K6"]["device_ms_tail_sweep"] = dev_ms
+            rows["K6"]["device_ms_" + ("tail_sweep" if p == 256 else f"per_rank_{p}_rows")] = dev_ms
     # the boundary inputs; `offset` floats into a buffer puts `a` off 16 bytes
     for p, c, offset in ((1, 3072, 0), (37, 3072, 0), (37, 3071, 0), (37, 5, 0), (37, 1, 0),
                          (40, 3072, 1), (3001, 2633, 0)):
@@ -1671,7 +1712,7 @@ def phase_ring_gather(torch, rows):
                              f"P={N_PARTS} {dtype} {shape}")
                 assert path == "bulk", f"K8 {shape} {dtype}: the sharded path's block took {path}"
                 paths.setdefault(path, []).append(f"{list(shape)} {str(dtype)[6:]}")
-                K8_CHECKED.add((shape, dtype))
+                PATH_CHECKED.add(("K8", shape, dtype))
                 n_cases += 1
         # the bulk copies' boundaries: (shape, dtype, rows 1.. of a larger array)
         for p in (1, 2, 3, 4, 8):
@@ -1780,36 +1821,69 @@ def phase_ring_gather(torch, rows):
                               "shape": f"halo bf16 P={p} block [{b}, 256], ranks on one card"}
 
 
-class recording_k8:
-    """While the body runs, ``seen`` collects the (shape, dtype) of every
-    block that a shard group's all-gather hands K8; on a clean exit every one
-    of them must have been held against ``torch.cat`` by phase 3."""
+def path_keys():
+    """(module, wrapper, key of its call) for each place the sharded paths
+    hand a kernel its inputs.  K1-K3: (E, N, D, dtype of the data); K4: (E,
+    N, D, the output's dtype, scaled or not); K5: (E, N); K6: the shape of
+    ``a``; K8: one block's shape and dtype."""
+    import torch
+
+    from hierarchicalgnn_torch.ops import connected
+    from hierarchicalgnn_torch.ops.kernels import sddmm, sorted_agg as sa
+    from hierarchicalgnn_torch.parallel import comm, graph_shard
+    from hierarchicalgnn_torch.train import auction
+
+    def rows(kernel):
+        return lambda data, *rest: (kernel, data.shape[0], rest[-1].num_segments,
+                                    data.shape[1], data.dtype)
+
+    def k4(scale, g, plan, out_dtype=torch.float32):
+        return "K4", plan.perm.shape[0], plan.num_segments, g.shape[1], out_dtype, scale is not None
+
+    k5 = lambda values, plan: ("K5", values.shape[0], plan.num_segments)
+    return ((sa, "_k1", rows("K1")), (sa, "_k2", rows("K2")), (sddmm, "_k2", rows("K2")),
+            (sddmm, "_k3", rows("K3")), (sddmm, "scaled_gather", k4),
+            (graph_shard, "sorted_segment_min_i32", k5), (connected, "sorted_segment_min_i32", k5),
+            (auction, "row_top2", lambda a, prices: ("K6",) + tuple(a.shape)),
+            (comm, "ring_all_gather",
+             lambda blocks: ("K8", tuple(blocks[0].shape), blocks[0].dtype)))
+
+
+class recording_path:
+    """While the body runs, ``seen`` collects the key (``path_keys``) of
+    every input that the body hands K1-K6 and K8; on a clean exit every one
+    of them must have been held against the kernel's plain version by phase
+    3 (``PATH_CHECKED``)."""
 
     def __init__(self, what):
-        self.what, self.seen = what, set()
+        self.what, self.seen, self.patches = what, set(), []
 
     def __enter__(self):
         from unittest import mock
 
-        from hierarchicalgnn_torch.parallel import comm
+        def recording(launch, key):
+            def call(*args, **kwargs):
+                self.seen.add(key(*args, **kwargs))
+                return launch(*args, **kwargs)
+            return call
 
-        launch = comm.ring_all_gather
-
-        def recording(blocks):
-            self.seen.add((tuple(blocks[0].shape), blocks[0].dtype))
-            return launch(blocks)
-
-        self.patch = mock.patch.object(comm, "ring_all_gather", recording)
-        self.patch.start()
+        for module, name, key in path_keys():
+            patch = mock.patch.object(module, name, recording(getattr(module, name), key))
+            patch.start()
+            self.patches.append(patch)
         return self
 
     def __exit__(self, exc_type, *exc):
-        self.patch.stop()
+        for patch in reversed(self.patches):
+            patch.stop()
         if exc_type is None:
-            unchecked = sorted(str(key) for key in self.seen - K8_CHECKED)
-            log(f"{self.what}: K8 was handed {len(self.seen)} kinds of block, "
-                f"{'all' if not unchecked else 'NOT all'} held against torch.cat before")
-            assert not unchecked, f"{self.what}: K8 blocks never checked: {unchecked}"
+            unchecked = sorted(str(key) for key in self.seen - PATH_CHECKED)
+            kinds = {k: sum(key[0] == k for key in self.seen) for k in sorted(NAMES)}
+            log(f"{self.what}: the kernels were handed "
+                f"{ {k: n for k, n in kinds.items() if n} } kinds of input, "
+                f"{'all' if not unchecked else 'NOT all'} held against their plain "
+                f"versions in phase 3")
+            assert not unchecked, f"{self.what}: kernel inputs never checked: {unchecked}"
 
 
 def phase_halo(torch):
@@ -1840,7 +1914,7 @@ def phase_halo(torch):
     forward = halo.make_halo_flat_forward(halo.make_halo_flat_in(mlps, iterations),
                                           N_PARTS, rdma_gather=True)
     xd = torch.from_numpy(x).to(dev)
-    with torch.no_grad(), watchdog(), recording_k8("halo flat-IN"):
+    with torch.no_grad(), watchdog(), recording_path("halo flat-IN"):
         before = sa.LAUNCHES["K8"]
         got = forward(xd, *parts)
         assert sa.LAUNCHES["K8"] - before == 1 + iterations == forward.collectives[
@@ -1898,7 +1972,7 @@ def phase_sharded_serving(torch, events):
         256, 512, 6, 6, "bfloat16", True), hp
     forward = make_sharded_forward(pipeline, N_PARTS, hp)
     batches = [preprocess_event(raw, hp, stage="test") for raw in events]
-    with watchdog(), recording_k8("sharded flagship serving"):
+    with watchdog(), recording_path("sharded flagship serving"):
         forward(batches[2])  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2019,7 +2093,7 @@ def phase_sharded_parity(torch):
     replayed_knn = replaying_knn(found, n, c)
 
     ref_keys, ref_scores = canonical_scores(torch, ref[0], ref[1], c)
-    with watchdog(), recording_k8("sharded parity f32"):
+    with watchdog(), recording_path("sharded parity f32"):
         for pooled in (True, False):
             forward = make_sharded_forward(
                 pipeline, N_PARTS, {**hp, "shard_pooled": pooled, "halo_backend": "rdma"})
@@ -2100,7 +2174,7 @@ def phase_sharded_models(torch, events):
                 hp.get("n_hierarchical_graph_iters")) == MODEL_WIDTHS[name], hp
         forward = make_sharded_forward(pipeline, N_PARTS, hp)
         batches = [preprocess_event(raw, hp, stage="test") for raw in (events[2], events[0])]
-        with watchdog(), recording_k8(f"{name} sharded"):
+        with watchdog(), recording_path(f"{name} sharded"):
             forward(batches[0])  # warm-up
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -2433,7 +2507,7 @@ def phase_sharded_training(torch, events):
     n_hier = hp["n_hierarchical_graph_iters"]
     totals = {k: 0 for k in sa.LAUNCHES}
     per_launch, records = {}, []
-    with watchdog(), recording_k8("sharded flagship training"):
+    with watchdog(), recording_path("sharded flagship training"):
         trainer.train_step(trainset[2][2], TRAIN_EPOCH)  # warm-up
         torch.cuda.synchronize()
         for step in range(2):
@@ -2556,7 +2630,7 @@ def phase_sharded_training_parity(torch, events):
         return make_sharded_train_step(pipeline, trainer.optimizer, {"graph": N_PARTS},
                                        {**hp, **overrides})
 
-    with watchdog(), recording_k8("sharded training parity f32"):
+    with watchdog(), recording_path("sharded training parity f32"):
         for pooled in (True, False):
             restart()
             step = sharded_step({"shard_pooled": pooled, "halo_backend": "rdma"})
@@ -2688,7 +2762,7 @@ def phase_sharded_models_training(torch, events):
         trainer = Trainer(hp, model, pipeline)
         trainer.init_state(seed=0)
         trainset, _, _ = trainer.make_datasets(events)
-        with watchdog(), recording_k8(f"{name} sharded training"):
+        with watchdog(), recording_path(f"{name} sharded training"):
             trainer.train_step(trainset[2][2], MODELS_EPOCH)  # warm-up
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -2727,7 +2801,7 @@ def phase_sharded_models_training(torch, events):
                     for seed in (3, 4)]
     before = dict(sa.LAUNCHES)
     t0 = time.perf_counter()
-    with watchdog(), recording_k8("flagship fit over data 2 x graph 4"):
+    with watchdog(), recording_path("flagship fit over data 2 x graph 4"):
         history = trainer.fit(raw, max_epochs=1, num_sanity_val_steps=0)
     counts = {k: sa.LAUNCHES[k] - before[k] for k in sa.LAUNCHES}
     log(f"flagship fit, mesh_shape data 2 x graph {N_PARTS}: {trainer.step} steps of "

@@ -464,13 +464,15 @@ def sorted_aggregate_weighted(data_sorted, weights_sorted, plan: SortedPlan):
 
 
 class _GatherEndpoints(torch.autograd.Function):
-    """``(nodes[senders], nodes[receivers])`` in plan order; the backward's
-    two scatter-adds are K1 over the plan and over the transposed plan."""
+    """``(nodes[senders], nodes[offset + receivers])`` in plan order; the
+    backward's two scatter-adds are K1 over the plan and over the transposed
+    plan, added in f32 and rounded once."""
 
     @staticmethod
-    def forward(ctx, nodes, plan, plan_t, r2s):
-        ctx.plan, ctx.plan_t, ctx.r2s = plan, plan_t, r2s
-        return nodes[plan.senders_sorted], nodes[plan.receivers_sorted]
+    def forward(ctx, nodes, plan, plan_t, r2s, offset):
+        ctx.plan, ctx.plan_t, ctx.r2s, ctx.offset = plan, plan_t, r2s, offset
+        own = nodes.narrow(0, offset, plan.num_segments)
+        return nodes[plan.senders_sorted], own[plan.receivers_sorted]
 
     @staticmethod
     def backward(ctx, g_s, g_r):
@@ -478,19 +480,24 @@ class _GatherEndpoints(torch.autograd.Function):
         # the sender cotangent moves into the transposed plan's slot order
         d_r = _k1(g_r.contiguous(), ctx.plan)
         d_s = _k1(g_s[ctx.r2s], ctx.plan_t)
-        return (d_r + d_s).to(g_r.dtype), None, None, None
+        d_s.narrow(0, ctx.offset, d_r.shape[0]).add_(d_r)
+        return d_s.to(g_r.dtype), None, None, None, None
 
 
-def gather_edge_endpoints(nodes, plan: SortedPlan, plan_t=None, r2s=None):
-    """``(nodes[senders], nodes[receivers])`` in plan order.
+def gather_edge_endpoints(nodes, plan: SortedPlan, plan_t=None, r2s=None, offset: int = 0):
+    """``(nodes[senders], nodes[offset + receivers])`` in plan order: the
+    senders index all of ``nodes``, the receivers (``plan``'s segments) its
+    rows from ``offset`` on.
 
-    With the transposed plan (:func:`build_transposed_plan`) the backward
-    runs K1 twice instead of autograd's scatter-add, and is deterministic.
-    Without it this is plain indexing.
+    With the transposed plan (:func:`build_transposed_plan`, over all of
+    ``nodes``' rows) the backward runs K1 twice instead of autograd's
+    scatter-add, is deterministic and rounds the gradient once.  Without it
+    this is plain indexing.
     """
     if plan_t is None or not _wants_grad(nodes):
-        return nodes[plan.senders_sorted], nodes[plan.receivers_sorted]
-    return _GatherEndpoints.apply(nodes, plan, plan_t, r2s)
+        own = nodes.narrow(0, offset, plan.num_segments)
+        return nodes[plan.senders_sorted], own[plan.receivers_sorted]
+    return _GatherEndpoints.apply(nodes, plan, plan_t, r2s, offset)
 
 
 class _GatherSenders(torch.autograd.Function):

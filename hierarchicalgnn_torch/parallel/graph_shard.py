@@ -181,16 +181,15 @@ def halo_endpoint_gather(graph: Graph, plan: SortedPlan, offset: int, num_rows: 
     receivers are the rank's own, ``offset`` on) and their receiver-sorted
     ``plan`` (local receiver ids).  Without ``transposed`` this is plain
     indexing.  With it the backward is K1, never autograd's index backward:
-    the sender side over a sender-sorted plan of the gathered rows, then the
-    all-gather's reduce-scatter hands each rank its rows' sums; the receiver
-    side over ``plan`` itself."""
+    the sender side over a sender-sorted plan of the gathered rows, the
+    receiver side over ``plan`` itself, added in f32 and rounded once (as
+    the unsharded gather does); then the all-gather's reduce-scatter hands
+    each rank its rows' sums."""
     if not transposed:
         return lambda x_all: (x_all[graph.senders], x_all[graph.receivers])
     plan_t, r2s = build_transposed_plan(plan, graph.senders, graph.receivers,
                                         graph.edge_mask, num_rows)
-    rows = slice(offset, offset + plan.num_segments)
-    return lambda x_all: (gather_senders(x_all, plan, plan_t, r2s),
-                          gather_receivers(x_all[rows], plan))
+    return lambda x_all: gather_edge_endpoints(x_all, plan, plan_t, r2s, offset)
 
 
 def make_shard_tools(directed: Graph, n_local: int, spec: SpmdSpec,

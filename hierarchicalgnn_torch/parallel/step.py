@@ -23,6 +23,7 @@ import torch
 from hierarchicalgnn_torch.data.event import Event
 from hierarchicalgnn_torch.models.buffers import apply_mean, staged_writes
 from hierarchicalgnn_torch.ops.graph import Graph
+from hierarchicalgnn_torch.train.optim import apply_gradients
 
 
 def stack_events(events) -> Event:
@@ -107,10 +108,7 @@ class EventMeanStep:
 
     def __call__(self, batch, epoch) -> dict:
         grads, metrics = self.forward_backward(batch, epoch)
-        for p, g in zip(self.pipeline.model.parameters(), grads):
-            p.grad = g
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
+        apply_gradients(self.optimizer, list(self.pipeline.model.parameters()), grads)
         return metrics
 
 

@@ -97,3 +97,13 @@ class AmsgradW(torch.optim.Optimizer):
 def make_optimizer(params, hparams: dict, steps_per_epoch: int) -> AmsgradW:
     return AmsgradW(params, lr_schedule(hparams, steps_per_epoch),
                     clip=hparams.get("gradient_clip_val", 0.5))
+
+
+def apply_gradients(optimizer, params, grads):
+    """One optimizer step (clip, AdamW-amsgrad) on ``grads``, given per
+    parameter (None for one without a gradient); the gradients are dropped
+    afterwards."""
+    for p, g in zip(params, grads):
+        p.grad = g
+    optimizer.step()
+    optimizer.zero_grad(set_to_none=True)

@@ -45,7 +45,7 @@ from hierarchicalgnn_torch.evaluation.tracking import eval_metrics
 from hierarchicalgnn_torch.ops.graph import bidirectionalize
 from hierarchicalgnn_torch.parallel.graph_shard import make_sharded_train_step
 from hierarchicalgnn_torch.train import checkpoint as ckpt_lib
-from hierarchicalgnn_torch.train.optim import make_optimizer
+from hierarchicalgnn_torch.train.optim import apply_gradients, make_optimizer
 from hierarchicalgnn_torch.train.pipelines import event_to
 from hierarchicalgnn_torch.utils.device import resolve_device
 from hierarchicalgnn_torch.utils.logging import MetricLogger
@@ -201,10 +201,7 @@ class Trainer:
         return grads, metrics
 
     def _apply(self, grads):
-        for p, g in zip(self._params(), grads):
-            p.grad = g
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
+        apply_gradients(self.optimizer, self._params(), grads)
 
     def _read_metrics(self, metrics: dict) -> dict:
         """The step's metrics as floats, read back as one stacked vector."""

@@ -11,8 +11,6 @@ order through 2 + 2 iterations).  The partition itself (integer work) is
 compared exactly.
 """
 
-import inspect
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -358,14 +356,15 @@ def test_sharded_training_mode_raises(raw, name):
         comm.run_sharded(call, 1)
 
 
-def test_training_branches_of_the_modules_raise():
+def test_training_branches_of_the_modules_raise(raw):
     """The batch norm's moments summed over the group, the radius EMA's
     pmax and the hierarchical block's sharded training forward (each raised
     with a ``comm`` in training before the sharded training step was
     ported): a batch split over 2 ranks normalises as the whole batch does
     and moves the running statistics as it does; the query rows of a
     dynamic graph split over 2 ranks give the radius the whole's largest
-    distance; the hierarchical block runs as a rank in training mode."""
+    distance; the hierarchical block's training forward over 2 ranks gives the
+    unsharded block's output and moves ``score_cut`` as it does."""
     def over_ranks(fn, n_parts):
         """``fn(comm)`` per rank with its buffer writes staged; the ranks'
         writes agree and are applied once, as the sharded step applies them."""
@@ -402,5 +401,26 @@ def test_training_branches_of_the_modules_raise():
     assert group.collectives["pmax"] == 1 and two.knn_radius.item() == one.knn_radius.item()
     assert one.knn_radius.item() != 1.0
 
-    hp, model, _ = model_selector("BC-HGNN-GMM", TINY)
-    assert "raise" not in inspect.getsource(model.hgnn.forward)
+    # the hierarchical block's sharded training forward: Embedding-HGNN-GMM's
+    # output is the block's, over 2 ranks as over one device (f32, 1e-4 as
+    # the eval forwards above), its staged score_cut the unsharded one's
+    hp, model, _ = model_selector("Embedding-HGNN-GMM", TINY)
+    batch = event_to(preprocess_event(raw, hp, stage="test"), "cpu")
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    model.train()
+    want, _, want_aux = model(batch.x, batch.graph, batch.node_mask)
+    moved = model.hgnn.score_cut.clone()
+    model.load_state_dict(start)
+    spec, n_local = gs.SpmdSpec(n_parts=2), batch.x.shape[0] // 2
+    outs, group = over_ranks(lambda c: model(
+        batch.x[c.index * n_local:(c.index + 1) * n_local], batch.graph,
+        batch.node_mask[c.index * n_local:(c.index + 1) * n_local],
+        spmd=spec._replace(comm=c)), 2)
+    got = torch.cat([emb for emb, _, _ in outs])
+    assert got.requires_grad and group.collectives["all_gather"] > 0
+    np.testing.assert_allclose(N(got), N(want), rtol=1e-4, atol=1e-4)
+    assert torch.isfinite(moved).all() and not torch.equal(moved, start["hgnn.score_cut"])
+    for _, _, aux in outs:
+        assert float(aux["score_cut"]) == pytest.approx(float(want_aux["score_cut"]), rel=1e-5)
+        assert int(aux["n_clusters"]) == int(want_aux["n_clusters"])
+    np.testing.assert_allclose(N(model.hgnn.score_cut), N(moved), rtol=1e-5)

@@ -2,7 +2,8 @@
 
   * the collectives under autograd: the all-gather's backward (K8's plain
     version here) is the reduce-scatter of the ranks' cotangents, added in
-    rank order, bf16 in f32; ``psum``, ``psum_scatter``, ``pmax``, ``pmin``;
+    rank order, bf16 in f32; the halo gather rounds a rank's cotangent once;
+    ``psum``, ``psum_scatter``, ``pmax``, ``pmin``;
   * the row-sharded auction against the unsharded one with ``eps`` pinned,
     bit for bit, and the fused build-and-match against the replicated one;
   * the staged buffer writes: every EMA moves once per step, not once per
@@ -31,6 +32,8 @@ from hierarchicalgnn_torch.data.event import preprocess_event
 from hierarchicalgnn_torch.data.synthetic import generate_dataset, generate_event
 from hierarchicalgnn_torch.models import buffers
 from hierarchicalgnn_torch.models.registry import model_selector
+from hierarchicalgnn_torch.ops.graph import Graph
+from hierarchicalgnn_torch.ops.kernels import sorted_agg
 from hierarchicalgnn_torch.parallel import comm, graph_shard as gs, step as step_mod
 from hierarchicalgnn_torch.train import auction, matching
 from hierarchicalgnn_torch.train.optim import make_optimizer
@@ -95,6 +98,59 @@ def test_all_gather_gradient_adds_bf16_in_f32(backend):
     assert got[1].tolist() == got[2].tolist() == [0.0, 0.0]
     parts = [torch.full((2,), s, dtype=torch.bfloat16) for s in scale]
     assert ((parts[0] + parts[1]) + parts[2]).tolist() == [256.0, 256.0]
+
+
+def test_halo_gather_backward_rounds_once_in_bf16():
+    """bf16, exact: a rank's halo gather adds the sender and the receiver
+    sides of each row's cotangent in f32 and rounds once, as the unsharded
+    gather does; the all-gather's reduce-scatter then adds the ranks'
+    rounded partials in f32 and rounds once.  Integer cotangents keep every
+    f32 sum exact.  Rounding each side first would differ.  Against the
+    unsharded gather's gradient: equal on the rows whose edges one rank
+    holds, else within half a bf16 step (2^-8 relative) of each rank's
+    partial and of the total."""
+    rng = np.random.default_rng(5)
+    n_parts, n_local, d, e = 2, 8, 4, 96
+    n = n_parts * n_local
+    graph = Graph(T(rng.integers(0, n, e)), T(rng.integers(0, n, e)), T(rng.random(e) < 0.9))
+    x = torch.zeros(n, d, dtype=torch.bfloat16, requires_grad=True)
+    spec = gs.SpmdSpec(n_parts=n_parts, slack=4.0)
+
+    def rank(c):
+        tools = gs.make_shard_tools(graph, n_local, spec._replace(comm=c), transposed=True)
+        return tools.gather(x[c.index * n_local:(c.index + 1) * n_local]), tools
+
+    outs, _ = comm.run_sharded(rank, n_parts)
+    e_cap = outs[0][1].local_graph.senders.shape[0]
+    cot = T(rng.integers(-100, 101, (n_parts, 2, e_cap, d)).astype(np.float32))
+    (got,) = torch.autograd.grad([t for pair, _ in outs for t in pair], x,
+                                 [cot[r, k].bfloat16() for r in range(n_parts) for k in (0, 1)])
+    sides = []  # per rank: the exact f32 sums of its sender and receiver sides
+    for r, (_, tools) in enumerate(outs):
+        lg = tools.local_graph
+        m = lg.edge_mask
+        sides.append([torch.zeros(n, d).index_add_(0, ids[m].long(), cot[r, k][m])
+                      for k, ids in enumerate((lg.senders, lg.receivers))])
+    partials = [s + r for s, r in sides]
+    want = sum(p.bfloat16().float() for p in partials).bfloat16()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    twice = sum((s.bfloat16() + r.bfloat16()).float() for s, r in sides).bfloat16()
+    assert not torch.equal(twice, want)
+
+    plan = sorted_agg.build_sorted_plan(graph.senders, graph.receivers, graph.edge_mask, n)
+    plan_t, r2s = sorted_agg.build_transposed_plan(plan, graph.senders, graph.receivers,
+                                                   graph.edge_mask, n)
+    by_slot = outs[0][1].slot[plan.perm]
+    x2 = torch.zeros_like(x, requires_grad=True)
+    (ref,) = torch.autograd.grad(
+        sorted_agg.gather_edge_endpoints(x2, plan, plan_t, r2s), x2,
+        [cot[:, k].reshape(-1, d)[by_slot].bfloat16() for k in (0, 1)])
+    exact = sum(partials)
+    assert torch.equal(ref, exact.bfloat16())
+    one_rank = (torch.stack(partials) != 0).sum(0) <= 1
+    assert torch.equal(got[one_rank], ref[one_rank]) and not one_rank.all()
+    bound = 2.0 ** -8 * (sum(p.abs() for p in partials) + 2 * exact.abs())
+    assert bool(((got.float() - ref.float()).abs() <= bound).all())
 
 
 def test_reductions_gradients():
