@@ -33,7 +33,7 @@ these phases and fails if any of them fails:
               f32, bf16, int32 and bool, 2-D and 1-D, at block sizes and bases
               that are no multiple of 16 bytes, at every block shape the
               sharded forwards hand it, 50 calls back to back on one set of
-              buffers, and two groups on two streams.  Phases 12-15 and 20-22
+              buffers, and two groups on two streams.  Phases 12-15 and 20-24
               record the inputs they hand K1-K6 and K8 (``path_keys``) and
               fail on one whose shape and type were not checked here;
   4. serving  the BC-HGNN-GMM flagship (latent 256, hidden 512, 6 + 6
@@ -107,7 +107,19 @@ these phases and fails if any of them fails:
               instance with ``eps`` pinned;
  22. sharded models training  one sharded step of each of the other four
               models at its shipped widths, K8 counted, and one ``Trainer.fit``
-              epoch of the flagship over ``mesh_shape {data 2, graph 4}``.
+              epoch of the flagship over ``mesh_shape {data 2, graph 4}``;
+ 23. tp training  the flagship (as phase 4) through
+              ``parallel.tp.make_tp_train_step`` over ``{data 1, model 4}``
+              (each rank 128 of the 512 hidden columns of every MLP): a
+              warm-up and 2 timed steps with host ms, device busy and idle
+              share, peak memory, launches and collectives by kind; K1-K6
+              must launch; the bf16 TP loss against the unsharded bf16 and f32
+              losses of the same weights; one TP step of each other model;
+ 24. tp parity  f32 (remat on), depth 2 + 2, full width: the TP step over
+              ``{data 1, model 4}`` and ``{data 2, model 4}`` against the
+              unsharded ``make_dp_train_step`` (loss within 1e-4 relative,
+              every parameter after the step within rtol 5e-4 / atol 1e-5),
+              and once with the clip acting (``grad_norm`` within 1e-4).
 
 Each phase prints its seconds on a line of its own, and the script its
 total before the kernel table.
@@ -394,7 +406,14 @@ def phase_kernels(torch):
     hinge_cases = [("K1", "mined-pair hinge plan, emb 8", 24576 * 100 + 2 * 49152, 24576, 8,
                     (torch.float32,)),
                    ("K1", "edge-pair hinge plan, emb 8", 49152, 24576, 8, (torch.float32,))]
-    all_cases = sum_cases + rank_identity + rank_bipartite + rank_backward + hinge_cases
+    # the unsharded step's bipartite row gathers: their backward is K1 over
+    # each direction's plan (the flagship's k 5, Embedding-HGNN-GMM's k 8)
+    bipartite_backward = [
+        ("K1", f"bipartite gather backward -> {to}{w}", e, rows_to, d, both)
+        for w, e, d in (("", 122880, 256), (", k 8, latent 128", 196608, 128))
+        for to, rows_to in (("clusters", 3072), ("nodes", 24576))]
+    all_cases = (sum_cases + rank_identity + rank_bipartite + rank_backward + hinge_cases
+                 + bipartite_backward)
     for case in all_cases:
         kernel, label, e, n, d, dtypes = case
         if case in rank_identity:
@@ -2820,6 +2839,254 @@ def phase_sharded_models_training(torch, events):
     return totals
 
 
+TP_STEP_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
+# The leaf whose true gradient is zero (the bias of the bipartite weights'
+# batch norm): Adam moves it by the normalised rounding noise, a step of up to
+# the learning rate either way, in any two runs that round differently
+NOISE_LEAF = "hgnn.bipartite_graph_construction.weight_normalization.bias"
+
+
+def tp_step_for(hp, trainer, data=1, overrides=None):
+    """A fresh optimizer like the trainer's and the TP step over ``{data,
+    model N_PARTS}`` from the trainer's current state: (state, step)."""
+    from hierarchicalgnn_torch.parallel import tp
+    from hierarchicalgnn_torch.train.checkpoint import train_state
+    from hierarchicalgnn_torch.train.optim import make_optimizer
+
+    hp = {**hp, **(overrides or {})}
+    optimizer = make_optimizer(list(trainer.model.parameters()), hp,
+                               trainer._steps_per_epoch())
+    mesh = tp.make_tp_mesh(data, N_PARTS, hp["hidden"])
+    return tp.make_tp_train_step(trainer.pipeline, optimizer, mesh,
+                                 train_state(trainer.model, optimizer), hp["hidden"])
+
+
+def phase_tp_training(torch, events):
+    """The flagship's tensor-parallel training step at its shipped operating
+    point (bf16, latent 256, hidden 512, 6 + 6 iterations, the capacities of
+    phase 4, 3000-particle events) through ``make_tp_train_step`` over ``{data
+    1, model 4}``: each of the 4 ranks (threads on the one card) holds 128 of
+    the 512 hidden columns of every MLP and runs the graph work itself.  A
+    warm-up step, then 2 timed steps at epoch 50, each with its host ms, the
+    device's busy ms and idle share (from a repeat under the profiler), its
+    peak memory, its launches and its collectives by kind; K1-K6 must all
+    launch and ``score_cut`` stay below the atanh clamp.  Then the bf16 TP loss
+    against the unsharded bf16 loss of the same weights and event, beside the
+    unsharded f32 loss (the size of bf16's own rounding).  Then one TP step of
+    each other model at its shipped widths.  Returns the summed launch counts
+    of the flagship's 2 timed steps, those of the other models' steps and the
+    records."""
+    from hierarchicalgnn_torch.models.registry import model_selector
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+    from hierarchicalgnn_torch.parallel import tp
+    from hierarchicalgnn_torch.train.checkpoint import load_model_state
+    from hierarchicalgnn_torch.train.trainer import Trainer
+
+    hp, trainer = flagship_trainer({})
+    assert (hp["latent"], hp["hidden"], hp["n_interaction_graph_iters"],
+            hp["n_hierarchical_graph_iters"], hp["compute_dtype"], hp["remat"]) == (
+        256, 512, 6, 6, "bfloat16", False), hp
+    trainset, _, _ = trainer.make_datasets(events)
+    state, step = tp_step_for(hp, trainer)
+    assert state.split and all(
+        rank[n].shape[d] * N_PARTS == trainer.model.get_parameter(n).shape[d]
+        for rank in state.params for n, d in state.split.items())
+    totals = {k: 0 for k in sa.LAUNCHES}
+    records = []
+    with watchdog(), recording_path("TP flagship training"):
+        state, _ = step(state, trainset[2][2], TRAIN_EPOCH)  # warm-up
+        torch.cuda.synchronize()
+        for i in range(2):
+            batch = trainset[i][2]
+            if i == 0:
+                before_weights = tp.unshard_state(state)
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(sa.LAUNCHES)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, TRAIN_EPOCH)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            counts = {k: sa.LAUNCHES[k] - before[k] for k in sa.LAUNCHES}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            stats = dict(step.last_stats)
+            values = {k: float(v) for k, v in metrics.items()}
+            if i == 0:
+                tp_loss = values["training_loss"]
+            for k in totals:
+                totals[k] += counts[k]
+
+            def again():
+                nonlocal state
+                state, _ = step(state, batch, TRAIN_EPOCH)
+
+            _, _, busy = profile_call(torch, again, ms,
+                                      f"TP train step {i} (its repeat under the profiler)",
+                                      TP_STEP_KERNELS, top=8)
+            idle = None if busy is None else 100 * (1 - busy / ms)
+            records.append({"host_ms": ms, "busy_ms": busy, "idle_pct": idle,
+                            "peak_gib": peak, "collectives": stats["collectives"],
+                            "launches": {k: counts[k] for k in TP_STEP_KERNELS}})
+            log(f"TP train step {i} data 1 x model {N_PARTS}: {ms:.1f} ms (host clock), "
+                f"device busy {busy} ms, idle share {idle if idle is None else round(idle, 1)}%, "
+                f"peak {peak:.2f} GiB, host_syncs={stats['host_syncs']} (all ranks), "
+                f"collectives={stats['collectives']}, metrics={values}, "
+                f"launches={ {k: counts[k] for k in TP_STEP_KERNELS} }")
+            assert all(math.isfinite(v) for v in values.values()), values
+            assert values["score_cut"] < SCORE_CUT_CLAMP, values
+            for kernel in TP_STEP_KERNELS:
+                assert counts[kernel] > 0, (kernel, counts)
+            assert stats["collectives"]["all_gather"] == 0 < stats["collectives"][
+                "all_gather_features"] and counts["K8"] == 0, (stats, counts)
+    log("TP training " + json.dumps(records))
+
+    # the bf16 TP loss against the unsharded bf16 and f32 losses of its weights
+    losses = {}
+    for dtype in ("bfloat16", None):
+        _, unsharded = flagship_trainer({"compute_dtype": dtype})
+        load_model_state(unsharded.model, before_weights)
+        unsharded.model.train()
+        with torch.no_grad():
+            loss, _ = unsharded.pipeline.loss(trainset[0][2], TRAIN_EPOCH)
+        losses[dtype or "float32"] = float(loss)
+        del unsharded
+    bf16, f32 = losses["bfloat16"], losses["float32"]
+    log(f"TP bf16 loss {tp_loss:.7f}, unsharded bf16 {bf16:.7f} (rel "
+        f"{abs(tp_loss / bf16 - 1):.3e}), unsharded f32 {f32:.7f} (bf16 against f32: rel "
+        f"{abs(bf16 / f32 - 1):.3e}; TP against f32: rel {abs(tp_loss / f32 - 1):.3e})")
+    records.append({"tp_bf16_loss": tp_loss, "unsharded_bf16_loss": bf16,
+                    "unsharded_f32_loss": f32})
+    del trainer, trainset, state, step
+    torch.cuda.empty_cache()
+
+    models = {k: 0 for k in sa.LAUNCHES}
+    for name in MODEL_LAUNCHES:
+        hp, model, pipeline = model_selector(name, FLAGSHIP)
+        assert (hp["latent"], hp["hidden"], hp["n_interaction_graph_iters"],
+                hp.get("n_hierarchical_graph_iters")) == MODEL_WIDTHS[name], hp
+        trainer = Trainer(hp, model, pipeline)
+        trainer.init_state(seed=0)
+        trainset, _, _ = trainer.make_datasets(events)
+        state, step = tp_step_for(hp, trainer)
+        with watchdog(), recording_path(f"{name} TP training"):
+            state, _ = step(state, trainset[2][2], MODELS_EPOCH)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(sa.LAUNCHES)
+            t0 = time.perf_counter()
+            state, metrics = step(state, trainset[0][2], MODELS_EPOCH)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        counts = {k: sa.LAUNCHES[k] - before[k] for k in sa.LAUNCHES}
+        values = {k: float(v) for k, v in metrics.items()}
+        log(f"{name} TP train step data 1 x model {N_PARTS} ({len(state.split)} of "
+            f"{len(state.names)} leaves split): {ms:.1f} ms (host clock), peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, metrics={values}, "
+            f"collectives={step.last_stats['collectives']}, "
+            f"launches={ {k: v for k, v in counts.items() if v} }")
+        assert all(math.isfinite(v) for v in values.values()), (name, values)
+        assert counts["K1"] > 0 and counts["K4"] > 0 and counts["K8"] == 0, (name, counts)
+        hier = name in ("Embedding-HGNN-GMM", "gMRT")
+        for kernel in ("K2", "K3", "K5"):
+            assert (counts[kernel] > 0) == hier, (name, kernel, counts)
+        if hier:
+            assert values["score_cut"] < SCORE_CUT_CLAMP, (name, values)
+        for k in models:
+            models[k] += counts[k]
+        del trainer, model, pipeline, trainset, state, step
+        torch.cuda.empty_cache()
+    return totals, models, records
+
+
+def phase_tp_parity(torch, events):
+    """f32 (``remat`` on, the f32 default), depth 2 + 2, full width and
+    capacities: one TP step over ``{data 1, model 4}`` and over ``{data 2,
+    model 4}`` against the unsharded ``make_dp_train_step`` of the same
+    weights and events, then ``{data 1, model 4}`` once more with
+    ``gradient_clip_val`` 1e-3, far below the gradient's norm.  The bounds are
+    the JAX test's: the loss within 1e-4 relative, every parameter after the
+    step within rtol 5e-4 and atol 1e-5 (the leaf whose true gradient is zero
+    within twice the learning rate), and with the clip the ``grad_norm``
+    within 1e-4 relative.  The TP runs are given the unsharded runs' kNN
+    results, as phase 21 does.  Returns the phase's launch counts."""
+    from unittest import mock
+
+    from hierarchicalgnn_torch.models import dynamic_graph
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+    from hierarchicalgnn_torch.parallel import tp
+    from hierarchicalgnn_torch.parallel.step import make_dp_train_step
+    from hierarchicalgnn_torch.train.checkpoint import load_model_state, train_state
+    from hierarchicalgnn_torch.train.optim import apply_gradients, make_optimizer
+
+    launches = dict(sa.LAUNCHES)
+    hp, trainer = flagship_trainer({"compute_dtype": None, "n_interaction_graph_iters": 2,
+                                    "n_hierarchical_graph_iters": 2})
+    assert hp["remat"] is True and hp["hidden"] == 512, hp
+    model, pipeline = trainer.model, trainer.pipeline
+    batches = [b for _, _, b in trainer.make_datasets(events)[0][:2]]
+    start = train_state(model, trainer.optimizer)
+
+    def replaying(found):
+        """``knn`` that hands each rank the unsharded run's results in the
+        order of its own calls."""
+        calls = {}
+
+        def replayed(*args, **kwargs):
+            thread = threading.current_thread().name
+            calls[thread] = calls.get(thread, -1) + 1
+            return found[calls[thread]]
+
+        return replayed
+
+    with watchdog(), recording_path("TP training parity f32"):
+        for data, clip in ((1, None), (2, None), (1, 1e-3)):
+            over = {} if clip is None else {"gradient_clip_val": clip}
+            batch = batches[0] if data == 1 else batches[:data]
+            load_model_state(model, start)
+            optimizer = make_optimizer(list(model.parameters()), {**hp, **over},
+                                       trainer._steps_per_epoch())
+            found = []
+            with mock.patch.object(dynamic_graph, "knn",
+                                   recording_knn(dynamic_graph.knn, found)):
+                grads, want = make_dp_train_step(pipeline, optimizer, {"data": data}
+                                                 ).forward_backward(batch, TRAIN_EPOCH)
+                apply_gradients(optimizer, list(model.parameters()), grads)
+            assert len(found) == 2 * data, "one kNN each for the super and the bipartite graph"
+            want_params = {n: p.detach().clone() for n, p in model.named_parameters()}
+            lr = optimizer.schedule(0)
+            del grads
+
+            load_model_state(model, start)
+            state, step = tp_step_for(hp, trainer, data, over)
+            with mock.patch.object(dynamic_graph, "knn", replaying(found)):
+                state, got = step(state, batch, TRAIN_EPOCH)
+            torch.cuda.synchronize()
+            params = tp.unshard_state(state)["params"]
+            loss, ref_loss = float(got["training_loss"]), float(want["training_loss"])
+            norm, ref_norm = float(got["grad_norm"]), float(want["grad_norm"])
+            worst, where = 0.0, None
+            for n, value in want_params.items():
+                diff = (params[n].to(value.device) - value).abs()
+                bound = 2 * lr if n == NOISE_LEAF else 1e-5 + 5e-4 * value.abs()
+                share = float((diff / bound).max())
+                if share > worst:
+                    worst, where = share, n
+            label = f"data {data} x model {N_PARTS}" + ("" if clip is None else f", clip {clip}")
+            log(f"TP training parity f32 (2 + 2) {label}: loss {loss:.7f} vs {ref_loss:.7f} "
+                f"(rel {abs(loss / ref_loss - 1):.2e}), grad_norm {norm:.6g} vs {ref_norm:.6g} "
+                f"(rel {abs(norm / ref_norm - 1):.2e}), clusters {float(got['clusters']):.0f} "
+                f"vs {float(want['clusters']):.0f}, worst parameter {worst:.3f} of its bound "
+                f"({where}), collectives {step.last_stats['collectives']}")
+            assert clip is None or ref_norm > 100 * clip, (ref_norm, clip)
+            if abs(loss / ref_loss - 1) > 1e-4 or worst > 1 or (
+                    clip is not None and abs(norm / ref_norm - 1) > 1e-4):
+                raise AssertionError(f"TP step {label} differs from the unsharded one")
+            del state, step
+    load_model_state(model, start)
+    del trainer, model, pipeline
+    torch.cuda.empty_cache()
+    return {k: sa.LAUNCHES[k] - launches[k] for k in sa.LAUNCHES}
+
+
 def timed(name, fn, *args):
     """Run one phase; print its seconds on a line of its own."""
     t0 = time.perf_counter()
@@ -2862,6 +3129,8 @@ def main():
                            torch, events)
     sharded_models_training = timed("sharded models training",
                                     phase_sharded_models_training, torch, events)
+    tp_training, tp_models, _ = timed("tp training", phase_tp_training, torch, events)
+    tp_parity = timed("tp parity", phase_tp_parity, torch, events)
     for kernel in NAMES:
         # K7's main path is its entry point make_aggregator, no model calls it;
         # K8's is the sharded forward
@@ -2873,11 +3142,13 @@ def main():
     for kernel in SHARDED_STEP_KERNELS:
         assert sharded_training[kernel] > 0, f"the sharded training step never launched {kernel}"
     assert sharded_models_training["K8"] > 0, "the other sharded training steps never launched K8"
+    for kernel in TP_STEP_KERNELS:
+        assert tp_training[kernel] > 0, f"the TP training step never launched {kernel}"
     table = [{"name": NAMES[k], "route": "cuda", "source": CSRC + SOURCES[k],
               "replaces": REPLACES[k],
               "launches": (serving[k] + training[k] + models[k] + aggregator[k]
                            + sharded[k] + sharded_models[k] + cli[k] + sharded_training[k]
-                           + sharded_models_training[k]),
+                           + sharded_models_training[k] + tp_training[k] + tp_models[k]),
               "launches_serving_2_events": serving[k],
               "launches_training_3_steps": training[k],
               "launches_four_models": models[k],
@@ -2888,6 +3159,9 @@ def main():
               "launches_sharded_training_2_steps": sharded_training[k],
               "launches_sharded_training_other_models_and_fit": sharded_models_training[k],
               "launches_sharded_training_parity": sharded_parity[k],
+              "launches_tp_training_2_steps": tp_training[k],
+              "launches_tp_four_models": tp_models[k],
+              "launches_tp_parity": tp_parity[k],
               **rows[k],
               "main_path_ms_per_launch": serving_ms.get(k, training_ms.get(k, sharded_ms.get(k))),
               "training_ms_per_launch": training_ms.get(k),

@@ -10,7 +10,9 @@ LayerNorm ``scale``/``bias`` a ``weight``/``bias``.
 It raises on any key left unmatched on either side.  This is the reverse of
 ``tests/test_parity_torch.py::copy_mlp_params``.  ``to_jax_variables(model)``
 goes the other way: the torch model's parameters and buffers as the
-flax-shaped nested dict of numpy arrays.
+flax-shaped nested dict of numpy arrays.  ``load_jax_tp_state`` and
+``tp_to_jax_variables`` do the same for the tensor-parallel layout
+(``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -128,9 +130,39 @@ def load_jax_variables(model, variables: dict):
 def to_jax_variables(model) -> dict:
     """The parameters and buffers of ``model`` (any of the five) as the flax
     variables dict: nested plain dicts of numpy arrays."""
+    return _to_flax(model, lambda tensor: tensor)
+
+
+def load_jax_tp_state(model, variables: dict, mesh, hidden: int):
+    """The flax variables in the tensor-parallel layout: ``model`` filled by
+    :func:`load_jax_variables`, then its state (zero moments, step 0) laid
+    out over ``mesh`` by ``parallel/tp.py::shard_state``."""
+    from hierarchicalgnn_torch.parallel import tp
+    from hierarchicalgnn_torch.train.checkpoint import MOMENTS, model_state
+
+    load_jax_variables(model, variables)
+    state = model_state(model)
+    state["opt_state"] = {"count": 0, **{key: {name: torch.zeros_like(p) for name, p in
+                                               state["params"].items()} for key in MOMENTS}}
+    state["step"] = 0
+    return tp.shard_state(state, mesh, hidden, model)
+
+
+def tp_to_jax_variables(model, tp_state) -> dict:
+    """The inverse way: a tensor-parallel state (``parallel/tp.py::TPState``
+    of ``model``) unsharded, as the flax variables dict."""
+    from hierarchicalgnn_torch.parallel import tp
+
+    state = tp.unshard_state(tp_state)
+    full = {id(t): state["params"][n] for n, t in model.named_parameters()}
+    full.update({id(t): state["buffers"][n] for n, t in model.named_buffers()})
+    return _to_flax(model, lambda tensor: full[id(tensor)])
+
+
+def _to_flax(model, value_of) -> dict:
     out: dict = {}
     for path, tensor, transpose in _targets(model):
-        value = tensor.detach().cpu().numpy()
+        value = value_of(tensor).detach().cpu().numpy()
         node = out
         *parents, leaf = path.split("/")
         for key in parents:

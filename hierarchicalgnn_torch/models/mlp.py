@@ -7,11 +7,21 @@ eps 1e-5 with unbiased running variance.
 Initialisation follows the reference's ``kaiming_init``: zero biases,
 N(0, 1/sqrt(fan_in)) for each MLP's first layer and N(0, sqrt(2)/sqrt(fan_in))
 for the rest, drawn from an explicit ``torch.Generator``.
+
+Tensor parallelism (``parallel/tp.py``): inside :func:`tensor_parallel`, an
+``MLP`` or ``MatchDims`` that a rank runs reads this rank's shards from the
+rank's :class:`TPBinding` and writes out the collectives that XLA's
+partitioner derives in the JAX package: an all-gather of the column blocks
+before a layer that needs its whole input, a ``psum`` after a row-split
+layer, the LayerNorm moments over a split width by ``psum``.  Outside it
+both run as they always did.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -64,14 +74,161 @@ def _check_remat(remat):
     return remat
 
 
-def _apply_remat(fn, x, remat):
-    """``fn(x)``, recomputed in the backward pass per ``remat``."""
+def _apply_remat(fn, remat, *args):
+    """``fn(*args)``, recomputed in the backward pass per ``remat``."""
     if remat and torch.is_grad_enabled():
         from torch.utils.checkpoint import checkpoint
 
         kwargs = {"context_fn": _save_matmuls_context} if remat == "dots" else {}
-        return checkpoint(fn, x, use_reentrant=False, **kwargs)
-    return fn(x)
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return fn(*args)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism
+# ---------------------------------------------------------------------------
+
+_TP = threading.local()
+
+
+class TPBinding:
+    """One ``model`` rank's view of the tensor-parallel layout: ``comm``, its
+    handle on the rank group (``parallel/comm.py``), and ``leaves``, for each
+    parameter of the model (by ``id``) the tensor this rank reads and the
+    torch dim it is split on (None: the whole leaf, this rank's view of it)."""
+
+    def __init__(self, comm, leaves: dict):
+        self.comm = comm
+        self.leaves = leaves
+
+    def leaf(self, param):
+        """(the tensor this rank reads for ``param``, its split dim or None)."""
+        return self.leaves[id(param)]
+
+    def block(self, x):
+        """This rank's column block of the last dim of a whole ``x``."""
+        width, n = x.shape[-1], self.comm.n_parts
+        if width % n:
+            raise ValueError(f"width {width} does not split over {n} ranks")
+        return x.narrow(-1, self.comm.index * (width // n), width // n)
+
+
+def bound(param):
+    """The tensor the calling thread reads for ``param``: its rank's, inside
+    :func:`tensor_parallel`, else ``param`` itself."""
+    binding = getattr(_TP, "binding", None)
+    return param if binding is None else binding.leaf(param)[0]
+
+
+@contextlib.contextmanager
+def tensor_parallel(binding: TPBinding):
+    """Within the block, the calling thread's MLPs and MatchDims run as the
+    rank of ``binding``."""
+    previous = getattr(_TP, "binding", None)
+    _TP.binding = binding
+    try:
+        yield binding
+    finally:
+        _TP.binding = previous
+
+
+def _run_steps(steps, state, remat):
+    """Run ``steps``, pairs (local, fn) with ``fn(*state) -> state``, on the
+    tuple ``state``.  Each run of local steps between two collectives is one
+    function, recomputed in the backward pass per ``remat``; the collectives
+    stay outside every recomputed function (the recompute runs on the
+    backward's thread, where no other rank waits at a rendezvous)."""
+    segment = []
+
+    def flush(state):
+        if not segment:
+            return state
+        fns = tuple(segment)
+        segment.clear()
+
+        def run(*values):
+            for fn in fns:
+                values = fn(*values)
+            return values
+
+        return _apply_remat(run, remat, *state)
+
+    for local, fn in steps:
+        if local:
+            segment.append(fn)
+        else:
+            state = fn(*flush(state))
+    return flush(state)
+
+
+class _TPLayers:
+    """One rank's forward of an ``MLP`` or ``MatchDims`` under tensor
+    parallelism, built layer by layer as steps between collectives.
+    ``split`` says whether the activation at the end of the steps so far is
+    this rank's column block of the features (else it is whole)."""
+
+    def __init__(self, binding: TPBinding, dtype):
+        self.tp, self.dtype = binding, dtype
+        self.steps, self.split = [], False
+
+    def local(self, fn):
+        self.steps.append((True, fn))
+
+    def whole(self):
+        """All-gather the activation if it is split."""
+        if self.split:
+            gather = self.tp.comm.all_gather_features
+            self.steps.append((False, lambda x: (gather(x),)))
+            self.split = False
+
+    def linear(self, lin: nn.Linear):
+        """A column-split weight ``[out / M, in]`` takes a whole input and
+        leaves this rank's block of the output; a row-split one ``[out, in /
+        M]`` takes this rank's block of the input, its partial products are
+        summed over the ranks (in f32) and the bias is added once, after the
+        sum; a whole weight takes a whole input."""
+        dtype = self.dtype
+        w, dim = self.tp.leaf(lin.weight)
+        b, _ = self.tp.leaf(lin.bias)
+        if dim == 1:
+            if not self.split:
+                self.local(lambda x: (self.tp.block(x),))
+            psum = self.tp.comm.psum
+            self.local(lambda x: (F.linear(x, w.to(dtype)).float(),))
+            self.steps.append((False, lambda part: (psum(part),)))
+            self.local(lambda total: ((total + b.to(dtype).float()).to(dtype),))
+            self.split = False
+        else:
+            self.whole()
+            self.local(lambda x: (F.linear(x, w.to(dtype), b.to(dtype)),))
+            self.split = dim == 0
+
+    def norm(self, norm: nn.LayerNorm):
+        """LayerNorm over the features.  Over a split width the mean and the
+        variance come from ``psum``s of the ranks' partial sums in f32, then
+        each rank applies its block of the scale and the bias."""
+        dtype = self.dtype
+        w, _ = self.tp.leaf(norm.weight)
+        b, _ = self.tp.leaf(norm.bias)
+        if not self.split:
+            self.local(lambda x: (F.layer_norm(x, norm.normalized_shape, w.to(dtype),
+                                               b.to(dtype), norm.eps),))
+            return
+        width, psum = norm.normalized_shape[0], self.tp.comm.psum
+        self.local(lambda x: (x, x.float().sum(-1, keepdim=True)))
+        self.steps.append((False, lambda x, s: (x, psum(s) / width)))
+        self.local(lambda x, mean: (x, mean, (x.float() - mean).square().sum(-1, keepdim=True)))
+        self.steps.append((False, lambda x, mean, ss: (x, mean, psum(ss) / width)))
+        self.local(lambda x, mean, var: ((
+            (x.float() - mean) * torch.rsqrt(var + norm.eps) * w.to(dtype).float()
+            + b.to(dtype).float()).to(dtype),))
+
+    def act(self, fn):
+        self.local(lambda x: (fn(x),))
+
+    def __call__(self, x, remat):
+        self.whole()
+        return _run_steps(self.steps, (x,), remat)[0]
 
 
 class MLP(nn.Module):
@@ -127,7 +284,32 @@ class MLP(nn.Module):
                             norm.bias.to(dtype), norm.eps)
 
     def forward(self, x):
-        return _apply_remat(self._forward, x, self.remat)
+        binding = getattr(_TP, "binding", None)
+        if binding is not None:
+            return self._tp_forward(x, binding)
+        return _apply_remat(self._forward, self.remat, x)
+
+    def _tp_forward(self, x, binding: TPBinding):
+        """:meth:`_forward` as one rank of the tensor-parallel group."""
+        in_dtype = x.dtype
+        dtype = self.compute_dtype or torch.float32
+        layers = _TPLayers(binding, dtype)
+        layers.local(lambda v: (v.to(dtype),))
+        last = len(self.linears) - 1
+        for i, lin in enumerate(self.linears):
+            layers.linear(lin)
+            if i < last:
+                if self.norms:
+                    layers.norm(self.norms[i])
+                layers.act(self.hidden_act)
+        if self.output_act is not None:
+            if self.norms:
+                layers.norm(self.norms[last])
+            layers.act(self.output_act)
+        if self.compute_dtype is not None:
+            layers.whole()
+            layers.local(lambda v: (v.to(in_dtype),))
+        return layers(x, self.remat)
 
     def _forward(self, x):
         in_dtype = x.dtype
@@ -173,7 +355,16 @@ class MatchDims(nn.Module):
             nn.init.zeros_(self.norm.bias)
 
     def forward(self, x):
-        return _apply_remat(self._forward, x, self.remat)
+        binding = getattr(_TP, "binding", None)
+        if binding is not None:
+            layers = _TPLayers(binding, torch.float32)
+            layers.linear(self.linear)
+            if self.norm is not None:
+                layers.norm(self.norm)
+            if self.output_act is not None:
+                layers.act(self.output_act)
+            return layers(x, self.remat)
+        return _apply_remat(self._forward, self.remat, x)
 
     def _forward(self, x):
         x = self.linear(x)
@@ -221,4 +412,4 @@ class MaskedBatchNorm(nn.Module):
         else:
             mean, var = self.running_mean[0], self.running_var[0]
         inv = torch.rsqrt(var + self.epsilon)
-        return (x - mean) * inv * self.scale[0] + self.bias[0]
+        return (x - mean) * inv * bound(self.scale)[0] + bound(self.bias)[0]

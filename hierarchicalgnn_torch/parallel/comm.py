@@ -42,15 +42,20 @@ is K8's plain version, a ``torch.cat``.  ``psum``, ``psum_scatter``,
 ``pmax`` and ``pmin`` are XLA collectives in the JAX package, no Pallas
 kernels, and are plain torch here: the partial results are added in rank
 order; bf16 and f16 partials are added in f32 and rounded once.
+``all_gather_features``, the tensor-parallel MLPs' all-gather of column
+blocks (``parallel/tp.py``), is XLA's in the JAX package too, and a
+``torch.cat`` on the last dim here whatever ``halo_backend`` says; it is
+counted under its own kind.
 
 Every collective is differentiable, so in a training forward the P ranks'
 graphs join into ONE autograd graph through the collectives, and one
 ``torch.autograd.grad`` from the caller's thread runs every rank's backward:
 the all-gather's backward is a reduce-scatter of the ranks' cotangents
-(``ops/kernels/ring_gather.py``, the same for both backends),
-``psum``'s and ``psum_scatter``'s are autograd's own (each rank's input gets
-the sum of the cotangents of the shared result).  No rendezvous is needed in
-the backward.
+(``ops/kernels/ring_gather.py``, the same for both backends), the feature
+all-gather's gives each rank its column block of the summed cotangents,
+``psum``'s gives each rank's input the ranks' cotangents summed in rank order,
+and ``psum_scatter``'s is autograd's own.  No rendezvous is needed in the
+backward.
 """
 
 from __future__ import annotations
@@ -67,6 +72,73 @@ HALO_BACKENDS = ("xla", "rdma")
 THREAD_PREFIX = "shard-rank-"
 
 
+class _Psum(torch.autograd.Function):
+    """The ranks' values summed in rank order, handed to every rank as a
+    view of its own; backward: the ranks' cotangents summed in rank order
+    (bf16 in f32, rounded once), the same sum for every rank's input.  One
+    fixed order: with a single shared output autograd would add the ranks'
+    cotangents in the order its engine meets them, which follows which rank
+    completed the rendezvous."""
+
+    @staticmethod
+    def forward(ctx, *values):
+        ctx.set_materialize_grads(False)  # a rank that never reads its copy adds nothing
+        total = sum_in_rank_order(values)
+        return tuple(total.view_as(total) for _ in values)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        given = [g for g in grads if g is not None]
+        if not given:
+            return (None,) * len(grads)
+        return (sum_in_rank_order(given),) * len(grads)
+
+
+class _FeatureGather(torch.autograd.Function):
+    """The ranks' ``[..., D_r]`` column blocks -> one ``[..., sum D_r]``
+    ``torch.cat`` on the last dim, handed to every rank as a view of its own;
+    backward: the ranks' cotangents summed in rank order (bf16 in f32, rounded
+    once) and cut back into the column blocks."""
+
+    @staticmethod
+    def forward(ctx, *blocks):
+        ctx.set_materialize_grads(False)  # a rank that never reads its copy adds nothing
+        ctx.widths = [b.shape[-1] for b in blocks]
+        out = torch.cat(blocks, -1)
+        return tuple(out.view_as(out) for _ in blocks)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        given = [g for g in grads if g is not None]
+        if not given:
+            return (None,) * len(grads)
+        return sum_in_rank_order(given).split(ctx.widths, -1)
+
+
+class _Replicate(torch.autograd.Function):
+    """``n`` views of one tensor, one per rank; backward: the ranks'
+    cotangents summed in rank order (bf16 in f32, rounded once)."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.set_materialize_grads(False)
+        return tuple(x.view_as(x) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        given = [g for g in grads if g is not None]
+        return (sum_in_rank_order(given) if given else None), None
+
+
+def replicate(x, n_parts: int):
+    """``n_parts`` views of ``x``, one for each rank to read: ``x``'s gradient
+    is then the ranks' contributions added in rank order, not in the order
+    the backward happens to meet them."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return list(_Replicate.apply(x, n_parts))
+    return [x] * n_parts
+
+
 class ShardGroup:
     """The meeting point of ``n_parts`` ranks.  ``collectives`` counts the
     completed rendezvous by kind."""
@@ -77,8 +149,8 @@ class ShardGroup:
                              f"got {halo_backend!r}")
         self.n_parts = n_parts
         self.halo_backend = halo_backend
-        self.collectives = {"all_gather": 0, "psum": 0, "psum_scatter": 0, "pmax": 0,
-                            "pmin": 0}
+        self.collectives = {"all_gather": 0, "all_gather_features": 0, "psum": 0,
+                            "psum_scatter": 0, "pmax": 0, "pmin": 0}
         self._left = [None] * n_parts
         self._picked_up = None
         self._barrier = threading.Barrier(n_parts, action=self._complete)
@@ -92,7 +164,14 @@ class ShardGroup:
             return ring_all_gather(values)  # the kernel, unless the tensors are on the CPU
         return ring_all_gather_plain(values)
 
+    def _all_gather_features(self, values):
+        if torch.is_grad_enabled() and any(v.requires_grad for v in values):
+            return list(_FeatureGather.apply(*values))
+        return [torch.cat(values, -1)] * self.n_parts
+
     def _psum(self, values):
+        if torch.is_grad_enabled() and any(v.requires_grad for v in values):
+            return list(_Psum.apply(*values))
         return [sum_in_rank_order(values)] * self.n_parts
 
     def _psum_scatter(self, values):
@@ -160,6 +239,12 @@ class Comm:
         """``[B, ...]`` per rank -> ``[P * B, ...]`` on every rank
         (``lax.all_gather(..., axis=0, tiled=True)``)."""
         return self.group.meet(self.index, "all_gather", x.contiguous())
+
+    def all_gather_features(self, x):
+        """``[..., D / P]`` per rank -> ``[..., D]`` on every rank: the ranks'
+        column blocks side by side in rank order (``lax.all_gather(...,
+        axis=-1, tiled=True)``)."""
+        return self.group.meet(self.index, "all_gather_features", x.contiguous())
 
     def psum(self, x):
         return self.group.meet(self.index, "psum", x)

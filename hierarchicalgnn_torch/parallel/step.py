@@ -13,7 +13,10 @@ The events run one after another on the one device, each with its backward
 before the next forward, so the step holds one event's activations at a
 time; the gradient of the mean loss is the sum of each event's gradient of
 ``loss / B``.  :class:`EventMeanStep` is shared with the graph-partitioned
-step (``parallel/graph_shard.py``), which hands it the sharded forward.
+step (``parallel/graph_shard.py``), which hands it the sharded forward, and
+with the tensor-parallel step (``parallel/tp.py``), which hands it the
+forward over the ``model`` ranks, the ranks' shards as the tensors to
+differentiate and the global norm over the ranks.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 from hierarchicalgnn_torch.data.event import Event
 from hierarchicalgnn_torch.models.buffers import apply_mean, staged_writes
 from hierarchicalgnn_torch.ops.graph import Graph
-from hierarchicalgnn_torch.train.optim import apply_gradients
+from hierarchicalgnn_torch.train.optim import apply_gradients, global_norm
 
 
 def stack_events(events) -> Event:
@@ -69,24 +72,30 @@ class EventMeanStep:
     buffers; ``__call__`` also applies the gradients through ``optimizer``
     (clip, AdamW-amsgrad), as ``Trainer.train_step`` does.  ``last_stats``
     holds the step's ``host_syncs`` and what the forward adds.
+
+    ``params()`` gives the tensors to differentiate (by default the model's
+    parameters) and ``grad_norm(grads, stats)`` the ``grad_norm`` metric from
+    their gradients (by default the global norm of those the loss reaches).
     """
 
     def __init__(self, pipeline, optimizer, forward, n_events: int = 1,
-                 matching_spmd=None):
+                 matching_spmd=None, params=None, grad_norm=None):
         self.pipeline = pipeline
         self.optimizer = optimizer
         self.forward = forward
         self.n_events = n_events
         self.matching_spmd = matching_spmd
+        self.params = params or (lambda: list(pipeline.model.parameters()))
+        self.grad_norm = grad_norm or (
+            lambda grads, stats: global_norm([g for g in grads if g is not None]))
         self.last_stats: dict = {}
 
     def forward_backward(self, batch, epoch):
         events = events_of(batch)
         if len(events) != self.n_events:
             raise ValueError(f"the step takes {self.n_events} events, got {len(events)}")
-        model = self.pipeline.model
-        model.train()
-        params = list(model.parameters())
+        self.pipeline.model.train()
+        params = self.params()
         stats: dict = {}
         grads, metrics, stages = None, [], []
         for event in events:
@@ -101,8 +110,7 @@ class EventMeanStep:
             stages.append(staged)
         apply_mean(stages)
         metrics = _mean_metrics(metrics, params[0].device)
-        metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm([g for g in grads if g is not None])))
+        metrics["grad_norm"] = self.grad_norm(grads, stats)
         self.last_stats = stats
         return grads, metrics
 

@@ -88,6 +88,24 @@ def model_state(model) -> dict:
             "buffers": {k: v.detach().cpu().clone() for k, v in model.named_buffers()}}
 
 
+MOMENTS = ("mu", "nu", "nu_max")
+
+
+def train_state(model, optimizer) -> dict:
+    """The whole train state without its epoch: ``model_state`` plus
+    ``opt_state`` (the optimizer's ``count`` and each parameter's moments by
+    name, zeros before its first step) and ``step``."""
+    state = model_state(model)
+    moments = {key: {} for key in MOMENTS}
+    for name, p in model.named_parameters():
+        slots = optimizer.state[p]
+        for key in MOMENTS:
+            moments[key][name] = (slots[key] if slots else torch.zeros_like(p)).cpu().clone()
+    state["opt_state"] = {"count": optimizer.count, **moments}
+    state["step"] = optimizer.count
+    return state
+
+
 def load_model_state(model, state: dict):
     """Copy a checkpoint's parameters and buffers into ``model`` in place.
     Raises ValueError unless the names and shapes are exactly the model's

@@ -39,11 +39,21 @@ def lr_schedule(hparams: dict, steps_per_epoch: int):
     return schedule
 
 
+def global_norm(grads):
+    """The global 2-norm of a list of gradients (``optax.global_norm``), a 0-d
+    tensor."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+
 class AmsgradW(torch.optim.Optimizer):
     """The update above.  ``step()`` returns the gradients' global norm
     before clipping, as a 0-d tensor on the parameters' device; nothing is
     read back to the host.  A parameter without a gradient takes a zero
     gradient, as a parameter the loss does not reach does under ``jax.grad``.
+
+    :meth:`update` is the same step over tensors the optimizer does not hold
+    (the ranks' shards of the tensor-parallel step, ``parallel/tp.py``): the
+    caller gives the moments, the step count and the global norm.
     """
 
     def __init__(self, params, schedule, clip=0.5, b1=0.9, b2=0.999, eps=1e-8,
@@ -59,7 +69,23 @@ class AmsgradW(torch.optim.Optimizer):
         params = [p for group in self.param_groups for p in group["params"]]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = global_norm(grads)
+        states = [self.state[p] for p in params]
+        for p, state in zip(params, states):
+            if not state:
+                for key in ("mu", "nu", "nu_max"):
+                    state[key] = torch.zeros_like(p)
+        self.update(params, grads, states, self.count, norm)
+        self.count += 1
+        return norm
+
+    @torch.no_grad()
+    def update(self, params, grads, states, count: int, norm):
+        """Step ``count`` + 1 of ``params`` in place: ``grads`` clipped by
+        ``norm`` (the global norm of the whole gradient), ``states`` each
+        parameter's ``mu``, ``nu`` and ``nu_max``, moved in place.  The update
+        is elementwise, so any split of the parameters into lists gives the
+        same result."""
         if self.clip:
             keep = norm < self.clip
             one = torch.ones_like(norm)
@@ -67,15 +93,10 @@ class AmsgradW(torch.optim.Optimizer):
             grads = torch._foreach_div(grads, torch.where(keep, one, norm))
             torch._foreach_mul_(grads, torch.where(keep, one, self.clip * one))
 
-        states = [self.state[p] for p in params]
-        for p, state in zip(params, states):
-            if not state:
-                for key in ("mu", "nu", "nu_max"):
-                    state[key] = torch.zeros_like(p)
         mu = [s["mu"] for s in states]
         nu = [s["nu"] for s in states]
         nu_max = [s["nu_max"] for s in states]
-        t = self.count + 1
+        t = count + 1
         # the bias corrections in f32, as optax computes them
         bc1 = float(np.float32(1) - np.float32(self.b1) ** np.float32(t))
         bc2 = float(np.float32(1) - np.float32(self.b2) ** np.float32(t))
@@ -89,9 +110,7 @@ class AmsgradW(torch.optim.Optimizer):
         torch._foreach_add_(denom, self.eps)
         update = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
         torch._foreach_add_(update, params, alpha=self.weight_decay)
-        torch._foreach_add_(params, update, alpha=-self.schedule(self.count))
-        self.count = t
-        return norm
+        torch._foreach_add_(params, update, alpha=-self.schedule(count))
 
 
 def make_optimizer(params, hparams: dict, steps_per_epoch: int) -> AmsgradW:

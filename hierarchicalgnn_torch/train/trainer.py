@@ -51,8 +51,6 @@ from hierarchicalgnn_torch.utils.device import resolve_device
 from hierarchicalgnn_torch.utils.logging import MetricLogger
 from hierarchicalgnn_torch.utils.sanitize import finite_report
 
-_MOMENTS = ("mu", "nu", "nu_max")
-
 
 def split_dataset(events: Sequence, train_split: Sequence[int],
                   shuffle_seed: int = 42, split_seed: int = 0):
@@ -137,14 +135,7 @@ class Trainer:
         """The whole train state as a checkpoint (copies on the CPU)."""
         if self.optimizer is None:
             raise RuntimeError("call init_state() or restore() before state_dict()")
-        state = ckpt_lib.model_state(self.model)
-        moments = {key: {} for key in _MOMENTS}
-        for name, p in self.model.named_parameters():
-            slots = self.optimizer.state[p]
-            for key in _MOMENTS:
-                moments[key][name] = (slots[key] if slots else torch.zeros_like(p)).cpu().clone()
-        state["opt_state"] = {"count": self.optimizer.count, **moments}
-        state["step"] = self.optimizer.count
+        state = ckpt_lib.train_state(self.model, self.optimizer)
         state["epoch"] = int(epoch)
         return state
 
@@ -156,7 +147,7 @@ class Trainer:
         opt = state["opt_state"]
         for name, p in self.model.named_parameters():
             self.optimizer.state[p] = {key: opt[key][name].to(self.device).clone()
-                                       for key in _MOMENTS}
+                                       for key in ckpt_lib.MOMENTS}
         self.optimizer.count = int(opt["count"])
 
     def _save(self, name: str, epoch: int):

@@ -120,8 +120,8 @@ def test_group_reductions_equal_lax(n_dev):
     want = _over_ranks(lambda xl: jax.lax.psum(xl, "graph"), n_dev, jnp.asarray(x))
     outs, group = comm.run_sharded(lambda c: c.psum(block(c.index)), n_dev)
     np.testing.assert_allclose(N(torch.cat(outs)), want, rtol=0, atol=1e-6)
-    assert group.collectives == {"all_gather": 0, "psum": 1, "psum_scatter": 0, "pmax": 0,
-                                 "pmin": 0}
+    assert group.collectives == {"all_gather": 0, "all_gather_features": 0, "psum": 1,
+                                 "psum_scatter": 0, "pmax": 0, "pmin": 0}
 
     want = _over_ranks(lambda xl: jax.lax.psum_scatter(
         xl, "graph", scatter_dimension=0, tiled=True), n_dev, jnp.asarray(x))
@@ -205,8 +205,8 @@ def test_group_stress_more_ranks_than_cores():
     want = [(sum(range(n_ranks)) + n_ranks * i, [r * 1000 + i for r in range(n_ranks)])
             for i in range(rounds)]
     assert all(out == want for out in outs)
-    assert group.collectives == {"all_gather": rounds, "psum": rounds, "psum_scatter": 0,
-                                 "pmax": 0, "pmin": 0}
+    assert group.collectives == {"all_gather": rounds, "all_gather_features": 0,
+                                 "psum": rounds, "psum_scatter": 0, "pmax": 0, "pmin": 0}
     assert not [t for t in threading.enumerate() if t.name.startswith(comm.THREAD_PREFIX)]
 
 
