@@ -33,9 +33,10 @@ these phases and fails if any of them fails:
               f32, bf16, int32 and bool, 2-D and 1-D, at block sizes and bases
               that are no multiple of 16 bytes, at every block shape the
               sharded forwards hand it, 50 calls back to back on one set of
-              buffers, and two groups on two streams.  Phases 12-15 and 20-24
+              buffers, and two groups on two streams.  Phases 12-15 and 20-25
               record the inputs they hand K1-K6 and K8 (``path_keys``) and
-              fail on one whose shape and type were not checked here;
+              fail on one whose shape and type were not checked here
+              (phase 25's at 2 ranks a process: ``PROCESS_GRAPH``);
   4. serving  the BC-HGNN-GMM flagship (latent 256, hidden 512, 6 + 6
               iterations, bf16, capacities 24576/49152/3072/4096, seeded
               weights) reconstructs 2 synthetic events of 3000 particles
@@ -119,7 +120,23 @@ these phases and fails if any of them fails:
               ``{data 1, model 4}`` and ``{data 2, model 4}`` against the
               unsharded ``make_dp_train_step`` (loss within 1e-4 relative,
               every parameter after the step within rtol 5e-4 / atol 1e-5),
-              and once with the clip acting (``grad_norm`` within 1e-4).
+              and once with the clip acting (``grad_norm`` within 1e-4);
+ 25. processes  the ``data`` axis over a ``torch.distributed`` group: this
+              script starts 2 workers of itself (``--process-worker``) on the
+              one card, joined over gloo on CUDA tensors through a
+              ``file://`` store: (a) the flagship (as phase 4) through
+              ``make_sharded_train_step`` over ``{data 2 across the processes,
+              graph 2 in each}``, ``halo_backend: rdma``, 2 timed steps: the
+              processes' losses equal bit for bit, their states identical
+              (``assert_host_identical``), K1-K6 and K8 launched in each,
+              with host ms, device busy, peak memory and the cross-process
+              all-gather's count, bytes and host ms; (b) its f32 parity at
+              depth 2 + 2 against one process's ``{data 2, graph 2}`` step
+              (the JAX test's bounds); (c) EC-IN's DP step over ``{data 2}``
+              and TP step over ``{data 2, model 2}``, losses equal; (d) one
+              worker alone over ``nccl`` takes (c)'s DP step.  The processes
+              time-share the card: the phase measures the path's cost on one
+              card, not a step over two.
 
 Each phase prints its seconds on a line of its own, and the script its
 total before the kernel table.
@@ -189,6 +206,9 @@ N_PARTS = 4  # ranks of the sharded phases; they share the one card
 # held against torch.cat in all four dtypes.
 K8_PATH_SHAPES = ((6144, 3), (6144, 8), (6144, 128), (6144, 256), (768, 128), (768, 256),
                   (36864, 128), (6144,), (36864,))
+PROCESS_GRAPH = 2  # graph ranks of each process in phase 25 (n_local 12288, e_cap 73728)
+# the blocks the flagship's sharded step hands K8 at PROCESS_GRAPH ranks
+K8_PROCESS_SHAPES = ((12288, 3), (12288, 8), (12288, 256), (1536, 256), (12288,), (73728,))
 # (kernel, shape key) of every input that phase 3 held against the kernel's
 # plain version (``path_keys`` gives the keys); the sharded phases record what
 # they hand K1-K6 and K8 and fail on a key that is not here
@@ -343,6 +363,7 @@ def phase_build():
 def phase_kernels(torch):
     """Each kernel against its plain version; returns {kernel: row}."""
     from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+    from hierarchicalgnn_torch.parallel.graph_shard import SpmdSpec, edge_capacity
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1234)
@@ -412,6 +433,24 @@ def phase_kernels(torch):
         ("K1", f"bipartite gather backward -> {to}{w}", e, rows_to, d, both)
         for w, e, d in (("", 122880, 256), (", k 8, latent 128", 196608, 128))
         for to, rows_to in (("clusters", 3072), ("nodes", 24576))]
+    # the same for one rank of phase 25's flagship step, PROCESS_GRAPH ranks a
+    # process: n_local 12288, c_local 1536, e_cap 73728, superedges 46080
+    p2 = PROCESS_GRAPH
+    n2, c2 = 24576 // p2, 3072 // p2
+    e2, s2 = (edge_capacity(e, SpmdSpec(n_parts=p2)) for e in (98304, 61440))
+    rank_identity += [("K1", f"per-rank flat edges->nodes, {p2} ranks", e2, n2, 256, both),
+                      ("K2", f"per-rank superedges, {p2} ranks", s2, c2, 256, both)]
+    rank_bipartite += [
+        ("K2", f"per-rank bipartite nodes->clusters, {p2} ranks", n2 * 5, 3072, 256, both),
+        ("K2", f"per-rank bipartite clusters->nodes, {p2} ranks", n2 * 5, n2, 256, both)]
+    rank_backward += [
+        ("K1", f"per-rank halo gather backward, {p2} ranks", e2, 24576, 256, both),
+        ("K1", f"per-rank bipartite gather backward -> nodes, {p2} ranks", n2 * 5, n2, 256,
+         both),
+        ("K1", f"per-rank superedge gather backward -> own supernodes, {p2} ranks", s2, c2, 256,
+         both),
+        ("K1", f"per-rank superedge gather backward -> all supernodes, {p2} ranks", s2, 3072,
+         256, both)]
     all_cases = (sum_cases + rank_identity + rank_bipartite + rank_backward + hinge_cases
                  + bipartite_backward)
     for case in all_cases:
@@ -487,7 +526,8 @@ def phase_kernels(torch):
     # the unsharded hop over the whole flat graph, then one rank's hop of the
     # sharded forward over its receiver-partitioned edges
     for label, e, n, make in (("CC hop", 98304, 24576, ragged_receivers),
-                              ("per-rank CC hop", 36864, 6144, partitioned_receivers)):
+                              ("per-rank CC hop", 36864, 6144, partitioned_receivers),
+                              (f"per-rank CC hop, {p2} ranks", e2, n2, partitioned_receivers)):
         s, r, m = make(torch, e, n, gen)
         plan = sa.build_sorted_plan(s.to(dev), r.to(dev), m.to(dev), n)
         n_valid = int(plan.row_ptr[-1])
@@ -1733,6 +1773,13 @@ def phase_ring_gather(torch, rows):
                 paths.setdefault(path, []).append(f"{list(shape)} {str(dtype)[6:]}")
                 PATH_CHECKED.add(("K8", shape, dtype))
                 n_cases += 1
+        for shape in K8_PROCESS_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.bool):
+                path = check([make(shape, dtype).to(dev) for _ in range(PROCESS_GRAPH)],
+                             f"P={PROCESS_GRAPH} {dtype} {shape}")
+                assert path == "bulk", f"K8 {shape} {dtype}: the sharded path's block took {path}"
+                PATH_CHECKED.add(("K8", shape, dtype))
+                n_cases += 1
         # the bulk copies' boundaries: (shape, dtype, rows 1.. of a larger array)
         for p in (1, 2, 3, 4, 8):
             # 2 KB a rank: one chunk of the least size; 12 KB: exactly S of them
@@ -1754,7 +1801,9 @@ def phase_ring_gather(torch, rows):
             f"calls equal), the launcher's cut equal to gather_schedule's: P 1/2/3/4/8 x "
             f"f32/bf16/int32/bool x [768,256], [6144], [1001,3], [1001], [0,8] and a sliced "
             f"base; P {N_PARTS} x the same types x the sharded forwards' blocks "
-            f"{[list(shape) for shape in K8_PATH_SHAPES]}; P 1/2/3/4/8 x one chunk, S chunks, "
+            f"{[list(shape) for shape in K8_PATH_SHAPES]}; P {PROCESS_GRAPH} x the same types x "
+            f"phase 25's blocks {[list(shape) for shape in K8_PROCESS_SHAPES]}; "
+            f"P 1/2/3/4/8 x one chunk, S chunks, "
             f"sliced S chunks ([512,4], [768,4] f32), [1025,4] int32 sliced, [3] bool, "
             f"[7,3] bf16 sliced")
         for path, cases in paths.items():
@@ -1872,10 +1921,11 @@ class recording_path:
     """While the body runs, ``seen`` collects the key (``path_keys``) of
     every input that the body hands K1-K6 and K8; on a clean exit every one
     of them must have been held against the kernel's plain version by phase
-    3 (``PATH_CHECKED``)."""
+    3 (``checked``, by default ``PATH_CHECKED``; None: a worker of phase 25,
+    which hands its keys to the parent to check)."""
 
-    def __init__(self, what):
-        self.what, self.seen, self.patches = what, set(), []
+    def __init__(self, what, checked=PATH_CHECKED):
+        self.what, self.seen, self.patches, self.checked = what, set(), [], checked
 
     def __enter__(self):
         from unittest import mock
@@ -1895,8 +1945,8 @@ class recording_path:
     def __exit__(self, exc_type, *exc):
         for patch in reversed(self.patches):
             patch.stop()
-        if exc_type is None:
-            unchecked = sorted(str(key) for key in self.seen - PATH_CHECKED)
+        if exc_type is None and self.checked is not None:
+            unchecked = sorted(str(key) for key in self.seen - self.checked)
             kinds = {k: sum(key[0] == k for key in self.seen) for k in sorted(NAMES)}
             log(f"{self.what}: the kernels were handed "
                 f"{ {k: n for k, n in kinds.items() if n} } kinds of input, "
@@ -3087,6 +3137,340 @@ def phase_tp_parity(torch, events):
     return {k: sa.LAUNCHES[k] - launches[k] for k in sa.LAUNCHES}
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the data axis over processes
+# ---------------------------------------------------------------------------
+
+PROCESS_WORLD = 2        # processes of phase 25, each with its own card context
+PROCESS_TIMEOUT_S = 600  # each worker's limit
+GROUP_TIMEOUT_S = 300    # every collective of the workers' group
+PROCESS_TAG = "PROCESS_RESULT "
+
+
+def process_batch(mesh, event):
+    """This process's event as its part of the global batch."""
+    from hierarchicalgnn_torch.parallel import distributed
+    from hierarchicalgnn_torch.parallel.mesh import batch_sharding
+    from hierarchicalgnn_torch.parallel.step import stack_events
+
+    return distributed.globalize_batch(stack_events([event]), batch_sharding(mesh))
+
+
+def process_flagship(torch, rank, events):
+    """Worker, part (a): the flagship (bf16, full width and depth, the
+    capacities of phase 4) through ``make_sharded_train_step`` over ``{data
+    2 across the processes, graph 2 in each}``, ``halo_backend: rdma``: a
+    warm-up step and 2 timed steps, process r on its own event r, each with
+    its host ms, device busy ms (a repeat under the profiler), peak memory,
+    launches and the cross-process all-gather's count, bytes and host ms;
+    ``assert_host_identical`` on params, moments and buffers before the
+    warm-up and after each timed step and its repeat (which lines the
+    processes up for the next timed step)."""
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+    from hierarchicalgnn_torch.parallel import distributed
+    from hierarchicalgnn_torch.parallel.graph_shard import make_sharded_train_step
+    from hierarchicalgnn_torch.train.checkpoint import train_state
+
+    hp, trainer = flagship_trainer({"halo_backend": "rdma"})
+    assert (hp["latent"], hp["hidden"], hp["n_interaction_graph_iters"],
+            hp["n_hierarchical_graph_iters"], hp["compute_dtype"], hp["remat"]) == (
+        256, 512, 6, 6, "bfloat16", False), hp
+    mesh = distributed.make_global_mesh(graph_per_host=PROCESS_GRAPH)
+    assert mesh.shape == {"data": PROCESS_WORLD, "graph": PROCESS_GRAPH}, mesh
+    trainset, _, _ = trainer.make_datasets(events)
+    batch = process_batch(mesh, trainset[rank][2])
+    step = make_sharded_train_step(trainer.pipeline, trainer.optimizer, mesh, hp)
+    assert step.matching_spmd is None and step.n_local == 1
+    distributed.replicate(train_state(trainer.model, trainer.optimizer), mesh, check=True)
+    records = []
+    with watchdog(), recording_path("processes flagship", checked=None) as rec:
+        step(batch, TRAIN_EPOCH)  # warm-up
+        torch.cuda.synchronize()
+        for i in range(2):
+            # the processes start each timed step together: the last
+            # collective before it is the state check below
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(sa.LAUNCHES)
+            t0 = time.perf_counter()
+            metrics = step(batch, TRAIN_EPOCH)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            counts = {k: sa.LAUNCHES[k] - before[k] for k in SHARDED_STEP_KERNELS}
+            stats = dict(step.last_stats)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            values = {k: float(v) for k, v in metrics.items()}
+            _, _, busy = profile_call(torch, lambda: step(batch, TRAIN_EPOCH), ms,
+                                      f"process {rank}: flagship step {i} (its repeat under "
+                                      f"the profiler)", SHARDED_STEP_KERNELS, top=6)
+            state = train_state(trainer.model, trainer.optimizer)
+            distributed.assert_host_identical(state, f"the flagship's state after step {i} "
+                                                     f"and its repeat")
+            record = {"host_ms": ms, "busy_ms": busy,
+                      "idle_pct": None if busy is None else 100 * (1 - busy / ms),
+                      "peak_gib": peak, "loss": values["training_loss"].hex(),
+                      "metrics": values, "launches": counts,
+                      "partition_ok": stats["partition_ok"],
+                      "collectives": stats["collectives"],
+                      "process_gathers": stats["process_gathers"],
+                      "process_gather_bytes": stats["process_gather_bytes"],
+                      "process_gather_ms": stats["process_gather_ms"],
+                      "fingerprint": distributed.fingerprint(state).hex()}
+            records.append(record)
+            log(f"process {rank} flagship step {i} over data {PROCESS_WORLD} (processes) x "
+                f"graph {PROCESS_GRAPH}: {ms:.1f} ms (host clock), device busy {busy} ms, "
+                f"peak {peak:.2f} GiB, gathers {stats['process_gathers']} of "
+                f"{stats['process_gather_bytes']} bytes in {stats['process_gather_ms']:.1f} ms "
+                f"(host), collectives {stats['collectives']}, partition_ok "
+                f"{stats['partition_ok']}, metrics {values}, launches {counts}")
+            assert all(math.isfinite(v) for v in values.values()), values
+            assert values["score_cut"] < SCORE_CUT_CLAMP, values
+    del trainer, trainset, step
+    torch.cuda.empty_cache()
+    return records, sorted(str(key) for key in rec.seen)
+
+
+def process_parity(torch, rank, events):
+    """Worker, part (b): f32 at depth 2 + 2, full width and capacities, under
+    deterministic algorithms: one sharded step over ``{data 2 across the
+    processes, graph 2}``; process 0 then takes the one-process ``{data 2,
+    graph 2}`` step over both events from the same start and compares: the
+    loss within 1e-4 relative, every parameter within rtol 5e-4 / atol 1e-5
+    (the leaf whose true gradient is zero within twice the learning rate)."""
+    from hierarchicalgnn_torch.parallel import distributed
+    from hierarchicalgnn_torch.parallel.graph_shard import make_sharded_train_step
+    from hierarchicalgnn_torch.train.checkpoint import load_model_state, train_state
+    from hierarchicalgnn_torch.train.optim import make_optimizer
+
+    hp, trainer = flagship_trainer({"compute_dtype": None, "n_interaction_graph_iters": 2,
+                                    "n_hierarchical_graph_iters": 2, "halo_backend": "rdma"})
+    model, pipeline = trainer.model, trainer.pipeline
+    batches = [b for _, _, b in trainer.make_datasets(events)[0][:PROCESS_WORLD]]
+    start = train_state(model, trainer.optimizer)
+    mesh = distributed.make_global_mesh(graph_per_host=PROCESS_GRAPH)
+
+    def fresh():
+        return make_optimizer(list(model.parameters()), hp, trainer._steps_per_epoch())
+
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with watchdog(), warnings.catch_warnings(), recording_path(
+                "processes parity", checked=None) as rec:
+            warnings.simplefilter("ignore", UserWarning)  # ops without a deterministic form
+            optimizer = fresh()
+            metrics = make_sharded_train_step(pipeline, optimizer, mesh, hp)(
+                process_batch(mesh, batches[rank]), TRAIN_EPOCH)
+            torch.cuda.synchronize()
+            got = {n: p.detach().clone() for n, p in model.named_parameters()}
+            out["loss"] = float(metrics["training_loss"]).hex()
+            if rank == 0:
+                lr = optimizer.schedule(0)
+                load_model_state(model, start)
+                want_metrics = make_sharded_train_step(
+                    pipeline, fresh(), {"data": PROCESS_WORLD, "graph": PROCESS_GRAPH}, hp)(
+                    batches, TRAIN_EPOCH)
+                torch.cuda.synchronize()
+                loss, ref = float(metrics["training_loss"]), float(want_metrics["training_loss"])
+                worst, where, equal = 0.0, None, True
+                for n, value in model.named_parameters():
+                    diff = (got[n] - value.detach()).abs()
+                    equal &= bool((diff == 0).all())
+                    bound = 2 * lr if n == NOISE_LEAF else 1e-5 + 5e-4 * value.detach().abs()
+                    share = float((diff / bound).max())
+                    if share > worst:
+                        worst, where = share, n
+                out.update(ref_loss=ref, loss_rel=abs(loss / ref - 1), worst=worst,
+                           worst_leaf=where, bit_for_bit=bool(equal and loss == ref))
+                log(f"processes parity f32 (2 + 2) over data {PROCESS_WORLD} (processes) x "
+                    f"graph {PROCESS_GRAPH} against one process's {{data {PROCESS_WORLD}, "
+                    f"graph {PROCESS_GRAPH}}}: loss {loss:.7f} vs {ref:.7f} (rel "
+                    f"{out['loss_rel']:.2e}), worst parameter {worst:.3f} of its bound "
+                    f"({where}), bit for bit: {out['bit_for_bit']}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del trainer, model, pipeline
+    torch.cuda.empty_cache()
+    return out, sorted(str(key) for key in rec.seen)
+
+
+def process_ec_in(torch, rank, events, backend):
+    """Worker, part (c): EC-IN at its shipped widths and the flagship
+    capacities, one ``make_dp_train_step`` step over ``{data world}`` across
+    the processes and, with more than one process, one ``make_tp_train_step``
+    step over ``{data 2, model 2}``: losses and launches."""
+    from hierarchicalgnn_torch.models.registry import model_selector
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+    from hierarchicalgnn_torch.parallel import distributed, tp
+    from hierarchicalgnn_torch.parallel.step import make_dp_train_step
+    from hierarchicalgnn_torch.train.checkpoint import train_state
+    from hierarchicalgnn_torch.train.optim import make_optimizer
+    from hierarchicalgnn_torch.train.trainer import Trainer
+
+    hp, model, pipeline = model_selector("EC-IN", FLAGSHIP)
+    assert (hp["latent"], hp["hidden"]) == MODEL_WIDTHS["EC-IN"][:2], hp
+    trainer = Trainer(hp, model, pipeline)
+    trainer.init_state(seed=0)
+    trainset, _, _ = trainer.make_datasets(events)
+    mesh = distributed.make_global_mesh()
+    batch = process_batch(mesh, trainset[rank][2])
+    out = {}
+    with watchdog(), recording_path("processes EC-IN", checked=None) as rec:
+        for label in ("dp", "tp") if mesh.world_size > 1 else ("dp",):
+            optimizer = make_optimizer(list(model.parameters()), hp, trainer._steps_per_epoch())
+            # the processes start together, from one state
+            distributed.replicate(train_state(model, optimizer), mesh, check=True)
+            before = dict(sa.LAUNCHES)
+            t0 = time.perf_counter()
+            if label == "dp":
+                step = make_dp_train_step(pipeline, optimizer, mesh)
+                metrics = step(batch, 0)
+                state = train_state(model, optimizer)
+            else:
+                state, step = tp.make_tp_train_step(pipeline, optimizer,
+                                                    tp.make_tp_mesh(mesh, 2, hp["hidden"]),
+                                                    train_state(model, optimizer), hp["hidden"])
+                state, metrics = step(state, batch, 0)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            distributed.assert_host_identical(state, f"EC-IN's {label} state")
+            counts = {k: sa.LAUNCHES[k] - before[k] for k in sa.LAUNCHES}
+            stats = step.last_stats
+            out[label] = {"loss": float(metrics["training_loss"]).hex(), "host_ms": ms,
+                          "launches": counts, "process_gathers": stats["process_gathers"],
+                          "process_gather_bytes": stats["process_gather_bytes"],
+                          "process_gather_ms": stats["process_gather_ms"]}
+            log(f"process {rank} EC-IN {label} step over {mesh.world_size} process(es), "
+                f"{backend}: {ms:.1f} ms (host clock), loss {float(metrics['training_loss']):.7f}"
+                f", gathers {stats['process_gathers']} of {stats['process_gather_bytes']} bytes "
+                f"in {stats['process_gather_ms']:.1f} ms, launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+            assert counts["K1"] > 0 and counts["K4"] > 0, (label, counts)
+    del trainer, model, pipeline
+    torch.cuda.empty_cache()
+    return out, sorted(str(key) for key in rec.seen)
+
+
+def process_worker(rank: int, world: int, store: str, backend: str):
+    """One process of phase 25 (``chip_smoke.py --process-worker <rank>
+    <world> <store> <backend>``): joins the group through the ``file://``
+    store, runs (a)-(c) with ``gloo`` (over CUDA tensors: two processes on
+    one card), or only (c)'s DP step with ``nccl``; prints one line
+    ``PROCESS_RESULT {json}``."""
+    import torch
+
+    from hierarchicalgnn_torch.parallel import distributed
+
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: the worker needs a card")
+    distributed.initialize(init_method=f"file://{store}", num_processes=world,
+                           process_id=rank, backend=backend, device="cuda",
+                           timeout_s=GROUP_TIMEOUT_S)
+    assert torch.distributed.get_backend() == backend
+    events = flagship_events()
+    result = {"rank": rank, "backend": backend, "keys": []}
+    try:
+        if backend == "gloo":
+            result["flagship"], keys = process_flagship(torch, rank, events)
+            result["keys"] += keys
+            result["parity"], keys = process_parity(torch, rank, events)
+            result["keys"] += keys
+        result["ec_in"], keys = process_ec_in(torch, rank, events, backend)
+        result["keys"] += keys
+    finally:
+        torch.distributed.destroy_process_group()
+    print(PROCESS_TAG + json.dumps(result), flush=True)
+
+
+def run_processes(world: int, backend: str, root: Path) -> list:
+    """Start ``world`` workers on the one card, each under PROCESS_TIMEOUT_S,
+    their output in files (a full pipe would stall a worker that its peer
+    waits for); relay it and return each worker's result.  Every worker is
+    ended before this returns."""
+    store = root / f"{backend}_store"
+    logs = [root / f"{backend}_{rank}.log" for rank in range(world)]
+    procs = []
+    try:
+        for rank, path in enumerate(logs):
+            with open(path, "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--process-worker",
+                     str(rank), str(world), str(store), backend],
+                    stdout=out, stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent))
+        deadline = time.monotonic() + PROCESS_TIMEOUT_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for rank, (p, path) in enumerate(zip(procs, logs)):
+        text = path.read_text()
+        for line in text.splitlines():
+            if not line.startswith(PROCESS_TAG):
+                log(f"[{backend} process {rank}] {line}")
+        found = [json.loads(line[len(PROCESS_TAG):]) for line in text.splitlines()
+                 if line.startswith(PROCESS_TAG)]
+        if p.returncode != 0 or len(found) != 1:
+            raise AssertionError(f"{backend} process {rank} of {world} failed (exit code "
+                                 f"{p.returncode}, killed after {PROCESS_TIMEOUT_S} s if "
+                                 f"negative)")
+        results.append(found[0])
+    return results
+
+
+def phase_processes(torch):
+    """The ``data`` axis over processes (``parallel/distributed.py``): 2
+    workers of this script (``--process-worker``) on the one card form a
+    ``torch.distributed`` group over gloo on CUDA tensors, meeting through a
+    ``file://`` store.  (a) the flagship's sharded step over ``{data 2,
+    graph 2}``: the processes' losses equal bit for bit at every step, their
+    states identical, K1-K6 and K8 launched in each; (b) its f32 parity at
+    depth 2 + 2 against one process's ``{data 2, graph 2}`` step; (c)
+    EC-IN's DP and TP steps across the processes, losses equal; (d) one more
+    worker runs (c)'s DP step alone over ``nccl``, so that the NCCL path
+    initialises and gathers on the card (NCCL takes no two ranks on one
+    device).  The processes time-share the card: the numbers are the cost of
+    the path on one card, not a step over two cards.  Returns the summed
+    launch counts of the flagship's 2 timed steps in both workers and the
+    workers' results."""
+    with _scratch_dir() as tmp:
+        results = run_processes(PROCESS_WORLD, "gloo", Path(tmp))
+        (nccl,) = run_processes(1, "nccl", Path(tmp))
+    unchecked = sorted({k for r in results + [nccl] for k in r["keys"]}
+                       - {str(key) for key in PATH_CHECKED})
+    log(f"processes: the kernels were handed {len({k for r in results for k in r['keys']})} "
+        f"kinds of input, {'all' if not unchecked else 'NOT all'} held against their plain "
+        f"versions in phase 3")
+    assert not unchecked, f"phase 25's kernel inputs never checked: {unchecked}"
+    launches = {k: 0 for k in NAMES}
+    for i in range(2):
+        steps = [r["flagship"][i] for r in results]
+        assert len({s["loss"] for s in steps}) == 1, f"step {i}: the processes' losses differ"
+        assert len({s["fingerprint"] for s in steps}) == 1, f"step {i}: states differ"
+        for s in steps:
+            assert s["partition_ok"] and s["process_gathers"] == 1, s
+            for kernel in SHARDED_STEP_KERNELS:
+                assert s["launches"][kernel] > 0, (kernel, s["launches"])
+                launches[kernel] += s["launches"][kernel]
+    parity = results[0]["parity"]
+    assert results[1]["parity"]["loss"] == parity["loss"], "the parity step's losses differ"
+    if parity["loss_rel"] > 1e-4 or parity["worst"] > 1:
+        raise AssertionError(f"the 2-process step differs from one process's: {parity}")
+    for label in ("dp", "tp"):
+        assert len({r["ec_in"][label]["loss"] for r in results}) == 1, f"EC-IN {label} losses"
+    assert nccl["backend"] == "nccl" and nccl["ec_in"]["dp"]["process_gathers"] == 1, nccl
+    log("processes " + json.dumps({"flagship": [r["flagship"] for r in results],
+                                   "parity": parity,
+                                   "ec_in": [r["ec_in"] for r in results],
+                                   "nccl": nccl["ec_in"]}))
+    return launches, results
+
+
 def timed(name, fn, *args):
     """Run one phase; print its seconds on a line of its own."""
     t0 = time.perf_counter()
@@ -3099,6 +3483,9 @@ def main():
     if not (Path(__file__).resolve().parent / "hierarchicalgnn_torch").is_dir():
         raise SystemExit("hierarchicalgnn_torch/ is not beside chip_smoke.py: "
                          "run it from a checkout of the repo")
+    if sys.argv[1:2] == ["--process-worker"]:
+        rank, world, store, backend = sys.argv[2:6]
+        return process_worker(int(rank), int(world), store, backend)
     import torch
 
     start = time.perf_counter()
@@ -3131,6 +3518,7 @@ def main():
                                     phase_sharded_models_training, torch, events)
     tp_training, tp_models, _ = timed("tp training", phase_tp_training, torch, events)
     tp_parity = timed("tp parity", phase_tp_parity, torch, events)
+    processes, _ = timed("processes", phase_processes, torch)
     for kernel in NAMES:
         # K7's main path is its entry point make_aggregator, no model calls it;
         # K8's is the sharded forward
@@ -3144,11 +3532,14 @@ def main():
     assert sharded_models_training["K8"] > 0, "the other sharded training steps never launched K8"
     for kernel in TP_STEP_KERNELS:
         assert tp_training[kernel] > 0, f"the TP training step never launched {kernel}"
+    for kernel in SHARDED_STEP_KERNELS:
+        assert processes[kernel] > 0, f"the step over processes never launched {kernel}"
     table = [{"name": NAMES[k], "route": "cuda", "source": CSRC + SOURCES[k],
               "replaces": REPLACES[k],
               "launches": (serving[k] + training[k] + models[k] + aggregator[k]
                            + sharded[k] + sharded_models[k] + cli[k] + sharded_training[k]
-                           + sharded_models_training[k] + tp_training[k] + tp_models[k]),
+                           + sharded_models_training[k] + tp_training[k] + tp_models[k]
+                           + processes[k]),
               "launches_serving_2_events": serving[k],
               "launches_training_3_steps": training[k],
               "launches_four_models": models[k],
@@ -3162,6 +3553,7 @@ def main():
               "launches_tp_training_2_steps": tp_training[k],
               "launches_tp_four_models": tp_models[k],
               "launches_tp_parity": tp_parity[k],
+              "launches_processes_flagship_2_steps": processes[k],
               **rows[k],
               "main_path_ms_per_launch": serving_ms.get(k, training_ms.get(k, sharded_ms.get(k))),
               "training_ms_per_launch": training_ms.get(k),

@@ -11,11 +11,15 @@ collectives are rendezvous points between the threads.
 Threads, not lockstep code over lists of tensors: a collective sits deep
 inside a cell (the halo gather of every message-passing iteration), so
 lockstep code would have to rewrite every cell and block over lists.  With a
-thread per rank the cells and the parameter tree stay as they are, the
-per-device code reads like the JAX package's, and a later port to one
-process per card swaps this module for ``torch.distributed`` and nothing
-else.  The price is that the ranks' host work takes turns and that work the
-JAX package replicates across devices is done P times on the one card.
+thread per rank the cells and the parameter tree stay as they are and the
+per-device code reads like the JAX package's.  The price is that the ranks'
+host work takes turns and that work the JAX package replicates across
+devices is done P times on the one card.
+
+The thread group carries the ``graph`` and ``model`` axes, which the JAX
+package keeps inside one process.  The ``data`` axis goes over the processes
+of a ``torch.distributed`` group (``parallel/distributed.py``), which meet on
+the caller's thread after the backward, never from a rank thread.
 
 The ranks take turns explicitly: a rank runs only while it holds the group's
 baton, and hands it on where it waits at a rendezvous.  Python runs one
@@ -64,6 +68,7 @@ import contextlib
 import threading
 
 import torch
+import torch.utils._pytree as pytree
 
 from hierarchicalgnn_torch.ops.kernels.ring_gather import (
     reduce_scatter_plain, ring_all_gather, ring_all_gather_plain, sum_in_rank_order)
@@ -137,6 +142,42 @@ def replicate(x, n_parts: int):
     if torch.is_grad_enabled() and x.requires_grad:
         return list(_Replicate.apply(x, n_parts))
     return [x] * n_parts
+
+
+class _Handoff(torch.autograd.Function):
+    """Views of a rank's outputs; backward: the cotangents as they are."""
+
+    @staticmethod
+    def forward(ctx, *tensors):
+        ctx.set_materialize_grads(False)
+        return tuple(t.view_as(t) for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return grads
+
+
+def handoff(tree):
+    """``tree`` (a pytree: tuples, named tuples, lists, dicts) with every
+    tensor that requires grad replaced by a view whose autograd node is made
+    on the calling thread, for a rank to hand its outputs to the caller's
+    thread.
+
+    Autograd runs ready nodes in the order of their sequence numbers, which
+    count per thread.  The rank threads are new at every forward, the
+    caller's thread is not: its numbers grow from step to step.  Where the
+    loss, computed on the caller's thread, and the rank's own nodes both add
+    to one tensor's gradient, the order of those additions would follow how
+    many nodes the caller's thread made before.  Behind the handoff every
+    path from the loss enters the rank's graph through one node numbered on
+    the rank's thread, so the order is the same at every step."""
+    leaves, spec = pytree.tree_flatten(tree)
+    at = [i for i, v in enumerate(leaves) if isinstance(v, torch.Tensor) and v.requires_grad]
+    if not at or not torch.is_grad_enabled():
+        return tree
+    for i, view in zip(at, _Handoff.apply(*(leaves[i] for i in at))):
+        leaves[i] = view
+    return pytree.tree_unflatten(leaves, spec)
 
 
 class ShardGroup:

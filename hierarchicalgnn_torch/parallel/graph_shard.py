@@ -64,6 +64,7 @@ from hierarchicalgnn_torch.ops.kernels.sorted_agg import (
 from hierarchicalgnn_torch.ops.segment import segment_sum
 from hierarchicalgnn_torch.models.buffers import agreed, staged_writes
 from hierarchicalgnn_torch.parallel.comm import HALO_BACKENDS, Comm, run_sharded
+from hierarchicalgnn_torch.parallel.mesh import as_mesh
 from hierarchicalgnn_torch.parallel.step import EventMeanStep
 from hierarchicalgnn_torch.utils.config import SHARD_DEFAULTS
 from hierarchicalgnn_torch.utils.device import resolve_device
@@ -481,15 +482,17 @@ def make_sharded_forward(pipeline, n_parts: int, hparams: dict,
     return ShardedForward(model, spec_from_hparams(n_parts, hparams), hparams, device)
 
 
-def make_sharded_train_step(pipeline, optimizer, mesh_shape: dict, hparams: dict,
+def make_sharded_train_step(pipeline, optimizer, mesh_shape, hparams: dict,
                             device: str | torch.device = "cuda") -> EventMeanStep:
     """The training step with the model's forward graph-partitioned over
-    ``mesh_shape["graph"]`` ranks and ``mesh_shape["data"]`` events a step
-    (``graph_shard.py:567`` of the JAX package; the mesh is given by its
-    shape).  ``step(batch, epoch) -> metrics`` takes one Event when ``data``
-    is 1, else a list or a stack (``parallel/step.py::stack_events``) of
-    ``data`` Events; ``step.forward_backward`` gives the gradients without
-    applying them.
+    ``graph`` ranks and ``data`` events a step (``graph_shard.py:567`` of the
+    JAX package).  ``mesh_shape`` is a ``parallel/mesh.py`` Mesh, whose
+    ``data`` axis may span the processes of a ``torch.distributed`` group
+    (the ``graph`` ranks stay threads of each process), or a ``{"data",
+    "graph"}`` dict for one process.  ``step(batch, epoch) -> metrics`` takes
+    one Event when this process runs one event, else a list or a stack
+    (``parallel/step.py::stack_events``) of its events;
+    ``step.forward_backward`` gives the gradients without applying them.
 
     The loss, the bipartite matching's truth included, runs on the caller's
     thread on the reassembled outputs: the unsharded ``loss_from_outputs``.
@@ -499,11 +502,11 @@ def make_sharded_train_step(pipeline, optimizer, mesh_shape: dict, hparams: dict
     raises without one.
     """
     device = resolve_device(device)
-    n_parts = int(mesh_shape.get("graph", 1) or 1)
-    n_events = int(mesh_shape.get("data", 1) or 1)
+    mesh = as_mesh(mesh_shape)
     model = pipeline.model.to(device)
-    forward = ShardedTrainForward(model, spec_from_hparams(n_parts, hparams), hparams,
+    forward = ShardedTrainForward(model, spec_from_hparams(mesh.graph, hparams), hparams,
                                   device)
-    matching = (n_parts if n_events == 1 and bool(hparams.get("shard_matching", True))
+    matching = (mesh.graph if mesh.data == 1 and bool(hparams.get("shard_matching", True))
                 else None)
-    return EventMeanStep(pipeline, optimizer, forward, n_events, matching_spmd=matching)
+    return EventMeanStep(pipeline, optimizer, forward, mesh.data, matching_spmd=matching,
+                         group=mesh.group)

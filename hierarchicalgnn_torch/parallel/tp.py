@@ -28,9 +28,13 @@ rank holds its own shard of each split leaf and of that leaf's moments;
 a replicated leaf is one tensor, the model's own, which every rank reads
 (autograd adds the ranks' contributions to its gradient).  The loss is
 computed once, on rank 0's outputs, which the collectives share with every
-rank, so one backward reaches every rank's shards.  The ``data`` axis runs
-through ``parallel/step.py::EventMeanStep``: ``data`` events a step, one
-after another.
+rank, so one backward reaches every rank's shards; rank 0 hands its outputs
+over through ``parallel/comm.py::handoff``, so that the backward adds the
+loss's and the ranks' contributions in the same order at every step.  The
+``data`` axis runs through ``parallel/step.py::EventMeanStep``: ``data``
+events a step, one after another, split over the processes of a
+``parallel/mesh.py`` Mesh's ``group`` when ``make_tp_mesh`` is given such a
+Mesh for ``data``.
 
     mesh = make_tp_mesh(data=2, model=4, hidden=hp["hidden"])
     state, step = make_tp_train_step(pipeline, optimizer, mesh,
@@ -54,7 +58,8 @@ from hierarchicalgnn_torch.data.event import Event
 from hierarchicalgnn_torch.models.buffers import agreed, staged_writes
 from hierarchicalgnn_torch.models.mlp import MLP, MatchDims, TPBinding, tensor_parallel
 from hierarchicalgnn_torch.ops.graph import Graph
-from hierarchicalgnn_torch.parallel.comm import replicate, run_sharded
+from hierarchicalgnn_torch.parallel.comm import handoff, replicate, run_sharded
+from hierarchicalgnn_torch.parallel.mesh import Mesh, make_mesh
 from hierarchicalgnn_torch.parallel.step import EventMeanStep
 from hierarchicalgnn_torch.train.checkpoint import MOMENTS, load_model_state
 from hierarchicalgnn_torch.utils.device import resolve_device
@@ -63,19 +68,35 @@ AXIS = "model"
 
 
 class TPMesh(NamedTuple):
-    """The ``{data, model}`` layout: ``data`` events a step, ``model`` ranks
-    that split the hidden width.  On one card the ranks share it, so no
-    device count is checked."""
-    data: int
+    """The ``{data, model}`` layout: ``mesh``, the ``parallel/mesh.py`` Mesh
+    of the ``data`` axis (its events a step over its processes, ``graph``
+    1), and ``model`` ranks that split the hidden width, threads of each
+    process.  On one card the ranks share it, so no device count is
+    checked."""
+    mesh: Mesh
     model: int
 
+    @property
+    def data(self) -> int:
+        return self.mesh.data
 
-def make_tp_mesh(data: int = 1, model: int = 1, hidden: int | None = None) -> TPMesh:
-    """The mesh; raises when ``hidden`` (if given) does not split evenly
-    over ``model`` (JAX's ``NamedSharding`` refuses an uneven split too)."""
-    if data < 1 or model < 1:
-        raise ValueError(f"mesh {data}x{model}: both axes must be at least 1")
-    mesh = TPMesh(int(data), int(model))
+    @property
+    def group(self):
+        return self.mesh.group
+
+
+def make_tp_mesh(data: int | Mesh = 1, model: int = 1, hidden: int | None = None) -> TPMesh:
+    """The mesh; ``data`` is a count of events run by this process alone or
+    a ``parallel/mesh.py`` Mesh of ``graph`` 1 (``make_global_mesh()``)
+    whose ``data`` axis spans its processes.  Raises when ``hidden`` (if
+    given) does not split evenly over ``model`` (JAX's ``NamedSharding``
+    refuses an uneven split too)."""
+    mesh = data if isinstance(data, Mesh) else make_mesh(data)
+    if model < 1:
+        raise ValueError(f"mesh {mesh.data}x{model}: both axes must be at least 1")
+    if mesh.graph != 1:
+        raise ValueError(f"the TP step splits no graph: mesh graph {mesh.graph}")
+    mesh = TPMesh(mesh, int(model))
     if hidden is not None:
         _check_hidden(hidden, mesh)
     return mesh
@@ -304,7 +325,8 @@ class TPTrainStep:
         self.mean_step = EventMeanStep(
             pipeline, optimizer, self.forward, mesh.data,
             params=lambda: self.state.leaves(),
-            grad_norm=lambda grads, stats: self.state.grad_norm(grads, stats))
+            grad_norm=lambda grads, stats: self.state.grad_norm(grads, stats),
+            group=mesh.group)
         self.last_stats: dict = {}
 
     def forward(self, event: Event, stats):
@@ -321,7 +343,7 @@ class TPTrainStep:
             with staged_writes() as staged, tensor_parallel(
                     state.binding(model, comm, replicas)):
                 out = model(event.x, event.graph, event.node_mask, stats=rank_stats[comm.index])
-            return out, staged
+            return handoff(out) if comm.index == 0 else out, staged
 
         ranks, group = run_sharded(per_rank, state.n_ranks, device=self.device)
         syncs = stats.get("host_syncs", 0) + sum(s.get("host_syncs", 0) for s in rank_stats)
@@ -352,8 +374,9 @@ def make_tp_train_step(pipeline, optimizer, mesh: TPMesh, state, hidden: int,
     laid out over the mesh (a :class:`TPState` already laid out, such as
     ``convert.load_jax_tp_state`` gives, is taken as it is), and
     ``step(state, batch, epoch) -> (state, metrics)``, whose ``batch`` is one
-    Event when ``mesh.data`` is 1, else a list or a stack of ``mesh.data``
-    Events.  ``optimizer`` (an ``AmsgradW``) gives the update's constants and
+    Event when this process runs one event, else a list or a stack of its
+    events (all ``mesh.data`` of them without a process group).
+    ``optimizer`` (an ``AmsgradW``) gives the update's constants and
     schedule; the count is the state's.  ``device`` defaults to the card and
     raises without one."""
     device = resolve_device(device)

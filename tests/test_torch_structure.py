@@ -15,7 +15,7 @@ from hierarchicalgnn_torch.inference import InferenceEngine
 from hierarchicalgnn_torch.models.models import build_model
 from hierarchicalgnn_torch.ops.kernels import (
     build, ring_gather, sddmm, segment_gather, sorted_agg, top2)
-from hierarchicalgnn_torch.parallel import comm, graph_shard, halo
+from hierarchicalgnn_torch.parallel import comm, distributed, graph_shard, halo, mesh
 from hierarchicalgnn_torch.utils.config import load_config
 
 import chip_smoke
@@ -67,7 +67,7 @@ def test_building_a_model_leaves_the_global_generator_alone():
 def test_parallel_modules_import_no_jax():
     """The sharded path's modules are the port's own: torch and the port,
     never jax, flax or the JAX package, in their source."""
-    for module in (ring_gather, comm, halo, graph_shard):
+    for module in (ring_gather, comm, halo, graph_shard, distributed, mesh):
         text = inspect.getsource(module)
         imports = re.findall(r"^\s*(?:from|import)\s+([\w.]+)", text, re.M)
         assert imports, module.__name__

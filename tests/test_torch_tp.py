@@ -502,3 +502,39 @@ def test_one_model_rank_is_the_unsharded_step(raws, name):
     for key in MOMENTS:
         for n, value in want_state["opt_state"][key].items():
             assert torch.equal(got_state["opt_state"][key][n], value), (key, n)
+
+
+@pytest.mark.parametrize("model_ranks", [2, 4])
+def test_flagship_tp_step_repeats_bit_for_bit(raws, model_ranks):
+    """The flagship's TP step taken twice from one state gives the same
+    parameters, moments and buffers bit for bit, with a different number of
+    autograd nodes made on the caller's thread before each run.  Autograd
+    runs ready nodes by their sequence numbers, which count per thread; the
+    rank threads are new at every step and the caller's thread is not, so
+    without rank 0's ``handoff`` the order in which the loss's and the ranks'
+    contributions add up moved with the caller's count (30-48 entries of the
+    IN block's gradients in the last bits)."""
+    hp, model, pipeline = _port("BC-HGNN-GMM")
+    model.reset_parameters(torch.Generator().manual_seed(5))
+    start = train_state(model, make_optimizer(list(model.parameters()), hp, 4))
+    event = _events(hp, raws, 1)[0]
+    results = []
+    for n_nodes in (0, 5000):
+        x = torch.ones(1, requires_grad=True)
+        for _ in range(n_nodes):  # autograd nodes on this thread
+            x = x * 1.0
+        load_model_state(model, start)
+        optimizer = make_optimizer(list(model.parameters()), hp, 4)
+        state, step = tp.make_tp_train_step(pipeline, optimizer,
+                                            tp.make_tp_mesh(1, model_ranks, hp["hidden"]),
+                                            start, hp["hidden"], device="cpu")
+        state, metrics = step(state, event, FLAGSHIP_EPOCH)
+        results.append((metrics, tp.unshard_state(state)))
+    (m0, s0), (m1, s1) = results
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    for part in ("params", "buffers"):
+        for n, value in s0[part].items():
+            assert torch.equal(s1[part][n], value), (part, n)
+    for key in MOMENTS:
+        for n, value in s0["opt_state"][key].items():
+            assert torch.equal(s1["opt_state"][key][n], value), (key, n)
