@@ -37,6 +37,16 @@ these phases and fails if any of them fails:
               record the inputs they hand K1-K6 and K8 (``path_keys``) and
               fail on one whose shape and type were not checked here
               (phase 25's at 2 ranks a process: ``PROCESS_GRAPH``);
+ 3b. hdbscan  HD1 (core distances) and HD2 (Prim's MST), the kernels of the
+              embedding models' HDBSCAN, against their plain versions on the
+              card: on the embeddings of one served Embedding-IN event (N
+              about 21.6k, D 8), on coordinates quantised to 0.5 (ties), on
+              N = min_cluster_size points, on identical points, on unit
+              vectors around 400 centres and on 700 points of one feature.  HD1 bit for bit, HD2's edge list
+              element for element (src, dst, the distances' bits), the
+              labels of ``hdbscan_labels`` equal; HD1, HD2 and the host
+              tree timed on the served event, with HD2's step floor (the
+              same N at D 1);
   4. serving  the BC-HGNN-GMM flagship (latent 256, hidden 512, 6 + 6
               iterations, bf16, capacities 24576/49152/3072/4096, seeded
               weights) reconstructs 2 synthetic events of 3000 particles
@@ -59,7 +69,9 @@ these phases and fails if any of them fails:
  10. models   EC-IN, Embedding-IN, Embedding-HGNN-GMM and gMRT from
               ``model_selector`` at their shipped configs (bf16) and the
               flagship capacities: one served event and 2 training steps
-              each, launch counts asserted, and the mined-pair hinge
+              each, launch counts asserted (the embedding models serve
+              through ``reconstruct``: their HDBSCAN candidates, non-empty,
+              with HD1 and HD2 launched once), and the mined-pair hinge
               through the sorted plan beside autograd's index backward;
  11. models parity  the f32 forward of Embedding-HGNN-GMM at depth 2 + 2
               through the kernels and through the plain versions, on one
@@ -80,7 +92,10 @@ these phases and fails if any of them fails:
               phase 4, ``train_split [2,1,1]``): ``train`` 2 epochs, then
               ``checkpoints/{last,best,hparams.json}`` and ``metrics.jsonl``
               checked, ``resume`` to epoch 3, ``test`` (its ``track_eff``
-              line), ``transfer`` BC -> gMRT for 1 epoch; K1-K6 launched;
+              line), ``transfer`` BC -> gMRT for 1 epoch; then ``train
+              --model 2`` (Embedding-IN) 1 epoch and ``test``, whose
+              ``track_eff`` and ``test_track_eff`` (HDBSCAN candidates on the
+              card) are finite; K1-K6, HD1 and HD2 launched;
  17. checkpoint  f32 at depth 2 + 2 under deterministic algorithms: a save
               at step 1 restored into a fresh ``Trainer`` takes step 2 as
               the saving trainer did (loss and every parameter compared), and
@@ -141,7 +156,8 @@ these phases and fails if any of them fails:
 Each phase prints its seconds on a line of its own, and the script its
 total before the kernel table.
 
-The second-to-last line is the kernel table as JSON; the last line is
+The second-to-last line is the kernel table as JSON (K1-K8, then HD1 and
+HD2, which replace no Pallas kernel); the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -164,10 +180,15 @@ FLAGSHIP = {"n_nodes_max": 24576, "n_edges_max": 49152, "max_clusters": 3072,
 N_PARTICLES = 3000
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM non-tensor f32
+# H100 SXM non-tensor f64: the data sheet's 34 TFLOP/s counts an FMA as two
+# operations; HD1/HD2 issue a separate sub, mul and add, each one operation
+# at the FMA's instruction rate, so half of it
+F64_OPS_PER_S = 34e12 / 2
 CSRC = "hierarchicalgnn_torch/csrc/"
 SOURCES = {"K1": "segment_csr.cu", "K2": "segment_csr.cu", "K5": "segment_csr.cu",
            "K3": "sddmm_csr.cu", "K4": "sddmm_csr.cu", "K6": "top2.cu",
-           "K7": "segment_gather.cu", "K8": "ring_gather.cu"}
+           "K7": "segment_gather.cu", "K8": "ring_gather.cu",
+           "HD1": "hdbscan.cu", "HD2": "hdbscan.cu"}
 REPLACES = {
     "K1": "hierarchicalgnn_tpu/ops/pallas/sorted_agg.py:148",
     "K2": "hierarchicalgnn_tpu/ops/pallas/sorted_agg.py:252",
@@ -177,11 +198,15 @@ REPLACES = {
     "K6": "hierarchicalgnn_tpu/ops/pallas/top2.py:31",
     "K7": "hierarchicalgnn_tpu/ops/pallas/segment_kernel.py:114",
     "K8": "hierarchicalgnn_tpu/ops/pallas/ring_gather.py:32",
+    "HD1": "sklearn.cluster.HDBSCAN (host) via hierarchicalgnn_tpu/evaluation/candidates.py:43",
+    "HD2": "sklearn.cluster.HDBSCAN (host) via hierarchicalgnn_tpu/evaluation/candidates.py:43",
 }
 NAMES = {"K1": "K1 sorted_aggregate", "K2": "K2 sorted_aggregate_weighted",
          "K5": "K5 sorted_segment_min_i32", "K3": "K3 sorted_sddmm",
          "K4": "K4 scaled_gather", "K6": "K6 row_top2", "K7": "K7 csr_segment_sum",
          "K8": "K8 ring_all_gather"}
+# the kernels of the embedding models' HDBSCAN: no Pallas counterpart
+HD_NAMES = {"HD1": "HD1 core_distances", "HD2": "HD2 prim_mst"}
 # the kernels' names in a profiler trace (K1/K2: the bf16 tile kernel, K7 its
 # tile kernel; the fix-up, a second device launch of the same call, is
 # FIXUP_TAGS)
@@ -189,7 +214,8 @@ PROFILE_TAGS = {"K1": "csr_tile_sum_kernel<__nv_bfloat16, false>",
                 "K2": "csr_tile_sum_kernel<__nv_bfloat16, true>",
                 "K5": "csr_min_i32_kernel", "K3": "sddmm_kernel<",
                 "K4": "scaled_gather_kernel<", "K6": "row_top2_kernel",
-                "K7": "csr_gather_tile_kernel<", "K8": "all_gather_kernel<"}
+                "K7": "csr_gather_tile_kernel<", "K8": "all_gather_kernel<",
+                "HD1": "core_distance_kernel<", "HD2": "prim_mst_kernel"}
 FIXUP_TAGS = {"K1": "csr_tile_fixup_kernel<__nv_bfloat16, false>",
               "K2": "csr_tile_fixup_kernel<__nv_bfloat16, true>",
               "K7": "csr_gather_fixup_kernel<"}
@@ -240,9 +266,11 @@ def _device_us(ev):
 
 
 def device_ms(torch, fn, tags, iters=10):
-    """Device ms per call of ``fn`` in the kernels whose names hold each of
-    ``tags`` (torch.profiler over ``iters`` calls, after one warm-up); None
-    for a tag the profiler did not see."""
+    """Device ms per launch of the kernels whose names hold each of ``tags``
+    (torch.profiler over ``iters`` calls of ``fn``, one launch of each a
+    call, after one warm-up); None for a tag the profiler did not see.  The
+    mean is over the launches the profiler reports: it has shown fewer than
+    were made (2 of 3 and 2 of 5 calls of the HDBSCAN kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -257,7 +285,10 @@ def device_ms(torch, fn, tags, iters=10):
         found = {}
         for tag in tags:
             hits = [ev for ev in events if tag in ev.key]
-            found[tag] = sum(_device_us(ev) for ev in hits) / 1e3 / iters if hits else None
+            seen = sum(ev.count for ev in hits)
+            found[tag] = sum(_device_us(ev) for ev in hits) / 1e3 / seen if seen else None
+            if seen and seen != iters:
+                log(f"  profiler: {seen} launches of {tag} in {iters} calls")
         if any(v is not None for v in found.values()):
             break
     return found
@@ -953,6 +984,119 @@ def gather_boundary_case(torch, gen, sg, label, degrees, n_invalid):
     return checked
 
 
+def hdbscan_cases(torch, served, m):
+    """(label, [N, D] float64 on the card) for the hdbscan phase: the served
+    event's embeddings, then the edge inputs."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    centres = rng.normal(size=(400, 8))
+    centres /= np.linalg.norm(centres, axis=1, keepdims=True)
+    blobs = centres[rng.integers(0, 400, 8000)] + 0.03 * rng.normal(size=(8000, 8))
+    blobs /= np.linalg.norm(blobs, axis=1, keepdims=True)
+    ties = np.round(rng.uniform(0, 6, (3000, 8)) * 2) / 2
+    cases = [("coordinates quantised to 0.5 (ties)", ties),
+             ("N = min_cluster_size", rng.normal(size=(m, 8))),
+             ("all points equal", np.ones((500, 8))),
+             ("unit vectors around 400 centres", blobs),
+             ("one feature", rng.normal(size=(700, 1)))]
+    return [("served Embedding-IN event (seed 0)", served)] + [
+        (label, torch.as_tensor(x, dtype=torch.float64, device="cuda").contiguous())
+        for label, x in cases]
+
+
+def phase_hdbscan(torch, events):
+    """HD1 and HD2 against their plain versions on the card (the plain
+    versions run on the same card tensors), the labels of the kernels' path
+    against the labels of the plain edges, and the times of HD1, HD2 and the
+    host tree on the served event.  Returns the kernel table's rows."""
+    import numpy as np
+
+    from hierarchicalgnn_torch.data.event import preprocess_event
+    from hierarchicalgnn_torch.evaluation.hdbscan import hdbscan_labels, labels_from_mst
+    from hierarchicalgnn_torch.inference import InferenceEngine
+    from hierarchicalgnn_torch.models.registry import model_selector
+    from hierarchicalgnn_torch.ops.kernels import hdbscan as hd
+
+    hp, model, _ = model_selector("Embedding-IN", FLAGSHIP)
+    m = hp["inference_min_cluster_size"]
+    engine = InferenceEngine(hp, model)
+    batch = preprocess_event(events[0], hp, stage="test")
+    mask = torch.as_tensor(batch.node_mask, device=engine.device)
+    served = engine.forward(batch)[mask].to(torch.float64).contiguous()
+    del engine, model
+    plain_hd2_ms = None
+    for label, x in hdbscan_cases(torch, served, m):
+        n, d = x.shape
+        core, core_plain = hd.core_distances(x, m), hd.core_distances_plain(x, m)
+        torch.cuda.synchronize()
+        if not torch.equal(core.view(torch.int64), core_plain.view(torch.int64)):
+            raise AssertionError(f"HD1 {label}: core distances differ from the plain version")
+        edges = hd.prim_mst(x, core)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_edges = hd.prim_mst_plain(x, core)
+        torch.cuda.synchronize()
+        if plain_hd2_ms is None:  # the served event comes first
+            plain_hd2_ms = 1e3 * (time.perf_counter() - t0)
+        for got, want, what in zip(edges, plain_edges, ("src", "dst", "distance")):
+            if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
+                raise AssertionError(f"HD2 {label}: the edges' {what} differ from the plain "
+                                     "version's")
+        labels = hdbscan_labels(x, m)
+        plain_labels = labels_from_mst(*(t.cpu().numpy() for t in plain_edges), m)
+        if not np.array_equal(labels, plain_labels):
+            raise AssertionError(f"hdbscan_labels {label}: the labels differ from those of "
+                                 "the plain edges")
+        log(f"hdbscan {label} N={n} D={d}: HD1 bit for bit, HD2's {n - 1} edges equal, "
+            f"labels equal ({labels.max() + 1} clusters, {int((labels == -1).sum())} noise)")
+
+    x = served
+    n, d = x.shape
+    cut = hd.mst_schedule(n, d, torch.cuda.get_device_properties(0).multi_processor_count)
+    core = hd.core_distances(x, m)
+    hd1 = lambda: hd.core_distances(x, m)
+    hd2 = lambda: hd.prim_mst(x, core)
+    x1 = x[:, :1].contiguous()  # the same steps and grid, 1/8 of the arithmetic
+    ms = {"HD1": time_ms(torch, hd1, iters=10), "HD2": time_ms(torch, hd2, iters=5)}
+    dev_ms = {"HD1": device_ms(torch, hd1, (PROFILE_TAGS["HD1"],), iters=5)[PROFILE_TAGS["HD1"]],
+              "HD2": device_ms(torch, hd2, (PROFILE_TAGS["HD2"],), iters=3)[PROFILE_TAGS["HD2"]]}
+    floor_ms = time_ms(torch, lambda: hd.prim_mst(x1, core), iters=5)
+    plain_ms = {"HD1": time_ms(torch, lambda: hd.core_distances_plain(x, m), iters=2),
+                "HD2": plain_hd2_ms}
+    lib_ms = time_ms(torch, lambda: torch.cdist(x, x).kthvalue(m, dim=1), iters=3)
+    edges = [t.cpu().numpy() for t in hd2()]
+    t0 = time.perf_counter()
+    for _ in range(3):
+        labels_from_mst(*edges, m)
+    tree_ms = 1e3 * (time.perf_counter() - t0) / 3
+    pairs = n * (n - 1) / 2
+    bounds = {}
+    for kernel, n_bytes, n_ops in (("HD1", 8 * n * d + 8 * n, 3 * d * pairs),
+                                   ("HD2", 8 * n * d + 8 * n + 24 * (n - 1), (3 * d + 3) * pairs)):
+        by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F64_OPS_PER_S
+        bounds[kernel] = (1e3 * max(by_bytes, by_ops),
+                          "bytes" if by_bytes >= by_ops else "operations")
+    rows = {}
+    for kernel in HD_NAMES:
+        rows[kernel] = {"max_abs_err": 0.0, "ms": ms[kernel], "plain_ms": plain_ms[kernel],
+                        "bound_ms": bounds[kernel][0], "bound_by": bounds[kernel][1],
+                        "library_ms": lib_ms if kernel == "HD1" else None,
+                        "device_ms": dev_ms[kernel],
+                        "shape": f"served Embedding-IN event N={n} D={d} k={m} float64"}
+    rows["HD2"].update(step_floor_ms=floor_ms, host_tree_ms=tree_ms, grid=cut.grid,
+                       points_per_block=cut.points)
+    log(f"HD1 N={n} D={d} k={m}: ms {ms['HD1']:.4f} device_ms {dev_ms['HD1']} plain_ms "
+        f"{plain_ms['HD1']:.4f} library_ms {lib_ms:.4f} [cdist + kthvalue, f64] bound_ms "
+        f"{bounds['HD1'][0]:.4f} ({bounds['HD1'][1]})")
+    log(f"HD2 N={n} D={d}: ms {ms['HD2']:.4f} device_ms {dev_ms['HD2']} plain_ms "
+        f"{plain_hd2_ms:.1f} (host clock, one call) bound_ms {bounds['HD2'][0]:.4f} "
+        f"({bounds['HD2'][1]}); step floor (D 1) {floor_ms:.4f} ms = "
+        f"{1e3 * floor_ms / (n - 1):.3f} us a step over {cut.grid} blocks of {cut.points} points")
+    log(f"host tree (labels_from_mst) N={n}: {tree_ms:.1f} ms (host clock, mean of 3)")
+    return rows
+
+
 def phase_aggregator(torch):
     """K7's entry point: ``make_aggregator(use_pallas=True)`` builds one
     layout of the flagship flat graph and sums six edge tensors over it (one
@@ -1470,6 +1614,8 @@ def phase_models(torch, events):
     Returns the summed launch counts and one record per model."""
     import math
 
+    import numpy as np
+
     from hierarchicalgnn_torch.data.event import preprocess_event
     from hierarchicalgnn_torch.inference import InferenceEngine
     from hierarchicalgnn_torch.models.registry import model_selector
@@ -1488,15 +1634,7 @@ def phase_models(torch, events):
 
         # ---- serving
         engine = InferenceEngine(hp, model)
-        if name.startswith("Embedding"):
-            # the embedding models build their candidates with HDBSCAN from
-            # scikit-learn, which a machine with only the port's requirements
-            # lacks: serve the embeddings
-            serve = lambda raw: engine.forward(preprocess_event(raw, hp, stage="test"))
-            served = "InferenceEngine.forward (embeddings; candidates need scikit-learn)"
-        else:
-            serve = engine.reconstruct
-            served = "InferenceEngine.reconstruct"
+        serve = engine.reconstruct
         serve(events[2])  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1509,7 +1647,8 @@ def phase_models(torch, events):
         rec["serve_launches"] = counts
         rec["serve_host_syncs"] = engine.last_stats.get("host_syncs", 0)
         rec["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        log(f"{name} serve event seed=0 through {served}: {rec['serve_ms']:.1f} ms (host "
+        log(f"{name} serve event seed=0 through InferenceEngine.reconstruct: "
+            f"{rec['serve_ms']:.1f} ms (host "
             f"clock), host_syncs={rec['serve_host_syncs']}, launches="
             f"{ {k: v for k, v in counts.items() if v} }, peak memory "
             f"{rec['serve_peak_gib']:.2f} GiB, stats={engine.last_stats}")
@@ -1517,6 +1656,11 @@ def phase_models(torch, events):
             assert counts[kernel] == n, (name, kernel, counts)
         assert (counts["K5"] >= 2) == (name != "Embedding-IN"), (name, counts)
         assert not any(counts[k] for k in ("K3", "K4", "K6", "K7")), (name, counts)
+        # the embedding models' HDBSCAN: one core-distance and one MST launch
+        hd_expect = 1 if name.startswith("Embedding") else 0
+        assert counts["HD1"] == counts["HD2"] == hd_expect, (name, counts)
+        # ... and its two host reads (the finite check, the edges) are counted
+        assert rec["serve_host_syncs"] >= 2 * hd_expect, (name, engine.last_stats)
         for k in totals:
             totals[k] += counts[k]
         # outputs: finite, embeddings of unit norm, scores in [0, 1]
@@ -1538,7 +1682,10 @@ def phase_models(torch, events):
             # seeded weights may put no bipartite score above the cut; the edge
             # classifier's candidates then keep every edge
             assert out.shape[0] == 2 and (out.shape[1] > 0 or name == "gMRT"), out.shape
-            log(f"{name}: {out.shape[1]} (hit, track) candidates")
+        if name.startswith("Embedding"):
+            assert out.shape[0] == 2 and out.shape[1] > 0, out.shape
+        log(f"{name}: {out.shape[1]} (hit, track) candidates, "
+            f"{len(np.unique(out[1]))} tracks")
         _, _, rec["serve_busy_ms"] = profile_call(
             torch, lambda: serve(events[0]), rec["serve_ms"], f"{name}: one served event",
             (), top=0)
@@ -2307,7 +2454,8 @@ def _scratch_dir():
 def phase_cli(torch):
     """The CLI on the card at the flagship's width: ``train`` 2 epochs on
     ``train_split [2,1,1]``, ``resume`` to epoch 3, ``test``, and
-    ``transfer`` BC -> gMRT for 1 epoch.  Returns the launch counts of the
+    ``transfer`` BC -> gMRT for 1 epoch; then Embedding-IN ``train`` 1 epoch
+    and ``test`` (HDBSCAN candidates).  Returns the launch counts of the
     whole phase (this slice's main path)."""
     import contextlib
     import io
@@ -2355,13 +2503,34 @@ def phase_cli(torch):
         t_transfer = time.perf_counter() - t0
         moved = restore_checkpoint(gmrt, "last")
         assert moved["epoch"] == 0 and moved["step"] == 2, (moved["epoch"], moved["step"])
+
+        # an embedding model: its validation and test build HDBSCAN candidates
+        emb = f"{tmp}/emb"
+        t0 = time.perf_counter()
+        run.main(["train", "--model", "2", "--run-dir", emb, "--max-epochs", "1", *common])
+        t_emb_train = time.perf_counter() - t0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            run.main(["test", "--run-dir", emb, *common])
+        t_emb_test = time.perf_counter() - t0
+        emb_tested = json.loads(out.getvalue().strip().splitlines()[-1])
+        log(f"cli Embedding-IN test: {out.getvalue().strip().splitlines()[-1]}")
+        records = [json.loads(line)
+                   for line in Path(emb, "metrics.jsonl").read_text().splitlines()]
+        effs = ([r["track_eff"] for r in records if "track_eff" in r]
+                + [r["test_track_eff"] for r in records if "test_track_eff" in r])
+        assert any("test_track_eff" in r for r in records) and len(effs) >= 2, records
+        assert all(math.isfinite(e) and 0.0 <= e <= 1.0 for e in effs + [emb_tested["track_eff"]])
+        log(f"cli Embedding-IN: track_eff (validation, then test) {effs}")
         torch.cuda.synchronize()
     counts = dict(sa.LAUNCHES)
     log(f"cli: train 2 epochs {t_train:.1f} s, resume 1 epoch {t_resume:.1f} s, test "
-        f"{t_test:.1f} s, transfer BC -> gMRT 1 epoch {t_transfer:.1f} s (host clock, each "
+        f"{t_test:.1f} s, transfer BC -> gMRT 1 epoch {t_transfer:.1f} s, Embedding-IN train "
+        f"1 epoch {t_emb_train:.1f} s and test {t_emb_test:.1f} s (host clock, each "
         f"with its model build and 4 synthetic events); checkpoint {size / 2**20:.1f} MiB; "
         f"launches {counts}")
-    for kernel in ("K1", "K2", "K3", "K4", "K5", "K6"):
+    for kernel in ("K1", "K2", "K3", "K4", "K5", "K6", "HD1", "HD2"):
         assert counts[kernel] > 0, f"the CLI never launched {kernel}"
     return counts
 
@@ -3492,8 +3661,9 @@ def main():
     phase_device(torch)
     timed("build", phase_build)
     rows = timed("kernels", phase_kernels, torch)
-    aggregator = timed("aggregator", phase_aggregator, torch)
     events = flagship_events()
+    rows.update(timed("hdbscan", phase_hdbscan, torch, events))
+    aggregator = timed("aggregator", phase_aggregator, torch)
     serving, serving_ms = timed("serving", phase_serving, torch, events)
     timed("parity", phase_parity, torch)
     timed("gradients", phase_gradients, torch)
@@ -3534,6 +3704,9 @@ def main():
         assert tp_training[kernel] > 0, f"the TP training step never launched {kernel}"
     for kernel in SHARDED_STEP_KERNELS:
         assert processes[kernel] > 0, f"the step over processes never launched {kernel}"
+    for kernel in HD_NAMES:  # the embedding models' reconstruct, validation and test
+        assert models[kernel] > 0, f"the embedding models' serving never launched {kernel}"
+        assert cli[kernel] > 0, f"the embedding model's CLI run never launched {kernel}"
     table = [{"name": NAMES[k], "route": "cuda", "source": CSRC + SOURCES[k],
               "replaces": REPLACES[k],
               "launches": (serving[k] + training[k] + models[k] + aggregator[k]
@@ -3560,6 +3733,10 @@ def main():
               "sharded_ms_per_launch": sharded_ms.get(k),
               "sharded_training_ms_per_launch": sharded_training_ms.get(k)}
              for k in NAMES]
+    table += [{"name": HD_NAMES[k], "route": "cuda", "source": CSRC + SOURCES[k],
+               "replaces": REPLACES[k], "launches": models[k] + cli[k],
+               "launches_four_models": models[k], "launches_cli": cli[k], **rows[k]}
+              for k in HD_NAMES]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

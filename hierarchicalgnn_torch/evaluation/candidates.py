@@ -3,8 +3,10 @@
 Counterpart of ``hierarchicalgnn_tpu/evaluation/candidates.py``:
   * EC: score-cut the input edges -> connected components on the device ->
     candidate labels (reference ``edge_classifier_base.py:156-165``).
-  * Embedding: HDBSCAN clustering of the final embeddings on the host
-    (reference ``embedding_base.py:266-270``); needs scikit-learn.
+  * Embedding: HDBSCAN clustering of the final embeddings (reference
+    ``embedding_base.py:266-270``) with the port's own HDBSCAN
+    (``evaluation/hdbscan.py``): core distances and the MST as kernels on
+    the embeddings' device, the tree on the host.
   * BC/gMRT: the bipartite graph filtered by the score cut (reference
     ``bipartite_classification_base.py:262``).
 
@@ -18,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from hierarchicalgnn_torch.evaluation.hdbscan import hdbscan_labels
 from hierarchicalgnn_torch.ops.connected import cluster_labels
 
 
@@ -43,22 +46,20 @@ def ec_candidates(scores, batch, hparams, stats=None):
     return np.stack([inverse[sel], clusters[sel]])
 
 
-def embedding_candidates(embeddings, batch, hparams):
-    """HDBSCAN spatial clustering of the embedding space on the host
-    (``embeddings``: a tensor or an array).  Raises ``ImportError`` where
-    scikit-learn is not installed."""
-    from sklearn.cluster import HDBSCAN
-
-    if isinstance(embeddings, torch.Tensor):
-        embeddings = embeddings.cpu().numpy()
+def embedding_candidates(embeddings, batch, hparams, stats=None):
+    """HDBSCAN spatial clustering of the embedding space: the valid rows
+    (``node_mask``) as float64 on the embeddings' own device
+    (``embeddings``: a tensor or an array), the labels of
+    ``sklearn.cluster.HDBSCAN(min_cluster_size, metric="euclidean",
+    cluster_selection_method="eom")`` exactly.  ``stats["host_syncs"]``
+    counts the HDBSCAN's host reads."""
+    embeddings = torch.as_tensor(embeddings)
     node_mask = np.asarray(batch.node_mask)
-    emb = np.asarray(embeddings)[node_mask]
-    if len(emb) < hparams["inference_min_cluster_size"]:
+    rows = np.flatnonzero(node_mask)  # on the host: selecting them reads nothing back
+    if len(rows) < hparams["inference_min_cluster_size"]:
         return np.zeros((2, 0), np.int64)
-    clusterer = HDBSCAN(
-        min_cluster_size=hparams["inference_min_cluster_size"],
-        metric="euclidean", cluster_selection_method="eom")
-    clusters = clusterer.fit_predict(emb.astype(np.float64))
+    emb = embeddings[torch.as_tensor(rows, device=embeddings.device)].to(torch.float64)
+    clusters = hdbscan_labels(emb, hparams["inference_min_cluster_size"], stats=stats)
     inverse = np.asarray(batch.inverse_mask)[node_mask]
     sel = clusters >= 0
     return np.stack([inverse[sel], clusters[sel]])

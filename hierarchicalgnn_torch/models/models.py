@@ -170,7 +170,7 @@ class EmbeddingIN(_Model):
         return SHARDED  # embeddings [N, emb_dim]
 
     def candidates(self, out, host_batch, hparams, stats=None):
-        return candidates.embedding_candidates(out, host_batch, hparams)
+        return candidates.embedding_candidates(out, host_batch, hparams, stats=stats)
 
 
 class EmbeddingHGNNGMM(_Model):
@@ -206,7 +206,7 @@ class EmbeddingHGNNGMM(_Model):
         return (SHARDED, SHARDED, REPLICATED)
 
     def candidates(self, out, host_batch, hparams, stats=None):
-        return candidates.embedding_candidates(out[0], host_batch, hparams)
+        return candidates.embedding_candidates(out[0], host_batch, hparams, stats=stats)
 
 
 class _BipartiteScorer(_Model):

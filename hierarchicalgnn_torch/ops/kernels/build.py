@@ -67,6 +67,12 @@ SIGNATURES = {
         # (a, prices, out[3, n_rows], n_rows, n_cols, warps_per_row, grid, stream)
         "hgnn_row_top2_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     },
+    "hdbscan.cu": {
+        # (x, out, n, d, k, stream)
+        "hgnn_core_distances_f64": (_P, _P, _I, _I, _I, _P),
+        # (x, core, src, dst, dist, cand, barrier, n, d, grid, points, smem, stream)
+        "hgnn_prim_mst_f64": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
 }
 
 

@@ -10,6 +10,8 @@ exactly, embeddings and scores agree within 1e-4 (f32 matmuls in another
 summation order through 2 + 2 iterations).  bf16 is only run end to end.
 """
 
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -171,20 +173,29 @@ def test_ec_candidates_all_edges_when_none_pass(pairs, raw):
     assert len(np.unique(got[1])) < got.shape[1]
 
 
-def test_embedding_candidates_match_jax(pairs, raw):
+@pytest.mark.parametrize("case", ["Embedding-IN", "Embedding-HGNN-GMM"])
+def test_embedding_candidates_match_jax(pairs, raw, case, monkeypatch):
     """The same embeddings give the same HDBSCAN candidates in both
-    packages, and ``reconstruct`` goes through them."""
-    pytest.importorskip("sklearn")
-    j_engine, batch, engine = pairs("Embedding-IN")
+    packages, the port's with scikit-learn blocked (it clusters with its own
+    HDBSCAN), and ``reconstruct`` goes through them."""
+    pytest.importorskip("sklearn")  # the JAX package's side
+    j_engine, batch, engine = pairs(case)
     host = preprocess_event(raw, engine.hparams, stage="test")
-    emb = N(engine.forward(host))
-    got = candidates.embedding_candidates(emb, host, engine.hparams)
+    out = engine.forward(host)
+    emb = N(out if case == "Embedding-IN" else out[0])
     want = j_cand.embedding_candidates(emb, batch, engine.hparams)
+    with monkeypatch.context() as blocked:
+        for name in [m for m in sys.modules if m == "sklearn" or m.startswith("sklearn.")]:
+            blocked.setitem(sys.modules, name, None)
+        with pytest.raises(ImportError):
+            import sklearn.cluster  # noqa: F401
+        got = candidates.embedding_candidates(emb, host, engine.hparams)
+        served = engine.reconstruct(raw)
+        few = {**engine.hparams, "inference_min_cluster_size": 10 ** 6}
+        assert candidates.embedding_candidates(emb, host, few).shape == (2, 0)
     assert got.shape[1] > 0
     np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(engine.reconstruct(raw), got)
-    few = {**engine.hparams, "inference_min_cluster_size": 10 ** 6}
-    assert candidates.embedding_candidates(emb, host, few).shape == (2, 0)
+    np.testing.assert_array_equal(served, got)
 
 
 @pytest.mark.parametrize("name", ["EC-IN", "Embedding-IN", "Embedding-HGNN-GMM", "gMRT"])

@@ -133,8 +133,6 @@ def test_fit_bf16(name, events):
     ``fit`` over 4 events with validation through the model's own candidate
     function; every metric and parameter stays finite, ``score_cut`` below
     the atanh clamp (8.38), the buffers move, and the weights moved."""
-    if name.startswith("Embedding"):
-        pytest.importorskip("sklearn")  # validation clusters with HDBSCAN
     hp, model, pipeline = model_selector(name, TRAIN)
     assert hp["compute_dtype"] == "bfloat16" and hp["remat"] is False
     trainer = Trainer(hp, model, pipeline, device="cpu")

@@ -14,7 +14,7 @@ import torch
 from hierarchicalgnn_torch.inference import InferenceEngine
 from hierarchicalgnn_torch.models.models import build_model
 from hierarchicalgnn_torch.ops.kernels import (
-    build, ring_gather, sddmm, segment_gather, sorted_agg, top2)
+    build, hdbscan, ring_gather, sddmm, segment_gather, sorted_agg, top2)
 from hierarchicalgnn_torch.parallel import comm, distributed, graph_shard, halo, mesh
 from hierarchicalgnn_torch.utils.config import load_config
 
@@ -29,15 +29,15 @@ import hierarchicalgnn_torch, chip_smoke
 for m in pkgutil.walk_packages(hierarchicalgnn_torch.__path__, "hierarchicalgnn_torch."):
     importlib.import_module(m.name)
 bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "flax", "hierarchicalgnn_tpu"))
+             if n.split(".")[0] in ("jax", "jaxlib", "flax", "hierarchicalgnn_tpu", "sklearn"))
 print(len([n for n in sys.modules if n.startswith("hierarchicalgnn_torch.")]))
 sys.exit(f"loaded: {bad}" if bad else 0)
 """
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke, import without JAX, flax
-    or the JAX package (in a fresh interpreter)."""
+    """Every module of the port, and chip_smoke, import without JAX, flax,
+    the JAX package or scikit-learn (in a fresh interpreter)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     out = subprocess.run([sys.executable, "-c", _PURITY], cwd=REPO, env=env,
@@ -141,7 +141,8 @@ def test_kernel_sources_and_build_flags():
     the build targets sm_90a."""
     sources = sorted(path.name for path in build.CSRC_DIR.glob("*.cu"))
     assert sources == sorted(build.SIGNATURES) == [
-        "ring_gather.cu", "sddmm_csr.cu", "segment_csr.cu", "segment_gather.cu", "top2.cu"]
+        "hdbscan.cu", "ring_gather.cu", "sddmm_csr.cu", "segment_csr.cu", "segment_gather.cu",
+        "top2.cu"]
     for source, entries in build.SIGNATURES.items():
         src = (build.CSRC_DIR / source).read_text()
         assert "__global__" in src and 'extern "C"' in src
@@ -172,21 +173,22 @@ def test_kernel_sources_and_build_flags():
     # the wrappers name entry points that exist
     for module, source in ((sorted_agg, "segment_csr.cu"), (sddmm, "sddmm_csr.cu"),
                            (top2, "top2.cu"), (segment_gather, "segment_gather.cu"),
-                           (ring_gather, "ring_gather.cu")):
+                           (ring_gather, "ring_gather.cu"), (hdbscan, "hdbscan.cu")):
         text = inspect.getsource(module)
         assert all(name in text for name in build.SIGNATURES[source]), source
 
 
 def test_every_kernel_wrapper_has_a_plain_sibling_and_a_counter():
-    """K1-K8: wrapper, plain version in the same module, launch counter; and
-    no ``try`` around a build or a launch."""
+    """K1-K8 and HD1/HD2: wrapper, plain version in the same module, launch
+    counter; and no ``try`` around a build or a launch."""
     wrappers = {"K1": (sorted_agg, "sorted_aggregate"),
                 "K2": (sorted_agg, "sorted_aggregate_weighted"),
                 "K5": (sorted_agg, "sorted_segment_min_i32"),
                 "K3": (sddmm, "sorted_sddmm"), "K4": (sddmm, "scaled_gather"),
                 "K6": (top2, "row_top2"),
                 "K7": (segment_gather, "csr_segment_sum"),
-                "K8": (ring_gather, "ring_all_gather")}
+                "K8": (ring_gather, "ring_all_gather"),
+                "HD1": (hdbscan, "core_distances"), "HD2": (hdbscan, "prim_mst")}
     assert set(sorted_agg.LAUNCHES) == set(wrappers)
     for kernel, (module, name) in wrappers.items():
         assert callable(getattr(module, name)) and callable(getattr(module, name + "_plain"))
