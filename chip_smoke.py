@@ -40,13 +40,20 @@ these phases and fails if any of them fails:
  3b. hdbscan  HD1 (core distances) and HD2 (Prim's MST), the kernels of the
               embedding models' HDBSCAN, against their plain versions on the
               card: on the embeddings of one served Embedding-IN event (N
-              about 21.6k, D 8), on coordinates quantised to 0.5 (ties), on
+              about 21.2k, D 8), on coordinates quantised to 0.5 (ties), on
               N = min_cluster_size points, on identical points, on unit
-              vectors around 400 centres and on 700 points of one feature.  HD1 bit for bit, HD2's edge list
-              element for element (src, dst, the distances' bits), the
-              labels of ``hdbscan_labels`` equal; HD1, HD2 and the host
-              tree timed on the served event, with HD2's step floor (the
-              same N at D 1);
+              vectors around 400 centres and on 700 points of one feature.
+              HD1 bit for bit; HD2's cluster route (the size the card's
+              occupancy query gives, printed) and, on the served event, its
+              cooperative route element for element (src, dst, the
+              distances' bits); the labels of ``hdbscan_labels`` equal; on
+              80000 random points (above the cluster's capacity) HD1 bit for
+              bit and ``prim_mst`` on the cooperative route by the route
+              counters, its tree checked by invariants (N - 1 edges, every
+              node but 0 reached once, every weight recomputed bit for bit);
+              HD1 (with its S and Q), both HD2 routes and the host tree timed
+              on the served event, with each route's step floor (the same N
+              at D 1);
   4. serving  the BC-HGNN-GMM flagship (latent 256, hidden 512, 6 + 6
               iterations, bf16, capacities 24576/49152/3072/4096, seeded
               weights) reconstructs 2 synthetic events of 3000 particles
@@ -71,7 +78,8 @@ these phases and fails if any of them fails:
               flagship capacities: one served event and 2 training steps
               each, launch counts asserted (the embedding models serve
               through ``reconstruct``: their HDBSCAN candidates, non-empty,
-              with HD1 and HD2 launched once), and the mined-pair hinge
+              with HD1 and HD2 launched once, HD2 by the cluster
+              route), and the mined-pair hinge
               through the sorted plan beside autograd's index backward;
  11. models parity  the f32 forward of Embedding-HGNN-GMM at depth 2 + 2
               through the kernels and through the plain versions, on one
@@ -215,7 +223,9 @@ PROFILE_TAGS = {"K1": "csr_tile_sum_kernel<__nv_bfloat16, false>",
                 "K5": "csr_min_i32_kernel", "K3": "sddmm_kernel<",
                 "K4": "scaled_gather_kernel<", "K6": "row_top2_kernel",
                 "K7": "csr_gather_tile_kernel<", "K8": "all_gather_kernel<",
-                "HD1": "core_distance_kernel<", "HD2": "prim_mst_kernel"}
+                "HD1": "core_distance_kernel<", "HD2": "prim_mst_cluster_kernel<"}
+# HD2's cooperative route (N above the cluster's capacity) in a trace
+COOP_TAG = "prim_mst_kernel"
 FIXUP_TAGS = {"K1": "csr_tile_fixup_kernel<__nv_bfloat16, false>",
               "K2": "csr_tile_fixup_kernel<__nv_bfloat16, true>",
               "K7": "csr_gather_fixup_kernel<"}
@@ -241,6 +251,7 @@ K8_PROCESS_SHAPES = ((12288, 3), (12288, 8), (12288, 256), (1536, 256), (12288,)
 PATH_CHECKED = set()
 WATCHDOG_S = 300  # a phase that waits on K8's flags longer than this ends the run
 GRID_FULL_N = 131072  # the grid kNN's full-event point (hierarchicalgnn_tpu/ops/grid_knn.py:33)
+HD2_ABOVE_CAPACITY = 80000  # points above HD2's cluster capacity at D 8 (16 x 1024 x 4 = 65536)
 
 
 def log(msg):
@@ -1005,11 +1016,26 @@ def hdbscan_cases(torch, served, m):
         for label, x in cases]
 
 
+def _same_bits(torch, a, b):
+    return a.shape == b.shape and torch.equal(
+        a.view(torch.int64) if a.dtype == torch.float64 else a,
+        b.view(torch.int64) if b.dtype == torch.float64 else b)
+
+
+def _route_counts(sa, before):
+    return {k: sa.LAUNCHES[k] - before[k] for k in ("HD2", "HD2_cluster", "HD2_coop")}
+
+
 def phase_hdbscan(torch, events):
     """HD1 and HD2 against their plain versions on the card (the plain
-    versions run on the same card tensors), the labels of the kernels' path
-    against the labels of the plain edges, and the times of HD1, HD2 and the
-    host tree on the served event.  Returns the kernel table's rows."""
+    versions run on the same card tensors): HD1 bit for bit on every input,
+    HD2's cluster route element for element on every input and its
+    cooperative route on the served event; above the cluster's capacity
+    ``prim_mst`` takes the cooperative route (by the route counters), and its
+    tree holds the invariants; the labels of the kernels' path against the
+    labels of the plain edges; the times of HD1, both HD2 routes, their step
+    floors and the host tree on the served event.  Returns the kernel
+    table's rows."""
     import numpy as np
 
     from hierarchicalgnn_torch.data.event import preprocess_event
@@ -1017,6 +1043,7 @@ def phase_hdbscan(torch, events):
     from hierarchicalgnn_torch.inference import InferenceEngine
     from hierarchicalgnn_torch.models.registry import model_selector
     from hierarchicalgnn_torch.ops.kernels import hdbscan as hd
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
 
     hp, model, _ = model_selector("Embedding-IN", FLAGSHIP)
     m = hp["inference_min_cluster_size"]
@@ -1025,22 +1052,37 @@ def phase_hdbscan(torch, events):
     mask = torch.as_tensor(batch.node_mask, device=engine.device)
     served = engine.forward(batch)[mask].to(torch.float64).contiguous()
     del engine, model
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cluster, wide, narrow = hd.mst_cluster_size(0)
+    log(f"HD2 cluster size {cluster} (cudaOccupancyMaxActiveClusters: {wide} clusters of 16, "
+        f"{narrow} of 8 CTAs at {hd.SMEM_BYTES} bytes of shared memory a CTA)")
     plain_hd2_ms = None
     for label, x in hdbscan_cases(torch, served, m):
         n, d = x.shape
         core, core_plain = hd.core_distances(x, m), hd.core_distances_plain(x, m)
         torch.cuda.synchronize()
-        if not torch.equal(core.view(torch.int64), core_plain.view(torch.int64)):
+        if not _same_bits(torch, core, core_plain):
             raise AssertionError(f"HD1 {label}: core distances differ from the plain version")
+        before = dict(sa.LAUNCHES)
         edges = hd.prim_mst(x, core)
         torch.cuda.synchronize()
+        if _route_counts(sa, before) != {"HD2": 1, "HD2_cluster": 1, "HD2_coop": 0}:
+            raise AssertionError(f"HD2 {label}: prim_mst did not take the cluster route")
         t0 = time.perf_counter()
         plain_edges = hd.prim_mst_plain(x, core)
         torch.cuda.synchronize()
         if plain_hd2_ms is None:  # the served event comes first
             plain_hd2_ms = 1e3 * (time.perf_counter() - t0)
+            before = dict(sa.LAUNCHES)
+            coop_edges = hd.prim_mst_cooperative(x, core)
+            torch.cuda.synchronize()
+            assert _route_counts(sa, before) == {"HD2": 1, "HD2_cluster": 0, "HD2_coop": 1}
+            for got, want, what in zip(coop_edges, plain_edges, ("src", "dst", "distance")):
+                if not _same_bits(torch, got, want):
+                    raise AssertionError(f"HD2 cooperative route {label}: the edges' {what} "
+                                         "differ from the plain version's")
         for got, want, what in zip(edges, plain_edges, ("src", "dst", "distance")):
-            if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
+            if not _same_bits(torch, got, want):
                 raise AssertionError(f"HD2 {label}: the edges' {what} differ from the plain "
                                      "version's")
         labels = hdbscan_labels(x, m)
@@ -1048,20 +1090,64 @@ def phase_hdbscan(torch, events):
         if not np.array_equal(labels, plain_labels):
             raise AssertionError(f"hdbscan_labels {label}: the labels differ from those of "
                                  "the plain edges")
-        log(f"hdbscan {label} N={n} D={d}: HD1 bit for bit, HD2's {n - 1} edges equal, "
+        cut = hd.mst_cluster_schedule(n, d, cluster)
+        log(f"hdbscan {label} N={n} D={d}: HD1 bit for bit, HD2's {n - 1} edges equal "
+            f"(cluster route: {cut.points} points a CTA, {cut.per_thread} a thread"
+            f"{'; cooperative route equal too' if label.startswith('served') else ''}), "
             f"labels equal ({labels.max() + 1} clusters, {int((labels == -1).sum())} noise)")
+
+    # above the cluster's capacity: the cooperative route, by the counters,
+    # and a tree that holds the invariants that are cheap to check
+    n_big = HD2_ABOVE_CAPACITY
+    cap = hd.mst_cluster_capacity(8, cluster)
+    assert n_big > cap, (n_big, cap)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    big = torch.randn(n_big, 8, dtype=torch.float64, device="cuda", generator=gen)
+    core = hd.core_distances(big, m)
+    if not _same_bits(torch, core, hd.core_distances_plain(big, m)):
+        raise AssertionError(f"HD1 N={n_big}: core distances differ from the plain version")
+    before = dict(sa.LAUNCHES)
+    t0 = time.perf_counter()
+    src, dst, dist = hd.prim_mst(big, core)
+    torch.cuda.synchronize()
+    big_ms = 1e3 * (time.perf_counter() - t0)
+    if _route_counts(sa, before) != {"HD2": 1, "HD2_cluster": 0, "HD2_coop": 1}:
+        raise AssertionError(f"HD2 N={n_big} (capacity {cap}): prim_mst did not take the "
+                             "cooperative route")
+    assert src.shape == dst.shape == dist.shape == (n_big - 1,)
+    if not torch.equal(torch.sort(dst).values, torch.arange(1, n_big, device="cuda")):
+        raise AssertionError(f"HD2 N={n_big}: not every node but 0 is reached exactly once")
+    acc = torch.zeros(n_big - 1, dtype=torch.float64, device="cuda")
+    for f in range(8):  # d2(src, dst) in feature order, no FMA: the plain helpers' arithmetic
+        t = big[src, f] - big[dst, f]
+        acc = acc + t * t
+    want = torch.maximum(torch.maximum(core[src], core[dst]), hd.sqrt_rn(acc))
+    if not _same_bits(torch, dist, want):
+        raise AssertionError(f"HD2 N={n_big}: an edge's weight is not max(core[src], "
+                             "core[dst], sqrt(d2(src, dst)))")
+    log(f"hdbscan N={n_big} D=8 random normal (cluster capacity {cap}): HD1 bit for bit; "
+        f"prim_mst took the cooperative route ({big_ms:.1f} ms, host clock, one call); "
+        f"{n_big - 1} edges, every node but 0 reached once, every weight max(core[src], "
+        f"core[dst], sqrt(d2)) bit for bit")
+    del big, core, src, dst, dist, acc, want
 
     x = served
     n, d = x.shape
-    cut = hd.mst_schedule(n, d, torch.cuda.get_device_properties(0).multi_processor_count)
+    cut = hd.mst_cluster_schedule(n, d, cluster)
+    coop_cut = hd.mst_schedule(n, d, sms)
+    core_cut = hd.core_schedule(n, sms)
     core = hd.core_distances(x, m)
     hd1 = lambda: hd.core_distances(x, m)
     hd2 = lambda: hd.prim_mst(x, core)
-    x1 = x[:, :1].contiguous()  # the same steps and grid, 1/8 of the arithmetic
+    coop = lambda: hd.prim_mst_cooperative(x, core)
+    x1 = x[:, :1].contiguous()  # the same steps, 1/8 of the arithmetic
     ms = {"HD1": time_ms(torch, hd1, iters=10), "HD2": time_ms(torch, hd2, iters=5)}
+    coop_ms = time_ms(torch, coop, iters=3)
     dev_ms = {"HD1": device_ms(torch, hd1, (PROFILE_TAGS["HD1"],), iters=5)[PROFILE_TAGS["HD1"]],
               "HD2": device_ms(torch, hd2, (PROFILE_TAGS["HD2"],), iters=3)[PROFILE_TAGS["HD2"]]}
+    coop_dev_ms = device_ms(torch, coop, (COOP_TAG,), iters=3)[COOP_TAG]
     floor_ms = time_ms(torch, lambda: hd.prim_mst(x1, core), iters=5)
+    coop_floor_ms = time_ms(torch, lambda: hd.prim_mst_cooperative(x1, core), iters=3)
     plain_ms = {"HD1": time_ms(torch, lambda: hd.core_distances_plain(x, m), iters=2),
                 "HD2": plain_hd2_ms}
     lib_ms = time_ms(torch, lambda: torch.cdist(x, x).kthvalue(m, dim=1), iters=3)
@@ -1084,15 +1170,26 @@ def phase_hdbscan(torch, events):
                         "library_ms": lib_ms if kernel == "HD1" else None,
                         "device_ms": dev_ms[kernel],
                         "shape": f"served Embedding-IN event N={n} D={d} k={m} float64"}
-    rows["HD2"].update(step_floor_ms=floor_ms, host_tree_ms=tree_ms, grid=cut.grid,
-                       points_per_block=cut.points)
-    log(f"HD1 N={n} D={d} k={m}: ms {ms['HD1']:.4f} device_ms {dev_ms['HD1']} plain_ms "
-        f"{plain_ms['HD1']:.4f} library_ms {lib_ms:.4f} [cdist + kthvalue, f64] bound_ms "
-        f"{bounds['HD1'][0]:.4f} ({bounds['HD1'][1]})")
-    log(f"HD2 N={n} D={d}: ms {ms['HD2']:.4f} device_ms {dev_ms['HD2']} plain_ms "
-        f"{plain_hd2_ms:.1f} (host clock, one call) bound_ms {bounds['HD2'][0]:.4f} "
-        f"({bounds['HD2'][1]}); step floor (D 1) {floor_ms:.4f} ms = "
-        f"{1e3 * floor_ms / (n - 1):.3f} us a step over {cut.grid} blocks of {cut.points} points")
+    rows["HD1"].update(slices=core_cut.slices, queries_per_thread=hd.CORE_Q,
+                       query_blocks=core_cut.blocks)
+    rows["HD2"].update(step_floor_ms=floor_ms, host_tree_ms=tree_ms, mst_route="cluster",
+                       cluster=cluster, points_per_cta=cut.points, points_per_thread=cut.per_thread,
+                       smem_per_cta=cut.smem, coop_ms=coop_ms, coop_device_ms=coop_dev_ms,
+                       coop_step_floor_ms=coop_floor_ms, coop_grid=coop_cut.grid,
+                       coop_points_per_block=coop_cut.points,
+                       above_capacity_n=n_big, above_capacity_coop_ms=big_ms)
+    log(f"HD1 N={n} D={d} k={m}: {core_cut.blocks} query blocks x {core_cut.slices} slices (S), "
+        f"{hd.CORE_Q} queries a thread (Q); ms {ms['HD1']:.4f} device_ms {dev_ms['HD1']} "
+        f"plain_ms {plain_ms['HD1']:.4f} library_ms {lib_ms:.4f} [cdist + kthvalue, f64] "
+        f"bound_ms {bounds['HD1'][0]:.4f} ({bounds['HD1'][1]})")
+    log(f"HD2 N={n} D={d}, cluster route ({cluster} CTAs, {cut.points} points a CTA, "
+        f"{cut.per_thread} a thread, {cut.smem} bytes of shared memory a CTA): ms "
+        f"{ms['HD2']:.4f} device_ms {dev_ms['HD2']} plain_ms {plain_hd2_ms:.1f} (host clock, "
+        f"one call) bound_ms {bounds['HD2'][0]:.4f} ({bounds['HD2'][1]}); step floor (D 1) "
+        f"{floor_ms:.4f} ms = {1e3 * floor_ms / (n - 1):.3f} us a step")
+    log(f"HD2 N={n} D={d}, cooperative route ({coop_cut.grid} blocks of {coop_cut.points} "
+        f"points): ms {coop_ms:.4f} device_ms {coop_dev_ms}; step floor (D 1) "
+        f"{coop_floor_ms:.4f} ms = {1e3 * coop_floor_ms / (n - 1):.3f} us a step")
     log(f"host tree (labels_from_mst) N={n}: {tree_ms:.1f} ms (host clock, mean of 3)")
     return rows
 
@@ -1659,6 +1756,8 @@ def phase_models(torch, events):
         # the embedding models' HDBSCAN: one core-distance and one MST launch
         hd_expect = 1 if name.startswith("Embedding") else 0
         assert counts["HD1"] == counts["HD2"] == hd_expect, (name, counts)
+        # ... the MST by the cluster route: the served event fits it
+        assert counts["HD2_cluster"] == hd_expect and counts["HD2_coop"] == 0, (name, counts)
         # ... and its two host reads (the finite check, the edges) are counted
         assert rec["serve_host_syncs"] >= 2 * hd_expect, (name, engine.last_stats)
         for k in totals:
@@ -3707,6 +3806,7 @@ def main():
     for kernel in HD_NAMES:  # the embedding models' reconstruct, validation and test
         assert models[kernel] > 0, f"the embedding models' serving never launched {kernel}"
         assert cli[kernel] > 0, f"the embedding model's CLI run never launched {kernel}"
+    assert models["HD2_cluster"] == models["HD2"], "the served events' MSTs left the cluster route"
     table = [{"name": NAMES[k], "route": "cuda", "source": CSRC + SOURCES[k],
               "replaces": REPLACES[k],
               "launches": (serving[k] + training[k] + models[k] + aggregator[k]

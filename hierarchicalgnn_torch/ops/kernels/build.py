@@ -68,8 +68,12 @@ SIGNATURES = {
         "hgnn_row_top2_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     },
     "hdbscan.cu": {
-        # (x, out, n, d, k, stream)
-        "hgnn_core_distances_f64": (_P, _P, _I, _I, _I, _P),
+        # (x, out, part, arrivals, n, d, k, slices, stream)
+        "hgnn_core_distances_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # (smem, info[3])
+        "hgnn_prim_mst_cluster_size": (_I, ctypes.POINTER(_I)),
+        # (x, core, src, dst, dist, n, d, ctas, points, per_thread, smem, stream)
+        "hgnn_prim_mst_cluster_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
         # (x, core, src, dst, dist, cand, barrier, n, d, grid, points, smem, stream)
         "hgnn_prim_mst_f64": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },

@@ -196,6 +196,77 @@ def test_mst_schedule_covers_the_points():
         hd.mst_schedule(2_000_000, 8, 132)
 
 
+@pytest.mark.parametrize("cluster", [16, 8])
+@pytest.mark.parametrize("d", [1, 3, 8, 12, 64])
+def test_mst_cluster_schedule_capacity(cluster, d):
+    """HD2's cluster route: every point in one CTA (a small N leaves CTAs
+    empty: the cluster's size is the card's), at most MAX_PER_THREAD
+    points a thread, a CTA's share within shared memory; the capacity is
+    the largest N that fits, and one more point does not."""
+    cap = hd.mst_cluster_capacity(d, cluster)
+    assert 0 < cap <= cluster * hd.CLUSTER_THREADS * hd.MAX_PER_THREAD
+    for n in (1, 2, cluster, cluster + 1, 21183, cap - 1, cap):
+        if n > cap:
+            continue
+        cut = hd.mst_cluster_schedule(n, d, cluster)
+        assert cut.cluster == cluster and cut.points * cluster >= n
+        assert (cut.points - 1) * cluster < n  # the fewest points a CTA that hold N
+        assert cut.per_thread == -(-cut.points // hd.CLUSTER_THREADS) <= hd.MAX_PER_THREAD
+        assert cut.smem <= hd.SMEM_BYTES and cut.smem % 16 == 0
+        # the coordinates (8 D bytes a point) and two parities of every CTA's candidate
+        assert cut.smem >= 8 * d * cut.points + 16 * cluster * (3 + d)
+    assert hd.mst_cluster_schedule(cap + 1, d, cluster) is None
+    assert hd.mst_cluster_schedule(cap + cluster, d, cluster) is None
+
+
+def test_mst_cluster_schedule_at_the_served_sizes():
+    """The served event (N 21183, D 8) takes 2 points a thread over 16 CTAs,
+    3 over 8; 8 CTAs hold the configured node capacity (24576) at D 8; 16
+    hold less than 16 x 1024 x 4 points at D 8 (shared memory bounds it)."""
+    assert hd.mst_cluster_schedule(21183, 8, 16).per_thread == 2
+    assert hd.mst_cluster_schedule(21183, 8, 8).per_thread == 3
+    assert hd.mst_cluster_schedule(24576, 8, 8) is not None
+    assert 24576 <= hd.mst_cluster_capacity(8, 8) < hd.mst_cluster_capacity(8, 16) < 65536
+    assert hd.mst_cluster_capacity(1, 16) == 16 * 1024 * 4  # points a thread bound it at D 1
+
+
+@pytest.mark.parametrize("cluster", [16, 8])
+def test_mst_route_choice(cluster):
+    """``prim_mst``'s route by size: the cluster at and below its capacity,
+    the cooperative grid above it, and a raise where neither fits."""
+    for d in (1, 8, 12):
+        cap = hd.mst_cluster_capacity(d, cluster)
+        for n in (2, cap - 1, cap):
+            assert isinstance(hd.mst_route(n, d, cluster, 132), hd.MstClusterSchedule), (d, n)
+        for n in (cap + 1, cap + 2 * cluster, 80000):
+            cut = hd.mst_route(n, d, cluster, 132)
+            assert isinstance(cut, hd.MstSchedule) and cut == hd.mst_schedule(n, d, 132), (d, n)
+    with pytest.raises(ValueError, match="shared memory"):
+        hd.mst_route(2_000_000, 8, cluster, 132)
+    with pytest.raises(ValueError, match="shared memory"):
+        hd.mst_route(600_000, 64, cluster, 132)
+
+
+def test_core_schedule_fills_the_card():
+    """HD1's grid: query blocks of CORE_THREADS x CORE_Q queries; at the
+    served size enough candidate slices for about 32 warps an SM; one slice
+    where the candidates are one tile; a given slice count is taken as it
+    is, and one outside [1, N] raises."""
+    rows = hd.CORE_THREADS * hd.CORE_Q
+    cut = hd.core_schedule(21183, 132)
+    assert cut.blocks == -(-21183 // rows) == 83
+    assert cut.slices == 13
+    warps = cut.blocks * cut.slices * hd.CORE_THREADS // 32
+    assert warps >= 132 * hd.CORE_WARPS_PER_SM > (cut.blocks * (cut.slices - 1) * hd.CORE_THREADS
+                                                   // 32)
+    assert hd.core_schedule(40, 132) == hd.CoreSchedule(blocks=1, slices=1)
+    assert hd.core_schedule(200, 132).slices == 4  # at most one slice a tile of 64 candidates
+    assert hd.core_schedule(21183, 132, slices=7) == hd.CoreSchedule(blocks=83, slices=7)
+    for bad in (0, 41, 70000):
+        with pytest.raises(ValueError, match="slices"):
+            hd.core_schedule(40 if bad < 1000 else 100000, 132, slices=bad)
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -217,16 +288,55 @@ def test_core_distances_kernel_matches_plain(dev, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("slices", [1, 2, 7, 40])
+@pytest.mark.parametrize("name", ["quantised ties", "unit blobs D12", "identical points"])
+def test_core_distances_kernel_matches_plain_at_any_slices(dev, name, slices):
+    """HD1's result does not depend on how many slices split the
+    candidates: bit for bit with the plain version at each."""
+    x = torch.from_numpy(_case(name)).to(dev)
+    got = hd.core_distances(x, 5, slices=slices)
+    assert torch.equal(got.view(torch.int64), hd.core_distances_plain(x, 5).view(torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["cluster", "cooperative"])
 @pytest.mark.parametrize("name", CASES)
-def test_prim_mst_kernel_matches_plain(dev, name):
-    """HD2 on the card gives its plain version's edge list element for
-    element (src, dst and the distances' bits), in order."""
+def test_prim_mst_kernel_matches_plain(dev, name, route):
+    """HD2 on the card, by either route, gives its plain version's edge list
+    element for element (src, dst and the distances' bits), in order;
+    ``prim_mst`` takes the cluster route at these sizes."""
     x = torch.from_numpy(_case(name)).to(dev)
     core = hd.core_distances_plain(x, min(5, len(x)))
-    before = LAUNCHES["HD2"]
-    got = hd.prim_mst(x, core)
+    before = dict(LAUNCHES)
+    got = hd.prim_mst(x, core) if route == "cluster" else hd.prim_mst_cooperative(x, core)
     torch.cuda.synchronize()
-    assert LAUNCHES["HD2"] == before + 1
+    key = {"cluster": "HD2_cluster", "cooperative": "HD2_coop"}[route]
+    assert {k: LAUNCHES[k] - before[k] for k in ("HD2", "HD2_cluster", "HD2_coop")} == {
+        "HD2": 1, "HD2_cluster": 0, "HD2_coop": 0, key: 1}
     want = hd.prim_mst_plain(x, core)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert torch.equal(got[2].view(torch.int64), want[2].view(torch.int64))
+
+
+@pytest.mark.cuda
+def test_prim_mst_above_the_cluster_capacity_takes_the_cooperative_route(dev):
+    """N above the cluster's capacity goes to the cooperative kernel, and
+    its tree holds the invariants that are cheap to check: N - 1 edges,
+    every node but 0 reached once, each weight max(core[src], core[dst],
+    sqrt(d2(src, dst))) bit for bit."""
+    n = hd.mst_cluster_capacity(8, hd.mst_cluster_size(dev.index or 0)[0]) + 1
+    x = torch.from_numpy(_blobs(np.random.default_rng(3), n, 8, 2000)).to(dev)
+    core = hd.core_distances(x, 5)
+    before = dict(LAUNCHES)
+    src, dst, dist = hd.prim_mst(x, core)
+    torch.cuda.synchronize()
+    assert LAUNCHES["HD2_coop"] == before["HD2_coop"] + 1
+    assert LAUNCHES["HD2_cluster"] == before["HD2_cluster"]
+    assert src.shape == dst.shape == dist.shape == (n - 1,)
+    assert torch.equal(torch.sort(dst).values, torch.arange(1, n, device=dev))
+    acc = torch.zeros(n - 1, dtype=torch.float64, device=dev)
+    for f in range(8):
+        t = x[src, f] - x[dst, f]
+        acc = acc + t * t
+    want = torch.maximum(torch.maximum(core[src], core[dst]), hd.sqrt_rn(acc))
+    assert torch.equal(dist.view(torch.int64), want.view(torch.int64))

@@ -189,7 +189,8 @@ def test_every_kernel_wrapper_has_a_plain_sibling_and_a_counter():
                 "K7": (segment_gather, "csr_segment_sum"),
                 "K8": (ring_gather, "ring_all_gather"),
                 "HD1": (hdbscan, "core_distances"), "HD2": (hdbscan, "prim_mst")}
-    assert set(sorted_agg.LAUNCHES) == set(wrappers)
+    # HD2's launches are also counted by route
+    assert set(sorted_agg.LAUNCHES) == set(wrappers) | {"HD2_cluster", "HD2_coop"}
     for kernel, (module, name) in wrappers.items():
         assert callable(getattr(module, name)) and callable(getattr(module, name + "_plain"))
         text = inspect.getsource(module)
