@@ -160,11 +160,27 @@ these phases and fails if any of them fails:
               worker alone over ``nccl`` takes (c)'s DP step.  The processes
               time-share the card: the phase measures the path's cost on one
               card, not a step over two.
+ 26. multicard  ranks on several cards: the card count, each card's
+              nvidia-smi line and the peer-access matrix; (a) K8 at P 4 on
+              the halo input (bf16, f32) as 2 launches of 2 ranks and 4 of 1
+              on streams of card 0, grids capped at their share, exact, timed
+              beside one launch; (b) a launch whose peer sleeps past a 2 s
+              bound gives up, the next call raises, fresh flags are exact;
+              (c) ``devices=[cuda:0] * 4`` against ``devices=None``: the f32
+              2 + 2 sharded forward's outputs, the step's loss, buffers and
+              launch counts bit for bit, gradients within phase 21's bound;
+              (d) with 2 or more cards, the flagship's ranks on min(4,
+              count) cards: K8 exact on every card and timed, the f32 2 + 2
+              sharded forward, step and TP step against one card, bf16 events
+              and steps with host ms, peak GiB and idle share per card beside
+              the one-card run; with one card it prints that it did not run.
+              ``python3 chip_smoke.py --multicard`` runs this phase alone.
 
 Each phase prints its seconds on a line of its own, and the script its
 total before the kernel table.
 
-The second-to-last line is the kernel table as JSON (K1-K8, then HD1 and
+The second-to-last line is the kernel table as JSON (K1-K8 and K8's
+split-launch rows (with several cards, its row over them), then HD1 and
 HD2, which replace no Pallas kernel); the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
 package beside it, the script exits non-zero and prints no result.
@@ -234,7 +250,7 @@ DOT_TOL = 1e-5  # K3's f32 dot of up to 256 terms, K4's single product: 1e-5 of 
 TRAIN_EPOCH = 50  # of emb_epoch 100: both losses carry weight on the sine schedule
 MODELS_EPOCH = 15  # of intermediate_epoch 30: the same for the hierarchical embedding loss
 SCORE_CUT_CLAMP = 8.38  # atanh(1 - 1e-7): a score_cut there means collapsed clustering
-N_PARTS = 4  # ranks of the sharded phases; they share the one card
+N_PARTS = 4  # ranks of the sharded phases; they share the one card before phase 26
 # Per-rank blocks that the sharded forwards of the five models hand K8 at
 # N_PARTS ranks and the flagship capacities (n_local 6144, e_cap 36864, c_local
 # 768): hit features, embeddings, node rows at latent 128 and 256, supernode
@@ -1535,7 +1551,7 @@ def phase_auction(torch):
     assert sa.LAUNCHES["K6"] - before == stats["auction_rounds_launched"]
 
 
-def flagship_trainer(overrides):
+def flagship_trainer(overrides, devices=None):
     from hierarchicalgnn_torch.models.models import build_model
     from hierarchicalgnn_torch.train.pipelines import BipartitePipeline
     from hierarchicalgnn_torch.train.trainer import Trainer
@@ -1543,7 +1559,7 @@ def flagship_trainer(overrides):
 
     hp = load_config("bc_hgnn_gmm", {**FLAGSHIP, **overrides})
     model = build_model(hp, seed=0)
-    trainer = Trainer(hp, model, BipartitePipeline(model, hp))
+    trainer = Trainer(hp, model, BipartitePipeline(model, hp), devices=devices)
     trainer.init_state(seed=0)
     return hp, trainer
 
@@ -1986,8 +2002,7 @@ def phase_ring_gather(torch, rows):
                 raise AssertionError(f"K8 {what}: rank {q}'s output differs from torch.cat")
             if not torch.equal(out2, want):
                 raise AssertionError(f"K8 {what}: rank {q}'s output of a second call differs")
-        flags = rg._group_flags(blocks[0].get_device(), len(blocks), sa._stream(blocks[0]))
-        grid, vector, n_pairs, resident, chunk = flags.info
+        (grid, vector, n_pairs, resident, chunk), = rg.launch_info(blocks)
         nbytes = blocks[0].numel() * blocks[0].element_size()
         cut = rg.gather_schedule(nbytes, [b.data_ptr() for b in blocks],
                                  [o.data_ptr() for o in again], resident)
@@ -3739,6 +3754,509 @@ def phase_processes(torch):
     return launches, results
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: ranks on several cards
+# ---------------------------------------------------------------------------
+
+SPLITS = ((2, 2), (1, 1, 1, 1))  # phase 26(a): launches of K8 at P 4 on one card
+SLEEP_CYCLES = int(8e9)          # phase 26(b): a stream asleep some seconds (past the bound)
+TIMEOUT_CHECK_S = 2.0            # phase 26(b): the bound of K8's waits on flags
+
+
+def time_streams(torch, fn, streams, iters=100, warm=200):
+    """Mean device ms per call of ``fn``, whose launches go to ``streams``,
+    after ``warm`` calls (the card at its clocks): from an event on the
+    current stream that the streams wait on to an event after the current
+    stream has waited on all of them."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    main = torch.cuda.current_stream()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record(main)
+    for stream in streams:
+        stream.wait_stream(main)
+    for _ in range(iters):
+        fn()
+    for stream in streams:
+        main.wait_stream(stream)
+    end.record(main)
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def multicard_split_launches(torch, rows):
+    """26(a): K8 at P 4 on the flagship halo input ([6144, 256], bf16 and
+    f32) as 2 launches of 2 ranks and as 4 launches of 1, each on a stream of
+    its own of card 0 with its grid capped at its share of the card: the
+    first and the last of its calls equal to ``torch.cat`` bit for bit, the
+    time per call (``time_streams``) beside the single launch's on the same
+    input.  Adds the
+    bf16 rows to ``rows``; returns the split launches counted."""
+    from hierarchicalgnn_torch.ops.kernels import ring_gather as rg, sorted_agg as sa
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(26)
+    counted = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        blocks = [torch.randn((6144, 256), generator=gen).to(dtype).to(dev) for _ in range(4)]
+        want = torch.cat(blocks, 0)
+        single = time_streams(torch, lambda: rg.ring_all_gather(blocks), [])
+        (grid1, *_), = rg.launch_info(blocks)
+        plain_ms = time_ms(torch, lambda: rg.ring_all_gather_plain(blocks))
+        lib_ms = time_ms(torch, lambda: [torch.cat(blocks, 0) for _ in range(4)])
+        block_bytes = blocks[0].numel() * blocks[0].element_size()
+        n_bytes = 4 * block_bytes + 16 * block_bytes
+        for split in SPLITS:
+            streams = [torch.cuda.Stream(dev) for _ in split]
+            per_rank = [s for n, s in zip(split, streams) for _ in range(n)]
+            torch.cuda.synchronize()
+            before = dict(sa.LAUNCHES)
+            calls = [0]
+
+            def gather():
+                calls[0] += 1
+                return rg.ring_all_gather(blocks, streams=per_rank)
+
+            outs = gather()
+            torch.cuda.synchronize()
+            first = all(torch.equal(o, want) for o in outs)
+            ms = time_streams(torch, gather, streams)
+            outs = gather()
+            torch.cuda.synchronize()
+            last = all(torch.equal(o, want) for o in outs)
+            made = {k: sa.LAUNCHES[k] - before[k] for k in ("K8", "K8_split")}
+            info = rg.launch_info(blocks, per_rank)
+            label = " + ".join(str(n) for n in split)
+            log(f"26(a) K8 {str(dtype)[6:]} P=4 [6144, 256] as {len(split)} launches "
+                f"({label} ranks) on {len(split)} streams of card 0: first and last of "
+                f"{calls[0]} calls {'equal' if first and last else 'NOT equal'} to torch.cat, "
+                f"{ms:.4f} ms per call against {single:.4f} ms as one launch (grid "
+                f"{grid1}); grids {[i[0] for i in info]} of caps {[i[3] for i in info]}, "
+                f"chunks {[i[4] for i in info]}; launches {made}")
+            assert first and last, f"split K8 {split} {dtype} differs from torch.cat"
+            assert made["K8"] == made["K8_split"] == len(split) * calls[0], made
+            counted[split] = counted.get(split, 0) + made["K8_split"]
+            if dtype == torch.bfloat16:
+                rows[f"K8 split {label}"] = {
+                    "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": 1e3 * n_bytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+                    "library_ms": lib_ms, "single_launch_ms": single,
+                    "grids": [i[0] for i in info], "caps": [i[3] for i in info],
+                    "shape": f"halo bf16 P=4 block [6144, 256], {len(split)} launches of "
+                             f"{label} ranks on streams of one card"}
+    return counted
+
+
+def multicard_timeout(torch):
+    """26(b): K8 at P 4 as 2 launches on 2 streams of card 0, the second
+    stream asleep (``torch.cuda._sleep``) past the bound of 2 s, twice.  Each
+    time the first launch gives up within the bound and its stream goes on,
+    while the call stays pending and holds its outputs until the late launch
+    has ended.  The first time the next call on that layout raises and
+    retires its flags; the second time ``settle`` (what the sharded forward
+    calls before reading its results back) raises for the call itself.
+    After each, a call on fresh flags is exact."""
+    from hierarchicalgnn_torch.ops.kernels import ring_gather as rg
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(27)
+    blocks = [torch.randn((6144, 256), generator=gen).to(dev) for _ in range(4)]
+    want = torch.cat(blocks, 0)
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    per_rank = [streams[0], streams[0], streams[1], streams[1]]
+    rg.ring_all_gather(blocks, streams=per_rank)
+    rg.settle()
+    for raiser in ("the next call", "settle"):
+        with torch.cuda.stream(streams[1]):
+            torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        outs = rg.ring_all_gather(blocks, streams=per_rank, timeout_s=TIMEOUT_CHECK_S)
+        streams[0].synchronize()
+        waited = time.perf_counter() - t0
+        held = any(o is t for call in rg._PENDING for t in call.tensors for o in outs)
+        del outs
+        t1 = time.perf_counter()
+        try:
+            if raiser == "settle":
+                rg.settle()
+            else:
+                rg.ring_all_gather(blocks, streams=per_rank)
+            raised = None
+        except RuntimeError as exc:
+            raised = str(exc)
+        rg.settle()  # raised once already: waits for the late launch and says nothing
+        rest = time.perf_counter() - t1
+        outs = rg.ring_all_gather(blocks, streams=per_rank)
+        rg.settle()
+        exact = all(torch.equal(o, want) for o in outs)
+        log(f"26(b) K8 with a peer that enters late (its stream asleep): the other launch gave "
+            f"up after {waited:.3f} s (bound {TIMEOUT_CHECK_S} s); the call's outputs "
+            f"{'held' if held else 'NOT held'} while the late launch ran; {raiser} raised: "
+            f"{raised!r}; the late launch ended {rest:.3f} s later, nothing left pending "
+            f"{not rg._PENDING}; a call on fresh flags {'is exact' if exact else 'DIFFERS'}")
+        assert held and raised and "retired" in raised, (held, raised)
+        assert waited < TIMEOUT_CHECK_S + 1.0, waited
+        assert exact and not rg._PENDING
+
+
+def _sharded_outputs(out):
+    bgraph, scores, emb, aux = out
+    return [bgraph.senders, bgraph.receivers, bgraph.edge_mask, scores, emb, aux["clusters"]]
+
+
+def multicard_one_card(torch, events):
+    """26(c): f32, depth 2 + 2, the flagship's sharded forward and sharded
+    step at P 4 with ``devices=[cuda:0] * 4`` (the placement path: inputs
+    and buffers handed to the ranks through ``place_inputs``, the card made
+    current in every rank) against ``devices=None``, each twice, under
+    deterministic algorithms: every forward output, the loss, every gradient,
+    the buffers after the step and the launch counts equal bit for bit, each
+    path with itself and the two paths with each other.  The warnings that
+    ``warn_only`` raises name each op that ran without a deterministic form;
+    they are recorded and printed."""
+    from hierarchicalgnn_torch.data.event import preprocess_event
+    from hierarchicalgnn_torch.models.registry import model_selector
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+    from hierarchicalgnn_torch.parallel.graph_shard import (
+        make_sharded_forward, make_sharded_train_step)
+
+    dev = torch.device("cuda", 0)
+    f32 = {**FLAGSHIP, "compute_dtype": None, "n_interaction_graph_iters": 2,
+           "n_hierarchical_graph_iters": 2, "halo_backend": "rdma"}
+    hp, model, pipeline = model_selector("BC-HGNN-GMM", f32)
+    batch = preprocess_event(events[0], hp, stage="test")
+    hp_t, trainer = flagship_trainer({**f32, "mesh_shape": {"data": 1, "graph": N_PARTS}})
+    train_batch = trainer.make_datasets(events[:1])[0][0][2]
+    start = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    names = [n for n, _ in trainer.model.named_parameters()]
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for label, devices in (("none", None), ("none again", None),
+                                   ("cuda:0 x 4", [dev] * N_PARTS),
+                                   ("cuda:0 x 4 again", [dev] * N_PARTS)):
+                forward = make_sharded_forward(pipeline, N_PARTS, hp, devices=devices)
+                before = dict(sa.LAUNCHES)
+                outs = [t.detach() for t in _sharded_outputs(forward(batch))]
+                torch.cuda.synchronize()
+                fwd_counts = {k: sa.LAUNCHES[k] - before[k] for k in sa.LAUNCHES}
+                with torch.no_grad():
+                    for k, v in trainer.model.state_dict().items():
+                        v.copy_(start[k])
+                step = make_sharded_train_step(trainer.pipeline, trainer.optimizer,
+                                               {"graph": N_PARTS}, hp_t, devices=devices)
+                before = dict(sa.LAUNCHES)
+                grads, metrics = step.forward_backward(train_batch, TRAIN_EPOCH)
+                torch.cuda.synchronize()
+                step_counts = {k: sa.LAUNCHES[k] - before[k] for k in sa.LAUNCHES}
+                runs[label] = (outs, metrics["training_loss"].detach(), grads,
+                               {k: v.clone() for k, v in trainer.model.named_buffers()},
+                               fwd_counts, step_counts)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        with torch.no_grad():
+            for k, v in trainer.model.state_dict().items():
+                v.copy_(start[k])
+    nondeterministic = sorted({str(w.message).split(".")[0] for w in caught
+                               if "deterministic" in str(w.message)})
+
+    def differ(a, b):
+        outs = [i for i, (x, y) in enumerate(zip(a[0], b[0])) if not torch.equal(x, y)]
+        leaves = {}
+        for name, x, y in zip(names, a[2], b[2]):
+            assert (x is None) == (y is None), name
+            if x is not None and not torch.equal(x, y):
+                leaves[name] = float((x - y).abs().max()) / float(x.abs().max())
+        bufs = [k for k in a[3] if not torch.equal(a[3][k], b[3][k])]
+        return {"outputs": outs, "loss": not torch.equal(a[1], b[1]), "buffers": bufs,
+                "launches": (a[4] != b[4], a[5] != b[5])}, leaves
+
+    pairs = {"devices=None twice": ("none", "none again"),
+             "devices=[cuda:0] x 4 twice": ("cuda:0 x 4", "cuda:0 x 4 again"),
+             "the two paths": ("none", "cuda:0 x 4")}
+    found = {k: differ(runs[a], runs[b]) for k, (a, b) in pairs.items()}
+    for k, (rest, leaves) in found.items():
+        worst = max(leaves.items(), key=lambda kv: kv[1], default=(None, 0.0))
+        log(f"26(c) f32 2 + 2, P {N_PARTS}, {k}: forward outputs, loss, buffers and launch "
+            f"counts {rest}; gradient leaves that differ {len(leaves)} of {len(names)}, "
+            f"largest difference {worst[1]:.2e} of its leaf's largest entry ({worst[0]}); "
+            f"first leaves {sorted(leaves)[:6]}")
+    log(f"26(c) ops without a deterministic form (warn_only's warnings): {nondeterministic}")
+    log(f"26(c) forward launches { {k: v for k, v in runs['none'][4].items() if v} }, step "
+        f"launches { {k: v for k, v in runs['none'][5].items() if v} }")
+    clean = {"outputs": [], "loss": False, "buffers": [], "launches": (False, False)}
+    for k, (rest, leaves) in found.items():
+        assert rest == clean and not leaves, f"26(c) {k}: {rest}, gradients {leaves}"
+    del trainer, model, pipeline, runs
+    torch.cuda.empty_cache()
+
+
+def _busy_by_card(torch, prof):
+    """Device ms per card of a profiled run (its kernels and copies)."""
+    busy = {}
+    for ev in prof.events():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        if getattr(ev, "is_user_annotation", False) or ev.name.startswith("Optimizer."):
+            continue
+        t = getattr(ev, "device_time", getattr(ev, "cuda_time", 0.0))
+        busy[ev.device_index] = busy.get(ev.device_index, 0.0) + t / 1e3
+    return busy
+
+
+def multicard_cards(torch, events, n_cards):
+    """26(d), on a host with 2 or more cards: the flagship's ranks (P 4) on
+    ``n_cards`` cards.  K8 at P 4 on the halo input with each rank's block on
+    its card, exact against torch.cat on every card (its bulk stores reach
+    the peers' memory), timed beside its plain version; the sharded forward,
+    the sharded step and the TP step at f32 depth 2 + 2 against the one-card
+    run (clusters and edges equal, scores within 1e-4, the loss within 1e-4
+    relative and every gradient within 1e-3 of its leaf's largest entry plus
+    1e-7); then bf16 at full depth, on one card and then over the cards in
+    the same call: 2 sharded events and 2 sharded steps after a warm-up
+    each, with the host ms, the peak GiB of each card and each card's idle
+    share (a profiled repeat).  Returns the records, K8's row among them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hierarchicalgnn_torch.data.event import preprocess_event
+    from hierarchicalgnn_torch.models.registry import model_selector
+    from hierarchicalgnn_torch.ops.kernels import ring_gather as rg, sorted_agg as sa
+    from hierarchicalgnn_torch.parallel.graph_shard import make_sharded_forward
+
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    devices = [cards[r * n_cards // N_PARTS] for r in range(N_PARTS)]
+    gen = torch.Generator().manual_seed(28)
+    records = {"devices": [str(d) for d in devices]}
+
+    # K8 over the cards
+    blocks = [torch.randn((6144, 256), generator=gen).to(torch.bfloat16).to(d)
+              for d in devices]
+    want = torch.cat([b.cpu() for b in blocks], 0)
+    outs = rg.ring_all_gather(blocks)
+    for d in cards:
+        torch.cuda.synchronize(d)
+    exact = all(torch.equal(o.cpu(), want) for o in outs)
+    streams = [torch.cuda.current_stream(d) for d in cards]
+    fn = lambda: rg.ring_all_gather(blocks)
+    ms = time_streams(torch, fn, streams)
+    plain_ms = time_streams(torch, lambda: rg.ring_all_gather_plain(blocks), streams)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            fn()
+        for d in cards:
+            torch.cuda.synchronize(d)
+    hits = [ev for ev in prof.key_averages() if PROFILE_TAGS["K8"] in ev.key]
+    n = sum(ev.count for ev in hits)
+    dev_ms = sum(_device_us(ev) for ev in hits) / 1e3 / n if n else None
+    block_bytes = 6144 * 256 * 2
+    nvlink_ms = 1e3 * (N_PARTS - 1) * block_bytes / 450e9  # each rank receives the others' blocks
+    log(f"26(d) K8 bf16 P=4 [6144, 256] over {n_cards} cards (devices {records['devices']}): "
+        f"{'exact' if exact else 'NOT exact'} on every card, {ms:.4f} ms per call, device "
+        f"{dev_ms} ms per launch ({n} launches profiled), plain {plain_ms:.4f} ms (a torch.cat "
+        f"on each card); bound {nvlink_ms:.4f} ms over NVLink at 450 GB/s; launches "
+        f"{rg.launch_info(blocks)}")
+    assert exact, "K8 over the cards differs from torch.cat"
+    records["k8_row"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": nvlink_ms, "bound_by": "bytes", "library_ms": None,
+                         "device_ms": dev_ms,
+                         "shape": f"halo bf16 P=4 block [6144, 256], one rank a card over "
+                                  f"{n_cards} cards (NVLink)"}
+    del blocks, outs
+
+    # f32 depth 2 + 2 against the one-card run, under deterministic algorithms
+    # (else atomics add in another order and a near-tie of the bipartite kNN
+    # can pick another edge; the runs then see the same graph, as phase 14's
+    # replayed kNN makes them)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    warnings.simplefilter("ignore", UserWarning)
+    f32 = {**FLAGSHIP, "compute_dtype": None, "n_interaction_graph_iters": 2,
+           "n_hierarchical_graph_iters": 2, "halo_backend": "rdma"}
+    hp, model, pipeline = model_selector("BC-HGNN-GMM", f32)
+    batch = preprocess_event(events[0], hp, stage="test")
+    one = _sharded_outputs(make_sharded_forward(pipeline, N_PARTS, hp)(batch))
+    many = _sharded_outputs(make_sharded_forward(pipeline, N_PARTS, hp, devices=devices)(batch))
+    c = hp["max_clusters"]
+    (k1, s1), (k2, s2) = (canonical_scores(torch, __import__("hierarchicalgnn_torch.ops.graph",
+                                                              fromlist=["Graph"]).Graph(*o[:3]),
+                                           o[3], c) for o in (one, many))
+    score_err = float((s1 - s2).abs().max()) if torch.equal(k1, k2) else float("inf")
+    emb_err = float((one[4] - many[4]).abs().max())
+    log(f"26(d) f32 2 + 2 sharded forward over {n_cards} cards against one card: clusters "
+        f"{'equal' if torch.equal(one[5], many[5]) else 'DIFFER'}, edges "
+        f"{'equal' if torch.equal(k1, k2) else 'DIFFER'}, scores within {score_err:.2e}, "
+        f"embeddings within {emb_err:.2e}")
+    assert torch.equal(one[5], many[5]) and torch.equal(k1, k2) and score_err <= 1e-4
+    del model, pipeline
+    hp_t, trainer = flagship_trainer({**f32, "mesh_shape": {"data": 1, "graph": N_PARTS}})
+    train_batch = trainer.make_datasets(events[:1])[0][0][2]
+    start = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    from hierarchicalgnn_torch.parallel.graph_shard import make_sharded_train_step
+    results = []
+    for devs in (None, devices):
+        with torch.no_grad():
+            for k, v in trainer.model.state_dict().items():
+                v.copy_(start[k])
+        step = make_sharded_train_step(trainer.pipeline, trainer.optimizer, {"graph": N_PARTS},
+                                       hp_t, devices=devs)
+        grads, metrics = step.forward_backward(train_batch, TRAIN_EPOCH)
+        results.append((float(metrics["training_loss"]), grads))
+    (loss1, g1), (loss2, g2) = results
+    worst = 0.0
+    for a, b in zip(g1, g2):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.device == b.device == cards[0]
+            worst = max(worst, float((a - b).abs().max()) / (1e-3 * float(a.abs().max()) + 1e-7))
+    log(f"26(d) f32 2 + 2 sharded step over {n_cards} cards against one card: loss {loss2:.7f} "
+        f"vs {loss1:.7f} (rel {abs(loss2 / loss1 - 1):.2e}), worst gradient error {worst:.3f} "
+        f"of its bound")
+    assert abs(loss2 / loss1 - 1) <= 1e-4 and worst <= 1
+    del step, grads, g1, g2, results
+
+    # the TP step over {data 1, model 4} with the model ranks on the cards
+    from hierarchicalgnn_torch.parallel import tp
+    from hierarchicalgnn_torch.train.checkpoint import train_state
+    from hierarchicalgnn_torch.train.optim import make_optimizer
+    results = []
+    for devs in (None, devices):
+        with torch.no_grad():
+            for k, v in trainer.model.state_dict().items():
+                v.copy_(start[k])
+        optimizer = make_optimizer(list(trainer.model.parameters()), hp_t,
+                                   trainer._steps_per_epoch())
+        mesh = tp.make_tp_mesh(1, N_PARTS, hp_t["hidden"], devices=devs)
+        state, step = tp.make_tp_train_step(trainer.pipeline, optimizer, mesh,
+                                            train_state(trainer.model, optimizer),
+                                            hp_t["hidden"])
+        step.state = state
+        grads, metrics = step.mean_step.forward_backward(train_batch, TRAIN_EPOCH)
+        step.state = None
+        results.append((float(metrics["training_loss"]), [g.cpu() if g is not None else None
+                                                           for g in grads],
+                        sorted({str(p.device) for p in state.leaves()})))
+        del state, step, grads
+    (loss1, g1, cards1), (loss2, g2, cards2) = results
+    worst = max(float((a - b).abs().max()) / (1e-3 * float(a.abs().max()) + 1e-7)
+                for a, b in zip(g1, g2) if a is not None)
+    peaks = [torch.cuda.max_memory_allocated(d) / 2**30 for d in cards]
+    log(f"26(d) f32 2 + 2 TP step {{data 1, model {N_PARTS}}} with its leaves on {cards2} "
+        f"against one card ({cards1}): loss {loss2:.7f} vs {loss1:.7f} (rel "
+        f"{abs(loss2 / loss1 - 1):.2e}), worst gradient error {worst:.3f} of its bound; peak "
+        f"GiB per card so far {[round(p, 2) for p in peaks]}")
+    assert abs(loss2 / loss1 - 1) <= 1e-4 and worst <= 1
+    torch.use_deterministic_algorithms(False)
+    warnings.resetwarnings()
+    del trainer, results, g1, g2
+    torch.cuda.empty_cache()
+
+    # bf16, full depth: the sharded event and the sharded step, on one card
+    # (devices=None) and over the cards, in this call
+    hp, _, pipeline = model_selector("BC-HGNN-GMM", {**FLAGSHIP, "halo_backend": "rdma"})
+    batches = [preprocess_event(raw, hp, stage="test") for raw in events]
+
+    def sync_all():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    def measured(label, run, items):
+        """2 timed calls of ``run(item)`` after a warm-up, the peak of each
+        card, each card's busy ms under the profiler (a repeat of the first)
+        and the launches of the timed calls."""
+        run(items[2])
+        sync_all()
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+        before = dict(sa.LAUNCHES)
+        host = []
+        for item in items[:2]:
+            t0 = time.perf_counter()
+            run(item)
+            sync_all()
+            host.append(1e3 * (time.perf_counter() - t0))
+        launches = {k: sa.LAUNCHES[k] - before[k] for k in sa.LAUNCHES if sa.LAUNCHES[k] > before[k]}
+        peaks = [torch.cuda.max_memory_allocated(d) / 2**30 for d in cards]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(items[0])
+            sync_all()
+        busy = _busy_by_card(torch, prof)
+        record = {"host_ms": host, "peak_gib": peaks, "busy_ms": busy,
+                  "idle_pct": {k: 100 * (1 - v / host[0]) for k, v in busy.items()},
+                  "launches": launches}
+        log(f"26(d) bf16 flagship {label}: {[round(h, 1) for h in host]} ms (host clock), peak "
+            f"GiB per card {[round(p, 2) for p in peaks]}, device busy ms per card "
+            f"{ {k: round(v, 1) for k, v in busy.items()} } (idle share per card against the "
+            f"first call's host ms {({k: round(v, 1) for k, v in record['idle_pct'].items()})}%), "
+            f"launches {launches}")
+        return record
+
+    for label, devs in (("one card", None), ("cards", devices)):
+        forward = make_sharded_forward(pipeline, N_PARTS, hp, devices=devs)
+        records[f"event {label}"] = measured(f"sharded event, {label}", forward, batches)
+        assert forward.last_stats["partition_ok"]
+        del forward
+        torch.cuda.empty_cache()
+    k8 = records["event cards"]["launches"]
+    assert k8["K8"] == k8["K8_split"] == n_cards * records["event one card"]["launches"]["K8"]
+
+    for label, devs in (("one card", None), ("cards", devices)):
+        hp_t, trainer = flagship_trainer({"mesh_shape": {"data": 1, "graph": N_PARTS},
+                                          "halo_backend": "rdma"}, devices=devs)
+        trainset, _, _ = trainer.make_datasets(events)
+        records[f"step {label}"] = measured(
+            f"sharded step, {label}", lambda b: trainer.train_step(b, TRAIN_EPOCH),
+            [t[2] for t in trainset])
+        del trainer, trainset
+        torch.cuda.empty_cache()
+    records["k8_row"]["launches"] = (records["event cards"]["launches"]["K8_split"]
+                                     + records["step cards"]["launches"]["K8_split"])
+    return records
+
+
+def phase_multicard(torch, events):
+    """Phase 26: the card count, every card's ``nvidia-smi`` line and the
+    peer-access matrix; (a) K8's split launches on one card, (b) the bound
+    on its waits, (c) ``devices=[cuda:0] * 4`` against ``devices=None``, (d)
+    the ranks on several cards where the host has 2 or more (else one line
+    says it did not run).  Returns (K8's split-launch rows, 26(d)'s records
+    or None)."""
+    count = torch.cuda.device_count()
+    lines = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()
+    log(f"26 cards: {count}")
+    for line in lines:
+        log(f"  {line}")
+    matrix = [["-" if a == b else ("yes" if torch.cuda.can_device_access_peer(a, b) else "no")
+               for b in range(count)] for a in range(count)]
+    log(f"26 peer access (row reaches column): {matrix}")
+    rows = {}
+    with watchdog():
+        counted = multicard_split_launches(torch, rows)
+        multicard_timeout(torch)
+        multicard_one_card(torch, events)
+        if count >= 2:
+            records = multicard_cards(torch, events, min(N_PARTS, count))
+            log("26(d) " + json.dumps(records))
+        else:
+            records = None
+            log(f"26(d) did not run: this host has {count} card; the ranks on several cards "
+                f"need at least 2")
+    for split, n in counted.items():
+        label = " + ".join(str(k) for k in split)
+        rows[f"K8 split {label}"]["launches"] = n
+        rows[f"K8 split {label}"]["launches_counted_in"] = "phase 26(a)"
+    if records is not None:
+        rows[f"K8 over {min(N_PARTS, count)} cards"] = {
+            **records.pop("k8_row"), "launches_counted_in":
+            "phase 26(d): 2 sharded events and 2 sharded steps over the cards"}
+    return rows, records
+
+
+
 def timed(name, fn, *args):
     """Run one phase; print its seconds on a line of its own."""
     t0 = time.perf_counter()
@@ -3755,6 +4273,13 @@ def main():
         rank, world, store, backend = sys.argv[2:6]
         return process_worker(int(rank), int(world), store, backend)
     import torch
+
+    if sys.argv[1:2] == ["--multicard"]:  # phase 26 alone, on every card the host has
+        phase_device(torch)
+        timed("build", phase_build)
+        rows, records = timed("multicard", phase_multicard, torch, flagship_events())
+        print(json.dumps({"kernels": rows, "multicard": records}))
+        return 0
 
     start = time.perf_counter()
     phase_device(torch)
@@ -3788,6 +4313,7 @@ def main():
     tp_training, tp_models, _ = timed("tp training", phase_tp_training, torch, events)
     tp_parity = timed("tp parity", phase_tp_parity, torch, events)
     processes, _ = timed("processes", phase_processes, torch)
+    split_rows, multicard = timed("multicard", phase_multicard, torch, events)
     for kernel in NAMES:
         # K7's main path is its entry point make_aggregator, no model calls it;
         # K8's is the sharded forward
@@ -3837,6 +4363,11 @@ def main():
                "replaces": REPLACES[k], "launches": models[k] + cli[k],
                "launches_four_models": models[k], "launches_cli": cli[k], **rows[k]}
               for k in HD_NAMES]
+    # K8 launched once per stream of one card (phase 26(a)) and, on a host with
+    # several cards, once per card on the main path over them (phase 26(d))
+    for name, row in split_rows.items():
+        table.append({"name": f"{NAMES['K8']}, {name[3:]}", "route": "cuda",
+                      "source": CSRC + SOURCES["K8"], "replaces": REPLACES["K8"], **row})
     log(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -48,12 +48,20 @@
 // pointers -- each rank's input block, output and flag words -- and the range
 // of ranks that its launch serves ([rank0, rank0 + n_local)).  Whether those
 // pointers are allocations of this card or peer-mapped memory of other cards
-// is the caller's business.  Today ONE launch serves all P ranks of a group
-// (rank0 0, n_local P), so that no rank can wait for a rank whose launch has
-// not started.  The launch is cooperative: the runtime refuses a grid that
-// cannot be resident at once, and a resident grid cannot deadlock on its own
-// flags.  One set of flag words serves one group on one stream: calls on it
-// are ordered by the stream, and the caller keeps a set per stream.
+// is the caller's business.  The caller makes one launch per card (or per
+// stream of a card), each serving that card's contiguous ranks, on the
+// card's stream: a launch reads only its own ranks' inputs and stores into
+// every rank's output and flags, over NVLink where the rank lies on another
+// card (hgnn_enable_peer_access maps them).  Every launch of a call gets the
+// call's total arrival count (its own blocks plus `other_blocks`), which the
+// caller learns first from plan-only calls of the entry.  The launch is
+// cooperative: the runtime refuses a grid that cannot be resident at once.
+// Where `share` launches of one call share a card, each grid is capped at
+// 1/share of what the card holds, so that all of them fit at once.  The bulk
+// stores reach a peer's memory through its peer-mapped address as they reach
+// the card's own (checked exact over four H100s joined by NVLink).  One set
+// of flag words serves one layout of launches (cards and streams): calls on
+// it are ordered by each stream, and the caller keeps a set per layout.
 //
 // Synchronisation contract (what carries over from the TPU kernel's barrier
 // semaphore and DMA semaphores):
@@ -76,9 +84,13 @@
 //     red.release.sys on the flag; waiters poll with ld.acquire.sys.  System
 //     scope is what ranks on several cards need; between ranks of one card it
 //     costs nothing measurable beside the copy.
-//   * a wait that does not end traps after kSpinLimit polls (some seconds),
-//     so a lost peer, or a bulk load that never lands, fails the stream
-//     instead of hanging it.
+//   * a wait on a flag that does not end gives up after `timeout_ns`
+//     nanoseconds of %globaltimer: the waiting thread stores an error code
+//     into the caller's error word (host memory mapped for the device: 1 a
+//     peer never entered, 2 a peer's bytes never arrived) and its block
+//     returns, without trapping, so the context stays usable and the caller
+//     raises; a block that gave up at the entry first lets its loads land.
+//     A bulk load that never lands still traps after kSpinLimit polls.
 //
 // Bound: memory.  P * block_bytes read, P * P * block_bytes written.
 //
@@ -102,6 +114,7 @@ constexpr int kAhead = 3;                  // loads started ahead of the stores
 constexpr int kSmemBytes = kChunk * kStages;
 constexpr int kEnteredAt = 16;   // flags[kEnteredAt + q]: generation rank q entered
 constexpr unsigned long long kSpinLimit = 1ull << 25;
+constexpr unsigned long long kEntryTimedOut = 1, kArrivalTimedOut = 2;  // error codes
 
 struct PeerTable {
   const unsigned char* in[kMaxRanks];
@@ -112,6 +125,8 @@ struct PeerTable {
   int chunk_start[kMaxRanks + 1];        // first (rank, chunk) pair of each rank
   int chunk;                             // bytes per chunk of this call
   int rank0, n_local;                    // the ranks this launch serves
+  unsigned long long* error;             // the caller's error word
+  unsigned long long timeout_ns;         // the bound of every wait on a flag
 };
 
 __device__ __forceinline__ unsigned long long ld_acquire_sys(const unsigned long long* p) {
@@ -129,13 +144,28 @@ __device__ __forceinline__ void red_release_sys_add(unsigned long long* p,
   asm volatile("red.release.sys.global.add.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
-__device__ __forceinline__ void wait_for(const unsigned long long* flag,
-                                         unsigned long long target) {
-  unsigned long long polls = 0;
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// true once *flag >= target; false (with `code` in the error word) when that
+// takes longer than the table's timeout
+__device__ __forceinline__ bool wait_for(const PeerTable& t, const unsigned long long* flag,
+                                         unsigned long long target, unsigned long long code) {
+  unsigned long long polls = 0, deadline = 0;
   while (ld_acquire_sys(flag) < target) {
-    if (++polls > kSpinLimit) __trap();
-    if (polls > 64) __nanosleep(128);
+    if (++polls == 64) deadline = global_ns() + t.timeout_ns;
+    if (polls > 64) {
+      if (global_ns() > deadline) {
+        st_release_sys(t.error, code);
+        return false;
+      }
+      __nanosleep(128);
+    }
   }
+  return true;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -183,6 +213,7 @@ all_gather_kernel(PeerTable t, int n_ranks, long long block_bytes,
                   unsigned long long generation, unsigned long long arrivals_target) {
   extern __shared__ __align__(128) unsigned char stage[];
   __shared__ __align__(8) uint64_t full[kStages];
+  __shared__ int timed_out;
   const int tid = threadIdx.x;
   const int n_pairs = t.chunk_start[t.n_local];
   const int n_mine = blockIdx.x < n_pairs ? (n_pairs - 1 - blockIdx.x) / gridDim.x + 1 : 0;
@@ -207,20 +238,30 @@ all_gather_kernel(PeerTable t, int n_ranks, long long block_bytes,
     bulk_load(stage + (j % kStages) * t.chunk, t.in[r] + off, bytes, bar);
   };
   if (tid == 0) {
+    timed_out = 0;
     for (int s = 0; s < kStages; ++s) mbar_init(&full[s]);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     for (int j = 0; j < kAhead && j < n_mine; ++j) issue(j);
   }
+  __syncthreads();
 
   // entry: thread (i, q) looks after rank rank0 + i and its peer q
   if (tid < t.n_local * n_ranks) {
     const int r = t.rank0 + tid / n_ranks, q = tid % n_ranks;
     if (q != r) {
       if (blockIdx.x == 0) st_release_sys(t.flags[q] + kEnteredAt + r, generation);
-      wait_for(t.flags[r] + kEnteredAt + q, generation);
+      if (!wait_for(t, t.flags[r] + kEnteredAt + q, generation, kEntryTimedOut)) timed_out = 1;
     }
   }
   __syncthreads();
+  if (timed_out) {
+    // a peer never entered: store nothing, arrive nowhere; the loads in
+    // flight land in this block's shared memory before it may leave
+    if (tid == 0) {
+      for (int j = 0; j < kAhead && j < n_mine; ++j) mbar_wait(&full[j], 0);
+    }
+    return;
+  }
 
   if (tid == 0) {
     // the bulk spans: this block's (rank, chunk) pairs through the ring
@@ -274,13 +315,16 @@ all_gather_kernel(PeerTable t, int n_ranks, long long block_bytes,
     red_release_sys_add(t.flags[tid], 1ull);
   }
   // exit: the launch ends only when the outputs of the ranks it serves are complete
-  if (blockIdx.x == 0 && tid < t.n_local) wait_for(t.flags[t.rank0 + tid], arrivals_target);
+  if (blockIdx.x == 0 && tid < t.n_local) {
+    wait_for(t, t.flags[t.rank0 + tid], arrivals_target, kArrivalTimedOut);
+  }
 }
 
 template <typename V>
 int launch(const PeerTable& table, int n_ranks, long long block_bytes, long long vec_units,
-           unsigned long long generation, unsigned long long arrivals_before, int device,
-           int* info, cudaStream_t stream) {
+           unsigned long long generation, unsigned long long arrivals_before,
+           long long other_blocks, int share, int device, int* info, bool plan_only,
+           cudaStream_t stream) {
   const void* kernel = reinterpret_cast<const void*>(&all_gather_kernel<V>);
   // blocks of this kernel that one device holds at once, asked once per device
   constexpr int kDevices = 64;
@@ -299,36 +343,40 @@ int launch(const PeerTable& table, int n_ranks, long long block_bytes, long long
     if (err != cudaSuccess) return static_cast<int>(err);
     held[device] = per_sm * sms;
   }
-  if (held[device] < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  // what this launch may hold: the card's share of the launches that share it
+  const int resident = held[device] / share;
+  if (resident < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   // chunks of kChunk bytes, halved (down to kMinChunk) while the pairs are
-  // fewer than the blocks the card holds
+  // fewer than the blocks this launch may hold
   PeerTable t = table;
   for (t.chunk = kChunk;; t.chunk /= 2) {
     for (int i = 0; i < t.n_local; ++i) {
       const long long bulk = t.bulk[t.rank0 + i];
       t.chunk_start[i + 1] = t.chunk_start[i] + static_cast<int>((bulk + t.chunk - 1) / t.chunk);
     }
-    if (t.chunk <= kMinChunk || t.chunk_start[t.n_local] >= held[device]) break;
+    if (t.chunk <= kMinChunk || t.chunk_start[t.n_local] >= resident) break;
   }
   // one block per (rank, chunk) pair, or per kVecBatch vectors of every vector
-  // thread, whichever asks more; at most what the card holds at once
+  // thread, whichever asks more; at most what this launch may hold
   const long long n_pairs = t.chunk_start[t.n_local];
   const long long by_vec = (vec_units + static_cast<long long>(kVecThreads) * kVecBatch - 1) /
                            (static_cast<long long>(kVecThreads) * kVecBatch);
   long long want = n_pairs > by_vec ? n_pairs : by_vec;
   if (want < 1) want = 1;
-  const int blocks = static_cast<int>(want < held[device] ? want : held[device]);
-  unsigned long long target = arrivals_before + static_cast<unsigned long long>(blocks);
+  const int blocks = static_cast<int>(want < resident ? want : resident);
+  info[0] = blocks;
+  info[1] = static_cast<int>(sizeof(V));
+  info[2] = static_cast<int>(n_pairs);
+  info[3] = resident;
+  info[4] = t.chunk;
+  if (plan_only) return 0;
+  unsigned long long target = arrivals_before + static_cast<unsigned long long>(other_blocks) +
+                              static_cast<unsigned long long>(blocks);
   void* args[] = {&t, &n_ranks, &block_bytes, &generation, &target};
   // the ring at this call's chunk size (the occupancy above is the whole ring's)
   const size_t smem = static_cast<size_t>(kStages) * t.chunk;
   err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args, smem, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  info[0] = blocks;
-  info[1] = static_cast<int>(sizeof(V));
-  info[2] = static_cast<int>(n_pairs);
-  info[3] = held[device];
-  info[4] = t.chunk;
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -336,23 +384,37 @@ int launch(const PeerTable& table, int n_ranks, long long block_bytes, long long
 
 extern "C" {
 
-// in/out/flags: host arrays of n_ranks device pointers.  Launches all n_ranks
-// ranks in one grid on `device` (the current one).  generation: this call's
-// number on these flags (1, 2, ...); arrivals_before: what word 0 of every
-// rank's flags holds when all earlier calls have ended.  info[0] <- blocks
-// (each adds 1 arrival to every rank), info[1] <- bytes per vector of the
-// vector loop, info[2] <- (rank, chunk) pairs of the bulk copies, info[3] <-
-// blocks the card holds at once, info[4] <- bytes per chunk.
+// in/out/flags: host arrays of n_ranks device pointers (an output or flag
+// words on another card: peer-mapped).  Launches ranks [rank0, rank0 +
+// n_local) in one grid on `device`, which must be the current one.
+// generation: this call's number on these flags (1, 2, ...); arrivals_before:
+// what word 0 of every rank's flags holds when all earlier calls have ended;
+// other_blocks: the blocks of the call's other launches; share: the launches
+// of the call on this card; timeout_ns, error: the bound of every wait on a flag and
+// the word (device-visible host memory) a wait that exceeds it sets.
+// info[0] <- blocks (each adds 1 arrival to every rank), info[1] <- bytes per
+// vector of the vector loop, info[2] <- (rank, chunk) pairs of the bulk
+// copies, info[3] <- blocks this launch may hold, info[4] <- bytes per chunk.
+// plan_only: fill info and launch nothing.
 int hgnn_ring_all_gather(const void* const* in, void* const* out, void* const* flags,
-                         int n_ranks, long long block_bytes,
+                         int n_ranks, int rank0, int n_local, long long block_bytes,
                          unsigned long long generation, unsigned long long arrivals_before,
-                         int device, int* info, void* stream) {
-  if (n_ranks < 1 || n_ranks > kMaxRanks || block_bytes < 0) {
+                         long long other_blocks, int share,
+                         unsigned long long timeout_ns, void* error, int device, int* info,
+                         int plan_only, void* stream) {
+  if (n_ranks < 1 || n_ranks > kMaxRanks || block_bytes < 0 || rank0 < 0 || n_local < 1 ||
+      rank0 + n_local > n_ranks || share < 1 || other_blocks < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (current != device) return static_cast<int>(cudaErrorInvalidDevice);
   PeerTable table = {};
-  table.rank0 = 0;
-  table.n_local = n_ranks;
+  table.rank0 = rank0;
+  table.n_local = n_local;
+  table.error = static_cast<unsigned long long*>(error);
+  table.timeout_ns = timeout_ns;
   uintptr_t bits = static_cast<uintptr_t>(block_bytes);
   for (int r = 0; r < n_ranks; ++r) {
     table.in[r] = static_cast<const unsigned char*>(in[r]);
@@ -376,18 +438,39 @@ int hgnn_ring_all_gather(const void* const* in, void* const* out, void* const* f
     if (head > block_bytes) head = block_bytes;
     table.head[r] = head;
     table.bulk[r] = (block_bytes - head) / 16 * 16;
-    vec_bytes += block_bytes - table.bulk[r];
+    // the vector loop's bytes of the ranks this launch serves
+    if (r >= rank0 && r < rank0 + n_local) vec_bytes += block_bytes - table.bulk[r];
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define HGNN_LAUNCH(V)                                                                    \
   launch<V>(table, n_ranks, block_bytes, vec_bytes / static_cast<long long>(sizeof(V)), \
-            generation, arrivals_before, device, info, s)
+            generation, arrivals_before, other_blocks, share, device, info, plan_only != 0, s)
   if (bits % 16 == 0) return HGNN_LAUNCH(uint4);
   if (bits % 8 == 0) return HGNN_LAUNCH(uint2);
   if (bits % 4 == 0) return HGNN_LAUNCH(uint32_t);
   if (bits % 2 == 0) return HGNN_LAUNCH(uint16_t);
   return HGNN_LAUNCH(uint8_t);
 #undef HGNN_LAUNCH
+}
+
+// Lets `device` (the current one) reach `peer`'s memory: 0 if it can now
+// (also when it could already), cudaErrorPeerAccessUnsupported if the pair
+// cannot reach each other.
+int hgnn_enable_peer_access(int device, int peer) {
+  int can = 0;
+  cudaError_t err = cudaDeviceCanAccessPeer(&can, device, peer);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!can) return static_cast<int>(cudaErrorPeerAccessUnsupported);
+  int current = -1;
+  err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (current != device) return static_cast<int>(cudaErrorInvalidDevice);
+  err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // clear it: not an error here
+    return 0;
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -14,6 +14,10 @@ instead of applied, and reads see the thread's own staged value.  The caller
 collects each rank's (or each event's) staged values, checks that the ranks
 agree (:func:`agreed`: they are computed from group-reduced statistics) and
 applies them once (:func:`apply_mean`; over several events, their mean).
+
+A rank on another card than the module's reads its card's copy of each
+buffer (:func:`placed_buffers`); its staged values lie on its card and are
+brought to the buffer's card before they are compared and applied.
 """
 
 from __future__ import annotations
@@ -38,12 +42,32 @@ def staged_writes():
         _LOCAL.staged = previous
 
 
+@contextlib.contextmanager
+def placed_buffers(copies: dict):
+    """Within the block, the calling thread reads each buffer of ``copies``
+    (``id(buffer) -> tensor``) as that copy: a rank on another card reads
+    its card's."""
+    previous = getattr(_LOCAL, "placed", None)
+    _LOCAL.placed = copies
+    try:
+        yield copies
+    finally:
+        _LOCAL.placed = previous
+
+
+def placed(buffer: torch.Tensor) -> torch.Tensor:
+    """The buffer's copy on this thread's card (the buffer itself outside
+    :func:`placed_buffers`)."""
+    copies = getattr(_LOCAL, "placed", None)
+    return copies.get(id(buffer), buffer) if copies else buffer
+
+
 def read_buffer(buffer: torch.Tensor) -> torch.Tensor:
     """The buffer's value as this thread sees it: its staged write, if any."""
     staged = getattr(_LOCAL, "staged", None)
     if staged and id(buffer) in staged:
         return staged[id(buffer)][1]
-    return buffer
+    return placed(buffer)
 
 
 def write_buffer(buffer: torch.Tensor, value: torch.Tensor):
@@ -57,10 +81,20 @@ def write_buffer(buffer: torch.Tensor, value: torch.Tensor):
         staged[id(buffer)] = (buffer, value)
 
 
+def on_buffer_cards(stage: dict) -> dict:
+    """``stage`` with each value on its buffer's device (``stage`` itself
+    where they all are)."""
+    if all(value.device == buffer.device for buffer, value in stage.values()):
+        return stage
+    return {key: (buffer, value.to(buffer.device)) for key, (buffer, value) in stage.items()}
+
+
 def agreed(stages, rtol: float = 1e-5, atol: float = 1e-6) -> dict:
     """The ranks' staged writes of one forward, which must name the same
     buffers with the same values (to rounding: each rank computes them from
-    the same reduced statistics).  Returns rank 0's."""
+    the same reduced statistics), compared on the buffers' devices.
+    Returns rank 0's."""
+    stages = [on_buffer_cards(stage) for stage in stages]
     first = stages[0]
     for rank, stage in enumerate(stages[1:], 1):
         if stage.keys() != first.keys():
@@ -76,6 +110,7 @@ def agreed(stages, rtol: float = 1e-5, atol: float = 1e-6) -> dict:
 def apply_mean(stages):
     """Apply the mean over ``stages`` (one dict per event) of each staged
     buffer; an event that did not write a buffer counts its current value."""
+    stages = [on_buffer_cards(stage) for stage in stages]
     buffers = {key: buffer for stage in stages for key, (buffer, _) in stage.items()}
     with torch.no_grad():
         for key, buffer in buffers.items():

@@ -14,7 +14,9 @@ rank's :class:`TPBinding` and writes out the collectives that XLA's
 partitioner derives in the JAX package: an all-gather of the column blocks
 before a layer that needs its whole input, a ``psum`` after a row-split
 layer, the LayerNorm moments over a split width by ``psum``.  Outside it
-both run as they always did.
+both run as they always did.  A binding without split leaves only places
+the model: a graph-sharded rank on another card than the model's reads its
+card's copies of the parameters through it (``parallel/graph_shard.py``).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hierarchicalgnn_torch.models.buffers import read_buffer, write_buffer
+from hierarchicalgnn_torch.models.buffers import placed, read_buffer, write_buffer
 from hierarchicalgnn_torch.utils.device import torch_dtype
 
 _ACTIVATIONS = {
@@ -410,6 +412,6 @@ class MaskedBatchNorm(nn.Module):
                 write_buffer(self.running_var,
                              read_buffer(self.running_var) * (1 - m) + m * unbiased)
         else:
-            mean, var = self.running_mean[0], self.running_var[0]
+            mean, var = placed(self.running_mean)[0], placed(self.running_var)[0]
         inv = torch.rsqrt(var + self.epsilon)
         return (x - mean) * inv * bound(self.scale)[0] + bound(self.bias)[0]

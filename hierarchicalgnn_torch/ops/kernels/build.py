@@ -59,9 +59,13 @@ SIGNATURES = {
         "hgnn_csr_gather_sum_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
     "ring_gather.cu": {
-        # (in[], out[], flags[], n_ranks, block_bytes, generation,
-        #  arrivals_before, device, info[5], stream)
-        "hgnn_ring_all_gather": (_P, _P, _P, _I, _L, _U, _U, _I, ctypes.POINTER(_I), _P),
+        # (in[], out[], flags[], n_ranks, rank0, n_local, block_bytes, generation,
+        #  arrivals_before, other_blocks, share, timeout_ns, error, device, info[5],
+        #  plan_only, stream)
+        "hgnn_ring_all_gather": (_P, _P, _P, _I, _I, _I, _L, _U, _U, _L, _I, _U, _P, _I,
+                                 ctypes.POINTER(_I), _I, _P),
+        # (device, peer)
+        "hgnn_enable_peer_access": (_I, _I),
     },
     "top2.cu": {
         # (a, prices, out[3, n_rows], n_rows, n_cols, warps_per_row, grid, stream)

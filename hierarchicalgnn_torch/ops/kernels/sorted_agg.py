@@ -43,9 +43,10 @@ INT32_MAX = 2**31 - 1
 # Kernel launches since the last reset, by kernel (K3/K4 are counted by
 # ops/kernels/sddmm.py, K6 by ops/kernels/top2.py, K7 by
 # ops/kernels/segment_gather.py, K8 by ops/kernels/ring_gather.py, HD1/HD2
-# by ops/kernels/hdbscan.py, which also counts HD2's launches by route).
+# by ops/kernels/hdbscan.py, which also counts HD2's launches by route, and
+# K8's launches of calls split over several cards or streams as K8_split).
 LAUNCHES = {"K1": 0, "K2": 0, "K5": 0, "K3": 0, "K4": 0, "K6": 0, "K7": 0, "K8": 0,
-            "HD1": 0, "HD2": 0, "HD2_cluster": 0, "HD2_coop": 0}
+            "K8_split": 0, "HD1": 0, "HD2": 0, "HD2_cluster": 0, "HD2_coop": 0}
 # The ranks of a shard group are threads of one process (parallel/comm.py) and
 # launch K1, K2 and K5 side by side: their counts are added under this lock.
 COUNT_LOCK = threading.Lock()

@@ -3,10 +3,13 @@
 The JAX package writes the graph-partitioned path as per-device code under
 ``shard_map`` and takes its collectives from ``lax`` (``axis_index``,
 ``all_gather``, ``psum``, ``psum_scatter``, ``pmax``).  PyTorch has no
-``shard_map``.  This module is its counterpart for ranks that share one
-process and one card: :func:`run_sharded` runs the per-device function once
-per rank, each in a thread of its own, and hands it a :class:`Comm`, whose
-collectives are rendezvous points between the threads.
+``shard_map``.  This module is its counterpart for ranks of one process:
+:func:`run_sharded` runs the per-device function once per rank, each in a
+thread of its own, and hands it a :class:`Comm`, whose collectives are
+rendezvous points between the threads.  By default every rank runs on the
+caller's one card; with ``devices`` rank r runs on ``devices[r]`` (its card
+current, on that card's current stream as the caller's thread had it), as
+rank r of a JAX mesh runs on its own device.
 
 Threads, not lockstep code over lists of tensors: a collective sits deep
 inside a cell (the halo gather of every message-passing iteration), so
@@ -35,17 +38,25 @@ depend on it: a rank reads other ranks' data only through a collective).
 At a rendezvous every rank leaves its tensor and waits; the rank that
 arrives last computes the collective for all of them (for an all-gather under
 ``halo_backend: rdma`` that is the single K8 launch,
-``ops/kernels/ring_gather.py``) and every rank picks up its result.  All
-ranks run on one CUDA stream, the caller's current one, so the launch is
-ordered after every rank's producer and before every rank's consumer by the
-stream alone.
+``ops/kernels/ring_gather.py``) and every rank picks up its result.  On one
+card all ranks run on one CUDA stream, the caller's current one, so the
+launch is ordered after every rank's producer and before every rank's
+consumer by the stream alone.  Across cards each card has its stream (K8
+launches once on each), and every rank thread keeps all the ranks' streams
+current: a copy between two cards is ordered by both cards' current
+streams, so the collectives' copies (and the backward's, which enter the
+same streams) are ordered on both sides.
 
 ``all_gather`` under ``halo_backend: xla`` (the JAX package's name for the
 library collective, kept so that one config reads the same in both packages)
 is K8's plain version, a ``torch.cat``.  ``psum``, ``psum_scatter``,
 ``pmax`` and ``pmin`` are XLA collectives in the JAX package, no Pallas
-kernels, and are plain torch here: the partial results are added in rank
-order; bf16 and f16 partials are added in f32 and rounded once.
+kernels, and are plain torch here (no NCCL: the ranks are threads): the
+partial results are added in rank order; bf16 and f16 partials are added in
+f32 and rounded once.  Across cards the sum is taken on the first rank's
+card and each rank gets it on its own card (one copy per card);
+``psum_scatter`` sums each rank's row block on that rank's card from the
+ranks' rows of that block alone.
 ``all_gather_features``, the tensor-parallel MLPs' all-gather of column
 blocks (``parallel/tp.py``), is XLA's in the JAX package too, and a
 ``torch.cat`` on the last dim here whatever ``halo_backend`` says; it is
@@ -67,36 +78,47 @@ from __future__ import annotations
 import contextlib
 import threading
 
+import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
 from hierarchicalgnn_torch.ops.kernels.ring_gather import (
-    reduce_scatter_plain, ring_all_gather, ring_all_gather_plain, sum_in_rank_order)
+    _streams_of, current_streams, on_each, reduce_scatter_plain, ring_all_gather,
+    ring_all_gather_plain, sum_in_rank_order)
+from hierarchicalgnn_torch.utils.device import resolve_devices
 
 HALO_BACKENDS = ("xla", "rdma")
 THREAD_PREFIX = "shard-rank-"
 
 
+def _remember(ctx, values):
+    """Keep the ranks' devices, and their cards' current streams where they
+    span several, for the backward."""
+    ctx.devices = [v.device for v in values]
+    ctx.streams = _streams_of(ctx.devices)
+
+
 class _Psum(torch.autograd.Function):
     """The ranks' values summed in rank order, handed to every rank as a
-    view of its own; backward: the ranks' cotangents summed in rank order
-    (bf16 in f32, rounded once), the same sum for every rank's input.  One
-    fixed order: with a single shared output autograd would add the ranks'
-    cotangents in the order its engine meets them, which follows which rank
-    completed the rendezvous."""
+    view of its own on its card; backward: the ranks' cotangents summed in
+    rank order (bf16 in f32, rounded once), the same sum for every rank's
+    input.  One fixed order: with a single shared output autograd would add
+    the ranks' cotangents in the order its engine meets them, which follows
+    which rank completed the rendezvous."""
 
     @staticmethod
     def forward(ctx, *values):
         ctx.set_materialize_grads(False)  # a rank that never reads its copy adds nothing
-        total = sum_in_rank_order(values)
-        return tuple(total.view_as(total) for _ in values)
+        _remember(ctx, values)
+        return tuple(t.view_as(t) for t in on_each(sum_in_rank_order(values), ctx.devices))
 
     @staticmethod
     def backward(ctx, *grads):
         given = [g for g in grads if g is not None]
         if not given:
             return (None,) * len(grads)
-        return (sum_in_rank_order(given),) * len(grads)
+        with current_streams(ctx.streams):
+            return tuple(on_each(sum_in_rank_order(given), ctx.devices))
 
 
 class _FeatureGather(torch.autograd.Function):
@@ -109,39 +131,54 @@ class _FeatureGather(torch.autograd.Function):
     def forward(ctx, *blocks):
         ctx.set_materialize_grads(False)  # a rank that never reads its copy adds nothing
         ctx.widths = [b.shape[-1] for b in blocks]
-        out = torch.cat(blocks, -1)
-        return tuple(out.view_as(out) for _ in blocks)
+        _remember(ctx, blocks)
+        return tuple(t.view_as(t) for t in on_each(_cat_features(blocks), ctx.devices))
 
     @staticmethod
     def backward(ctx, *grads):
         given = [g for g in grads if g is not None]
         if not given:
             return (None,) * len(grads)
-        return sum_in_rank_order(given).split(ctx.widths, -1)
+        with current_streams(ctx.streams):
+            parts = sum_in_rank_order(given).split(ctx.widths, -1)
+            return tuple(p.to(d) for p, d in zip(parts, ctx.devices))
+
+
+def _cat_features(blocks):
+    """The ranks' column blocks side by side, on the first rank's card."""
+    return torch.cat([b.to(blocks[0].device) for b in blocks], -1)
 
 
 class _Replicate(torch.autograd.Function):
-    """``n`` views of one tensor, one per rank; backward: the ranks'
-    cotangents summed in rank order (bf16 in f32, rounded once)."""
+    """A view of one tensor for each of ``devices``' ranks (a copy per card
+    where the tensor lies elsewhere); backward: the ranks' cotangents, on
+    the tensor's card, summed in rank order (bf16 in f32, rounded once)."""
 
     @staticmethod
-    def forward(ctx, x, n):
+    def forward(ctx, x, devices):
         ctx.set_materialize_grads(False)
-        return tuple(x.view_as(x) for _ in range(n))
+        ctx.device = x.device
+        ctx.streams = _streams_of([x.device, *devices])
+        return tuple(c.view_as(c) for c in on_each(x, devices))
 
     @staticmethod
     def backward(ctx, *grads):
         given = [g for g in grads if g is not None]
-        return (sum_in_rank_order(given) if given else None), None
+        if not given:
+            return None, None
+        with current_streams(ctx.streams):
+            return sum_in_rank_order([g.to(ctx.device) for g in given]), None
 
 
-def replicate(x, n_parts: int):
-    """``n_parts`` views of ``x``, one for each rank to read: ``x``'s gradient
-    is then the ranks' contributions added in rank order, not in the order
-    the backward happens to meet them."""
+def replicate(x, n_parts: int, devices=None):
+    """``n_parts`` views of ``x``, one for each rank to read (on
+    ``devices[r]``, by default ``x``'s device; one copy per other card):
+    ``x``'s gradient is then the ranks' contributions added on its card in
+    rank order, not in the order the backward happens to meet them."""
+    devices = [x.device] * n_parts if devices is None else list(devices)
     if torch.is_grad_enabled() and x.requires_grad:
-        return list(_Replicate.apply(x, n_parts))
-    return [x] * n_parts
+        return list(_Replicate.apply(x, devices))
+    return on_each(x, devices)
 
 
 class _Handoff(torch.autograd.Function):
@@ -208,27 +245,27 @@ class ShardGroup:
     def _all_gather_features(self, values):
         if torch.is_grad_enabled() and any(v.requires_grad for v in values):
             return list(_FeatureGather.apply(*values))
-        return [torch.cat(values, -1)] * self.n_parts
+        return on_each(_cat_features(values), [v.device for v in values])
 
     def _psum(self, values):
         if torch.is_grad_enabled() and any(v.requires_grad for v in values):
             return list(_Psum.apply(*values))
-        return [sum_in_rank_order(values)] * self.n_parts
+        return on_each(sum_in_rank_order(values), [v.device for v in values])
 
     def _psum_scatter(self, values):
-        return reduce_scatter_plain(values)
+        return reduce_scatter_plain(values, devices=[v.device for v in values])
 
     def _pmax(self, values):
         top = values[0]
         for v in values[1:]:
-            top = torch.maximum(top, v)
-        return [top] * self.n_parts
+            top = torch.maximum(top, v.to(top.device))
+        return on_each(top, [v.device for v in values])
 
     def _pmin(self, values):
         low = values[0]
         for v in values[1:]:
-            low = torch.minimum(low, v)
-        return [low] * self.n_parts
+            low = torch.minimum(low, v.to(low.device))
+        return on_each(low, [v.device for v in values])
 
     def _complete(self):
         """Runs in the rank that arrives last, while the others wait."""
@@ -304,27 +341,72 @@ class Comm:
         return self.group.meet(self.index, "pmin", x)
 
 
-def run_sharded(fn, n_parts: int, halo_backend: str = "xla", device=None):
+def to_device(tree, device):
+    """Every tensor of ``tree`` (a pytree) on ``device``: a rank's outputs
+    brought to the caller's card."""
+    return pytree.tree_map(lambda v: v.to(device) if isinstance(v, torch.Tensor) else v, tree)
+
+
+def place_inputs(inputs, devices, buffers=()):
+    """What each rank of a forward over ``devices`` (one per rank) reads:
+    ``(inputs_of, buffers_of)``.  ``inputs_of(r)`` is ``inputs`` (a pytree of
+    tensors and arrays) on ``devices[r]``, one copy per card;
+    ``buffers_of(r)`` maps ``id(buffer)`` to each of ``buffers``' copy on
+    that card, for ``models/buffers.py::placed_buffers``.  With ``devices``
+    None (every rank on the caller's device) every rank reads ``inputs`` and
+    the buffers themselves."""
+    if devices is None:
+        return (lambda r: inputs), (lambda r: {})
+    copies = {d: pytree.tree_map(
+        lambda v: torch.as_tensor(v, device=d) if isinstance(v, (torch.Tensor, np.ndarray))
+        else v, inputs) for d in dict.fromkeys(devices)}
+    placed = {id(b): on_each(b, devices) for b in buffers}
+    return (lambda r: copies[devices[r]]), (lambda r: {k: c[r] for k, c in placed.items()})
+
+
+def run_sharded(fn, n_parts: int, halo_backend: str = "xla", device=None, devices=None):
     """Run ``fn(comm)`` once per rank and return ``(results, group)``:
     the list of the ranks' return values and the group with its counts.
 
     The ranks are threads named ``shard-rank-<r>``.  They inherit the
-    caller's grad mode and, with a CUDA ``device``, its current stream.  If a
-    rank raises, or returns while others wait for it, the others are released
-    from their rendezvous and the first error is raised here.
+    caller's grad mode and, with a CUDA ``device``, its current stream.
+    With ``devices`` (one per rank) rank r runs with ``devices[r]`` current
+    on that card's current stream, and every card's stream (``device``'s
+    too) current in every rank thread; the function must then hand rank r
+    its inputs on its card (:func:`place_inputs`).  A device may repeat:
+    those ranks share the card.  Only ``devices=None`` is the default path.
+    If a rank raises, or returns while others wait for it, the others are
+    released from their rendezvous and the first error is raised here.
     """
     group = ShardGroup(n_parts, halo_backend)
     results, errors = [None] * n_parts, [None] * n_parts
     grad = torch.is_grad_enabled()
-    device = torch.device(device) if device is not None else None
-    stream = torch.cuda.current_stream(device) if device is not None and \
-        device.type == "cuda" else None
+    if devices is not None and len(devices) != n_parts:
+        raise ValueError(f"{len(devices)} devices for {n_parts} ranks")
+    device = resolve_devices([device])[0] if device is not None else None
+    if devices is None:
+        stream = torch.cuda.current_stream(device) if device is not None and \
+            device.type == "cuda" else None
+
+        def placed(rank):
+            return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+    else:
+        devices = resolve_devices(devices)
+        cards = {d for d in devices if d.type == "cuda"}
+        if device is not None and device.type == "cuda":
+            cards.add(device)
+        streams = [torch.cuda.current_stream(d) for d in sorted(cards, key=lambda d: d.index)]
+
+        @contextlib.contextmanager
+        def placed(rank):
+            with current_streams(streams), (torch.cuda.device(devices[rank])
+                                            if devices[rank].type == "cuda"
+                                            else contextlib.nullcontext()):
+                yield
 
     def work(rank):
         try:
-            on_stream = torch.cuda.stream(stream) if stream is not None \
-                else contextlib.nullcontext()
-            with group.baton, torch.set_grad_enabled(grad), on_stream:
+            with group.baton, torch.set_grad_enabled(grad), placed(rank):
                 results[rank] = fn(Comm(group, rank))
                 group.returned()
         except BaseException as exc:  # noqa: BLE001 - handed to the caller below

@@ -1,8 +1,10 @@
 """Graph-partitioned forward and training step of the five models.
 
 Counterpart of ``hierarchicalgnn_tpu/parallel/graph_shard.py``.
-One event is split over ``n_parts`` ranks that share one process and one
-card (``parallel/comm.py``):
+One event is split over ``n_parts`` ranks that share one process
+(``parallel/comm.py``), on the caller's one card, or each on its own card
+where ``devices`` names them (the JAX mesh's device array, see
+``parallel/mesh.py``; :class:`ShardedForward`):
 
   * **Node space row-blocked**: rank d owns global node rows
     ``[d*n_local, (d+1)*n_local)``.
@@ -43,9 +45,10 @@ graph through the collectives (the all-gather's backward is a reduce-scatter,
 reaches every rank.  Every gather of a rank has K1 as its backward, the halo
 gather's too (:func:`halo_endpoint_gather`).  The loss runs on the caller's
 thread on the reassembled outputs; its matching's auction is row-sharded
-over the ranks (``train/matching.py``).  The ranks share one module, so
-their buffer writes are staged, checked to agree and applied once
-(``models/buffers.py``).  Over a data axis each step takes several events
+over the ranks (``train/matching.py``).  The ranks share one module: each
+reads its parameters as views of its own (:func:`place_model`), so that
+their gradients add in rank order, and their buffer writes are staged,
+checked to agree and applied once (``models/buffers.py``).  Over a data axis each step takes several events
 (``parallel/step.py``).
 """
 
@@ -57,17 +60,20 @@ import torch
 
 from hierarchicalgnn_torch.ops.connected import compact_labels, count_host_sync
 from hierarchicalgnn_torch.ops.graph import Graph, graph_to
+from hierarchicalgnn_torch.ops.kernels.ring_gather import settle
 from hierarchicalgnn_torch.ops.kernels.sorted_agg import (
     INT32_MAX, SortedPlan, build_sorted_plan, build_transposed_plan, cross_permutation,
     gather_edge_endpoints, gather_receivers, gather_senders, sorted_aggregate,
     sorted_aggregate_weighted, sorted_segment_min_i32)
 from hierarchicalgnn_torch.ops.segment import segment_sum
-from hierarchicalgnn_torch.models.buffers import agreed, staged_writes
-from hierarchicalgnn_torch.parallel.comm import HALO_BACKENDS, Comm, run_sharded
-from hierarchicalgnn_torch.parallel.mesh import as_mesh
-from hierarchicalgnn_torch.parallel.step import EventMeanStep
+from hierarchicalgnn_torch.models.buffers import agreed, placed_buffers, staged_writes
+from hierarchicalgnn_torch.models.mlp import TPBinding, tensor_parallel
+from hierarchicalgnn_torch.parallel.comm import (
+    HALO_BACKENDS, Comm, place_inputs, replicate, run_sharded, to_device)
+from hierarchicalgnn_torch.parallel.mesh import as_mesh, make_mesh
+from hierarchicalgnn_torch.parallel.step import EventMeanStep, event_index
 from hierarchicalgnn_torch.utils.config import SHARD_DEFAULTS
-from hierarchicalgnn_torch.utils.device import resolve_device
+from hierarchicalgnn_torch.utils.device import resolve_device, resolve_devices
 
 # The JAX package rounds the per-rank edge capacity to the edge block of its
 # Pallas kernels (``BLOCK_E`` of ops/pallas/sorted_agg.py).  CSR needs no
@@ -385,29 +391,53 @@ def make_hier_shard_aggs(shard: ShardTools, bgraph: Graph, bweights, sgraph: Gra
 SHARDED, REPLICATED = "sharded", "replicated"
 
 
-def _reassemble(spec, outs):
+def _reassemble(spec, outs, device=None):
+    """The ranks' outputs in the unsharded layout; on ``device`` where given
+    (the ranks' outputs lie on their cards)."""
     if spec == SHARDED:
-        return torch.cat(outs, 0)
+        return torch.cat(outs if device is None else [o.to(device) for o in outs], 0)
     if spec == REPLICATED:
-        return outs[0]
-    parts = [_reassemble(s, [o[i] for o in outs]) for i, s in enumerate(spec)]
+        return outs[0] if device is None else to_device(outs[0], device)
+    parts = [_reassemble(s, [o[i] for o in outs], device) for i, s in enumerate(spec)]
     return type(spec)(*parts) if isinstance(spec, Graph) else tuple(parts)
+
+
+def place_model(model, devices):
+    """``on_card(comm)``: the context in which rank ``comm.index`` of a
+    forward over ``devices`` reads each of ``model``'s parameters as a view
+    of its own, through ``parallel/comm.py::replicate`` (one copy per card
+    other than the parameter's): the ranks' contributions to its gradient are
+    then added on its card in rank order.  Read directly, the parameter
+    would gather them in the order autograd's engine meets them, which on the
+    card varies from run to run.  Call it on the caller's thread, before the
+    ranks run."""
+    params = {id(p): replicate(p, len(devices), devices) for p in model.parameters()}
+    return lambda comm: tensor_parallel(
+        TPBinding(comm, {k: (v[comm.index], None) for k, v in params.items()}))
 
 
 class ShardedForward:
     """``forward(batch)``: the eval forward of one preprocessed event over
-    ``n_parts`` ranks, returning the GLOBAL outputs in the unsharded layout.
-    BC and gMRT return their bipartite graph in the kNN's edge order, the
-    unsharded forward in receiver-sorted order: the same edges and scores,
-    permuted.
+    ``n_parts`` ranks, returning the GLOBAL outputs in the unsharded layout
+    on ``device``.  BC and gMRT return their bipartite graph in the kNN's
+    edge order, the unsharded forward in receiver-sorted order: the same
+    edges and scores, permuted.
+
+    ``devices``: for each local event, the devices of its ranks (None: every
+    rank on ``device``, the model's, the default path).  Given, even where
+    every entry is ``device``, each rank gets its inputs and the model's
+    buffers on its device (``parallel/comm.py::place_inputs``) and runs with
+    that card current; the outputs come back to ``device``.  Every rank
+    reads the parameters through :func:`place_model`, on its card.
 
     ``last_stats`` then holds ``host_syncs`` (summed over the ranks),
     ``partition_ok`` (no rank dropped an edge; one host read), the group's
     ``collectives`` and, for a hierarchical model, ``n_clusters``.
     """
 
-    def __init__(self, model, spec: SpmdSpec, hparams: dict, device):
+    def __init__(self, model, spec: SpmdSpec, hparams: dict, device, devices=None):
         self.model, self.spec, self.hparams, self.device = model, spec, hparams, device
+        self.devices = devices
         self.out_specs = model.sharded_out_specs(spec)
         self.last_stats: dict = {}
 
@@ -415,9 +445,10 @@ class ShardedForward:
     def __call__(self, batch):
         return self._run(batch)[0]
 
-    def _run(self, batch):
-        """The ranks' forwards in the model's mode and the caller's grad mode.
-        Returns (the reassembled outputs, each rank's staged buffer writes)."""
+    def _run(self, batch, event: int = 0):
+        """The ranks' forwards of local event ``event`` in the model's mode and
+        the caller's grad mode.  Returns (the reassembled outputs, each rank's
+        staged buffer writes)."""
         n_parts = self.spec.n_parts
         x = torch.as_tensor(batch.x, device=self.device)
         node_mask = torch.as_tensor(batch.node_mask, device=self.device)
@@ -427,17 +458,25 @@ class ShardedForward:
                              f"must both divide by n_parts {n_parts}")
         n_local = x.shape[0] // n_parts
         stats = [{} for _ in range(n_parts)]
+        devices = None if self.devices is None else resolve_devices(self.devices[event])
+        inputs_of, buffers_of = place_inputs((x, graph, node_mask), devices,
+                                             self.model.buffers())
+        on_card = place_model(self.model, devices or [self.device] * n_parts)
 
         def per_rank(comm):
-            rows = slice(comm.index * n_local, (comm.index + 1) * n_local)
-            with staged_writes() as staged:
-                out = self.model(x[rows], graph, node_mask[rows], stats=stats[comm.index],
+            r = comm.index
+            rows = slice(r * n_local, (r + 1) * n_local)
+            x_r, graph_r, mask_r = inputs_of(r)
+            with staged_writes() as staged, placed_buffers(buffers_of(r)), on_card(comm):
+                out = self.model(x_r[rows], graph_r, mask_r[rows], stats=stats[r],
                                  spmd=self.spec._replace(comm=comm))
             return out, staged
 
-        ranks, group = run_sharded(per_rank, n_parts, self.spec.halo_backend, self.device)
-        out = _reassemble(self.out_specs, [o for o, _ in ranks])
-        flags = [flag for s in stats for flag in s.get("partition_ok", ())]
+        ranks, group = run_sharded(per_rank, n_parts, self.spec.halo_backend, self.device,
+                                   devices)
+        out = _reassemble(self.out_specs, [o for o, _ in ranks], self.device)
+        settle()  # a K8 call whose peer never came fails this forward
+        flags = [flag.to(self.device) for s in stats for flag in s.get("partition_ok", ())]
         self.last_stats = {
             "host_syncs": sum(s.get("host_syncs", 0) for s in stats) + 1,
             "partition_ok": bool(torch.stack(flags).all()),
@@ -453,12 +492,14 @@ class ShardedTrainForward(ShardedForward):
     autograd graph through the collectives, so one backward from the
     caller's thread reaches every rank.  The ranks' buffer writes are staged
     and must agree (``models/buffers.py::agreed``); ``staged`` is rank 0's,
-    for the caller to apply.  ``stats`` receives ``last_stats``: host syncs
+    for the caller to apply.  The ranks run on the row of devices of the
+    step's event in flight (``parallel/step.py::event_index``).  ``stats``
+    receives ``last_stats``: host syncs
     and collectives added up, ``partition_ok`` and-ed."""
 
     def __call__(self, batch, stats=None):
         self.model.train()
-        out, stages = self._run(batch)
+        out, stages = self._run(batch, event_index())
         if stats is not None:
             last = self.last_stats
             stats["host_syncs"] = stats.get("host_syncs", 0) + last["host_syncs"]
@@ -472,18 +513,20 @@ class ShardedTrainForward(ShardedForward):
 
 
 def make_sharded_forward(pipeline, n_parts: int, hparams: dict,
-                         device: str | torch.device = "cuda") -> ShardedForward:
+                         device: str | torch.device = "cuda", devices=None) -> ShardedForward:
     """The graph-partitioned eval forward of ``pipeline.model`` over
-    ``n_parts`` ranks on one device (``halo_backend``, ``halo_slack`` and
-    ``shard_pooled`` from ``hparams``).  ``device`` defaults to the card and
-    raises without one."""
-    device = resolve_device(device)
+    ``n_parts`` ranks (``halo_backend``, ``halo_slack`` and ``shard_pooled``
+    from ``hparams``): on ``device``, where the model and the outputs live,
+    or rank r on ``devices[r]`` (a row of a mesh's devices).  ``device``
+    defaults to the card and raises without one."""
+    device = resolve_devices([resolve_device(device)])[0]
     model = pipeline.model.to(device).eval()
-    return ShardedForward(model, spec_from_hparams(n_parts, hparams), hparams, device)
+    rows = None if devices is None else make_mesh(1, n_parts, devices=devices).devices
+    return ShardedForward(model, spec_from_hparams(n_parts, hparams), hparams, device, rows)
 
 
 def make_sharded_train_step(pipeline, optimizer, mesh_shape, hparams: dict,
-                            device: str | torch.device = "cuda") -> EventMeanStep:
+                            device: str | torch.device = "cuda", devices=None) -> EventMeanStep:
     """The training step with the model's forward graph-partitioned over
     ``graph`` ranks and ``data`` events a step (``graph_shard.py:567`` of the
     JAX package).  ``mesh_shape`` is a ``parallel/mesh.py`` Mesh, whose
@@ -498,14 +541,18 @@ def make_sharded_train_step(pipeline, optimizer, mesh_shape, hparams: dict,
     thread on the reassembled outputs: the unsharded ``loss_from_outputs``.
     With one event a step the matching's auction is row-sharded over the
     ranks (``shard_matching``, default on); over several events it is
-    replicated, as in the JAX package.  ``device`` defaults to the card and
-    raises without one.
+    replicated, as in the JAX package.  ``device`` (the model's, where the
+    loss runs) defaults to the card and raises without one.  The ranks of
+    local event e run on row e of the mesh's devices, or of ``devices`` (a
+    flat list, as ``make_mesh`` takes it), where given.
     """
-    device = resolve_device(device)
+    device = resolve_devices([resolve_device(device)])[0]
     mesh = as_mesh(mesh_shape)
+    if devices is not None:
+        mesh = make_mesh(mesh.data, mesh.graph, mesh.group, devices)
     model = pipeline.model.to(device)
     forward = ShardedTrainForward(model, spec_from_hparams(mesh.graph, hparams), hparams,
-                                  device)
+                                  device, mesh.devices)
     matching = (mesh.graph if mesh.data == 1 and bool(hparams.get("shard_matching", True))
                 else None)
     return EventMeanStep(pipeline, optimizer, forward, mesh.data, matching_spmd=matching,

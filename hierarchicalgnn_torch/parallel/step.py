@@ -9,10 +9,12 @@ standard DP treatment of running statistics").  Every event's forward reads
 the buffers as they were before the step: its writes are staged
 (``models/buffers.py``) and the means applied once at the end.
 
-The events run one after another on the one device, each with its backward
-before the next forward, so the step holds one event's activations at a
-time; the gradient of the mean loss is the sum of each event's gradient of
-``loss / B``.  :class:`EventMeanStep` is shared with the graph-partitioned
+The events run one after another, each with its backward before the next
+forward, so the step holds one event's activations at a time; the gradient
+of the mean loss is the sum of each event's gradient of ``loss / B``, added
+in event order on the parameters' device.  Local event e runs on row e of
+the mesh's devices where it has them: the forward reads e from
+:func:`event_index`.  :class:`EventMeanStep` is shared with the graph-partitioned
 step (``parallel/graph_shard.py``), which hands it the sharded forward, and
 with the tensor-parallel step (``parallel/tp.py``), which hands it the
 forward over the ``model`` ranks, the ranks' shards as the tensors to
@@ -32,6 +34,9 @@ one-process step bit for bit.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.distributed as dist
 
@@ -41,6 +46,24 @@ from hierarchicalgnn_torch.ops.graph import Graph
 from hierarchicalgnn_torch.parallel.distributed import GlobalBatch, gather_from_processes
 from hierarchicalgnn_torch.parallel.mesh import as_mesh
 from hierarchicalgnn_torch.train.optim import apply_gradients, global_norm
+
+
+_EVENT = threading.local()
+
+
+def event_index() -> int:
+    """The place, among this process's events of the step in flight, of the
+    event whose forward the calling thread runs (0 outside a step)."""
+    return getattr(_EVENT, "index", 0)
+
+
+@contextlib.contextmanager
+def _local_event(index: int):
+    _EVENT.index = index
+    try:
+        yield
+    finally:
+        _EVENT.index = 0
 
 
 def stack_events(events) -> Event:
@@ -90,7 +113,9 @@ class EventMeanStep:
     """``step(batch, epoch) -> metrics``: one optimizer step over the
     ``n_events`` events of ``batch``.  ``forward(event, stats) -> (out,
     staged)`` is the training forward of one event (its outputs in the
-    unsharded layout and its staged buffer writes); the loss is
+    unsharded layout and its staged buffer writes, on the parameters'
+    device; :func:`event_index` is the event's place among this process's);
+    the loss is
     ``pipeline.loss_from_outputs(out, event, epoch, matching_spmd=...)``.
 
     :meth:`forward_backward` gives (grads, metrics) and applies the
@@ -138,8 +163,9 @@ class EventMeanStep:
         params = self.params()
         stats: dict = {}
         grads, metrics, stages = None, [], []
-        for event in events:
-            out, staged = self.forward(event, stats)
+        for index, event in enumerate(events):
+            with _local_event(index):
+                out, staged = self.forward(event, stats)
             loss, event_metrics = self.pipeline.loss_from_outputs(
                 out, event, epoch, stats=stats, matching_spmd=self.matching_spmd)
             event_grads = torch.autograd.grad(loss / self.n_events, params, allow_unused=True)

@@ -22,8 +22,13 @@ global norm (a ``psum`` of the split leaves' squared norms; each replicated
 leaf counted once).
 
 The ``model`` ranks are threads of one shard group (``parallel/comm.py``)
-that share the card.  Each runs the whole model: the graph work is
-replicated, as every device does it under XLA, and the MLPs are split.  A
+that share the card, or, with ``make_tp_mesh(..., devices=...)``, each run on
+a card of its own: rank r's shards and their moments then live on row 0's
+card r, the replicated leaves and the buffers stay on the model's card and
+each rank reads copies on its card (``parallel/comm.py::replicate``), and
+local event e runs rank r on ``devices[e][r]``.  Each runs the whole model:
+the graph work is replicated, as every device does it under XLA, and the
+MLPs are split.  A
 rank holds its own shard of each split leaf and of that leaf's moments;
 a replicated leaf is one tensor, the model's own, which every rank reads
 (autograd adds the ranks' contributions to its gradient).  The loss is
@@ -55,14 +60,15 @@ import torch
 
 from hierarchicalgnn_torch.convert import param_targets
 from hierarchicalgnn_torch.data.event import Event
-from hierarchicalgnn_torch.models.buffers import agreed, staged_writes
+from hierarchicalgnn_torch.models.buffers import agreed, placed_buffers, staged_writes
 from hierarchicalgnn_torch.models.mlp import MLP, MatchDims, TPBinding, tensor_parallel
 from hierarchicalgnn_torch.ops.graph import Graph
-from hierarchicalgnn_torch.parallel.comm import handoff, replicate, run_sharded
-from hierarchicalgnn_torch.parallel.mesh import Mesh, make_mesh
-from hierarchicalgnn_torch.parallel.step import EventMeanStep
+from hierarchicalgnn_torch.parallel.comm import (
+    handoff, place_inputs, replicate, run_sharded, to_device)
+from hierarchicalgnn_torch.parallel.mesh import Mesh, device_array, make_mesh
+from hierarchicalgnn_torch.parallel.step import EventMeanStep, event_index
 from hierarchicalgnn_torch.train.checkpoint import MOMENTS, load_model_state
-from hierarchicalgnn_torch.utils.device import resolve_device
+from hierarchicalgnn_torch.utils.device import resolve_device, resolve_devices
 
 AXIS = "model"
 
@@ -71,10 +77,11 @@ class TPMesh(NamedTuple):
     """The ``{data, model}`` layout: ``mesh``, the ``parallel/mesh.py`` Mesh
     of the ``data`` axis (its events a step over its processes, ``graph``
     1), and ``model`` ranks that split the hidden width, threads of each
-    process.  On one card the ranks share it, so no device count is
-    checked."""
+    process.  ``devices``: ``[local_events][model]`` ``torch.device``s, or
+    None (every rank on the model's card)."""
     mesh: Mesh
     model: int
+    devices: tuple | None = None
 
     @property
     def data(self) -> int:
@@ -84,19 +91,27 @@ class TPMesh(NamedTuple):
     def group(self):
         return self.mesh.group
 
+    def row(self, event: int):
+        """The devices of local event ``event``'s ranks (None: the model's)."""
+        return None if self.devices is None else list(self.devices[event])
 
-def make_tp_mesh(data: int | Mesh = 1, model: int = 1, hidden: int | None = None) -> TPMesh:
+
+def make_tp_mesh(data: int | Mesh = 1, model: int = 1, hidden: int | None = None,
+                 devices=None) -> TPMesh:
     """The mesh; ``data`` is a count of events run by this process alone or
     a ``parallel/mesh.py`` Mesh of ``graph`` 1 (``make_global_mesh()``)
     whose ``data`` axis spans its processes.  Raises when ``hidden`` (if
     given) does not split evenly over ``model`` (JAX's ``NamedSharding``
-    refuses an uneven split too)."""
+    refuses an uneven split too).  ``devices`` as the JAX ``make_tp_mesh``
+    takes them: the first ``local_events x model``, reshaped to
+    ``[local_events, model]`` (fewer raise in the JAX mesh's words)."""
     mesh = data if isinstance(data, Mesh) else make_mesh(data)
     if model < 1:
         raise ValueError(f"mesh {mesh.data}x{model}: both axes must be at least 1")
     if mesh.graph != 1:
         raise ValueError(f"the TP step splits no graph: mesh graph {mesh.graph}")
-    mesh = TPMesh(mesh, int(model))
+    mesh = TPMesh(mesh, int(model), device_array(mesh.local_events, int(model), devices,
+                                                 f"mesh {mesh.data}x{model}"))
     if hidden is not None:
         _check_hidden(hidden, mesh)
     return mesh
@@ -215,20 +230,27 @@ class TPState:
         moments = {key: self._entries(self.opt_state[key]) for key in MOMENTS}
         return [dict(zip(MOMENTS, m)) for m in zip(*(moments[k] for k in MOMENTS))]
 
-    def binding(self, model, comm, replicas) -> TPBinding:
+    def binding(self, model, comm, replicas, device=None) -> TPBinding:
         """What rank ``comm.index`` reads for each of ``model``'s parameters:
-        its shard of a split leaf, its view of a replicated one (``replicas``,
-        name -> one view per rank, ``parallel/comm.py::replicate``)."""
+        its shard of a split leaf (a copy on ``device`` where it runs on
+        another card than the shard's), its view of a replicated one
+        (``replicas``, name -> one view per rank,
+        ``parallel/comm.py::replicate``)."""
         own = self.params[comm.index]
+
+        def shard(name):
+            return own[name] if device is None else own[name].to(device)
+
         return TPBinding(comm, {
-            id(p): (own[name], self.split[name]) if name in self.split
+            id(p): (shard(name), self.split[name]) if name in self.split
             else (replicas[name][comm.index], None) for name, p in model.named_parameters()})
 
     def grad_norm(self, grads, stats=None):
         """The global norm of ``grads`` (aligned with :meth:`leaves`; None
         counts as zero): each split leaf's squared norms summed over the
-        ranks by a ``psum``, each replicated leaf counted once.  The psum is
-        added to ``stats["collectives"]``."""
+        ranks by a ``psum`` in rank order (each rank's on its shards' card),
+        each replicated leaf counted once, on the first leaf's device.  The
+        psum is added to ``stats["collectives"]``."""
         leaves = self.leaves()
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         n = len(self.names)
@@ -240,12 +262,14 @@ class TPState:
                 for r in range(1, self.n_ranks)]
             squares = [v.square() for v in per_rank]
             total, group = run_sharded(lambda comm: comm.psum(squares[comm.index]),
-                                       self.n_ranks, device=leaves[0].device)
+                                       self.n_ranks, device=leaves[0].device,
+                                       devices=[v.device for v in squares])
             if stats is not None:
                 _add_counts(stats, group.collectives)
             for i, norm in zip(at, total[0].sqrt().unbind(0)):
                 norms[i] = norm
-        return torch.linalg.vector_norm(torch.stack(norms))
+        home = leaves[0].device
+        return torch.linalg.vector_norm(torch.stack([v.to(home) for v in norms]))
 
 
 def _add_counts(stats, collectives):
@@ -256,27 +280,29 @@ def _add_counts(stats, collectives):
 
 def shard_state(state: dict, mesh: TPMesh, hidden: int, model) -> TPState:
     """Lay the full train state out over ``mesh.model`` ranks on the model's
-    device.  The model's own parameters and buffers take the state's values
-    (they are the replicated leaves and the buffers); each rank gets a shard
-    of its own of every split leaf and of its moments."""
+    device (rank r's split leaves on ``mesh.devices[0][r]`` where the mesh
+    has devices).  The model's own parameters and buffers take the state's
+    values (they are the replicated leaves and the buffers); each rank gets
+    a shard of its own of every split leaf and of its moments."""
     dims = split_dims(model, mesh, hidden)
     load_model_state(model, state)
     named = dict(model.named_parameters())
-    device = next(iter(named.values())).device
+    home = next(iter(named.values())).device
     n_ranks = mesh.model
+    cards = mesh.row(0) or [home] * n_ranks
     params = [{} for _ in range(n_ranks)]
     moments = {key: [{} for _ in range(n_ranks)] for key in MOMENTS}
     for name, param in named.items():
         dim = dims.get(name)
         for key in MOMENTS:
             full = state["opt_state"][key][name]
-            whole = None if dim is not None else full.to(device).clone()
+            whole = None if dim is not None else full.to(home).clone()
             for r in range(n_ranks):
                 moments[key][r][name] = whole if whole is not None else _shard(
-                    full, dim, r, n_ranks, device)
+                    full, dim, r, n_ranks, cards[r])
         for r in range(n_ranks):
             params[r][name] = param if dim is None else _shard(
-                state["params"][name], dim, r, n_ranks, device, grad=True)
+                state["params"][name], dim, r, n_ranks, cards[r], grad=True)
     return TPState(names=list(named), split=dims, params=params,
                    buffers=dict(model.named_buffers()),
                    opt_state={"count": int(state["opt_state"]["count"]), **moments},
@@ -288,8 +314,8 @@ def unshard_state(tp_state: TPState) -> dict:
     the CPU), for a test or a checkpoint."""
     def whole(per_rank, name):
         if name in tp_state.split:
-            return torch.cat([rank[name].detach() for rank in per_rank],
-                             tp_state.split[name]).cpu()
+            return torch.cat([rank[name].detach().cpu() for rank in per_rank],
+                             tp_state.split[name])
         return per_rank[0][name].detach().cpu().clone()
 
     return {"params": {n: whole(tp_state.params, n) for n in tp_state.names},
@@ -330,26 +356,35 @@ class TPTrainStep:
         self.last_stats: dict = {}
 
     def forward(self, event: Event, stats):
-        """The training forward of one event over the ``model`` ranks:
-        rank 0's outputs and the ranks' agreed buffer writes."""
+        """The training forward of one event over the ``model`` ranks (on the
+        row of devices of the step's event in flight): rank 0's outputs and
+        the ranks' agreed buffer writes, on the model's device."""
         model, state = self.pipeline.model, self.state
         rank_stats = [{} for _ in range(state.n_ranks)]
+        devices = self.mesh.row(event_index())
+        devices = None if devices is None else resolve_devices(devices)
+        cards = devices or [None] * state.n_ranks
         # each rank reads a view of its own of a replicated leaf, so that the
         # backward adds the ranks' contributions to it in rank order
-        replicas = {name: replicate(state.params[0][name], state.n_ranks)
+        replicas = {name: replicate(state.params[0][name], state.n_ranks, devices)
                     for name in state.names if name not in state.split}
+        inputs_of, buffers_of = place_inputs((event.x, event.graph, event.node_mask), devices,
+                                             model.buffers())
 
         def per_rank(comm):
-            with staged_writes() as staged, tensor_parallel(
-                    state.binding(model, comm, replicas)):
-                out = model(event.x, event.graph, event.node_mask, stats=rank_stats[comm.index])
-            return handoff(out) if comm.index == 0 else out, staged
+            r = comm.index
+            x, graph, node_mask = inputs_of(r)
+            with staged_writes() as staged, placed_buffers(buffers_of(r)), tensor_parallel(
+                    state.binding(model, comm, replicas, cards[r])):
+                out = model(x, graph, node_mask, stats=rank_stats[r])
+            return handoff(out) if r == 0 else out, staged
 
-        ranks, group = run_sharded(per_rank, state.n_ranks, device=self.device)
+        ranks, group = run_sharded(per_rank, state.n_ranks, device=self.device, devices=devices)
         syncs = stats.get("host_syncs", 0) + sum(s.get("host_syncs", 0) for s in rank_stats)
-        stats.update(rank_stats[0], host_syncs=syncs)
+        out, first = to_device(ranks[0][0], self.device), to_device(rank_stats[0], self.device)
+        stats.update(first, host_syncs=syncs)
         _add_counts(stats, group.collectives)
-        return ranks[0][0], agreed([staged for _, staged in ranks])
+        return out, agreed([staged for _, staged in ranks])
 
     def __call__(self, state: TPState, batch, epoch):
         self.state = state
@@ -359,8 +394,13 @@ class TPTrainStep:
             self.state = None
         leaves = state.leaves()
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        self.optimizer.update(leaves, grads, state.slots(), state.opt_state["count"],
-                              metrics["grad_norm"])
+        slots = state.slots()
+        # elementwise: one update per device, each with the norm on that device
+        for device in dict.fromkeys(p.device for p in leaves):
+            at = [i for i, p in enumerate(leaves) if p.device == device]
+            self.optimizer.update([leaves[i] for i in at], [grads[i] for i in at],
+                                  [slots[i] for i in at], state.opt_state["count"],
+                                  metrics["grad_norm"].to(device))
         state.opt_state["count"] += 1
         state.step += 1
         self.last_stats = self.mean_step.last_stats
@@ -379,7 +419,7 @@ def make_tp_train_step(pipeline, optimizer, mesh: TPMesh, state, hidden: int,
     ``optimizer`` (an ``AmsgradW``) gives the update's constants and
     schedule; the count is the state's.  ``device`` defaults to the card and
     raises without one."""
-    device = resolve_device(device)
+    device = resolve_devices([resolve_device(device)])[0]
     pipeline.model.to(device)
     if isinstance(state, TPState):
         if state.n_ranks != mesh.model:

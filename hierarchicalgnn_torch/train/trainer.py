@@ -25,8 +25,9 @@ carry it as a checkpoint.
 ``mesh_shape`` routes the steps as in the JAX trainer (``trainer.py:253-277``):
 with ``graph`` > 1 every training step is the graph-partitioned step
 (``parallel/graph_shard.py::make_sharded_train_step``, ``graph`` ranks that
-share the device), and with ``data`` > 1 besides, each step takes ``data``
-events (a ragged tail repeats the last one).  ``data`` also sets the
+share the device, or run on ``devices`` as ``make_mesh`` places them), and
+with ``data`` > 1 besides, each step takes ``data`` events (a ragged tail
+repeats the last one).  ``data`` also sets the
 schedule's steps per epoch, ⌈n_train / data⌉.
 """
 
@@ -70,12 +71,16 @@ class Trainer:
     """``hparams``, ``model``, ``pipeline``: as ``model_selector`` returns
     them.  ``run_dir``: where ``metrics.jsonl`` and ``checkpoints/`` go
     (None: no file is written and no checkpoint saved).  ``device``
-    defaults to the card and raises without one."""
+    defaults to the card and raises without one.  ``devices``: where the
+    graph-partitioned step's ranks run (``parallel/mesh.py::make_mesh``'s
+    ``devices``; None: all on ``device``)."""
 
     def __init__(self, hparams: dict, model, pipeline, run_dir: str | None = None,
-                 log_every_n_steps: int = 50, device: str | torch.device = "cuda"):
+                 log_every_n_steps: int = 50, device: str | torch.device = "cuda",
+                 devices=None):
         self.hparams = hparams
         self.device = resolve_device(device)
+        self.devices = devices
         self.model = model.to(self.device)
         self.pipeline = pipeline
         self.run_dir = run_dir
@@ -115,7 +120,7 @@ class Trainer:
         if self._mesh("graph") > 1:
             self._sharded = make_sharded_train_step(
                 self.pipeline, self.optimizer, self.hparams["mesh_shape"], self.hparams,
-                device=self.device)
+                device=self.device, devices=self.devices)
 
     def _mesh(self, axis: str) -> int:
         """The size of ``mesh_shape``'s ``axis`` (1 without one)."""

@@ -23,6 +23,28 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return device
 
 
+def resolve_devices(devices) -> list:
+    """``devices`` (names or ``torch.device``s) as ``torch.device``s, a card
+    with its index (a bare ``"cuda"`` is the current card).  Raises for a
+    card that does not exist: naming more cards than there are never falls
+    back to sharing one."""
+    out = []
+    for d in devices:
+        d = torch.device(d)
+        if d.type == "cuda":
+            count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            index = d.index if d.index is not None else (
+                torch.cuda.current_device() if count else 0)
+            if index >= count:
+                raise RuntimeError(f"{d} names card {index}, but this host has {count} "
+                                   f"card{'s' * (count != 1)}")
+            d = torch.device("cuda", index)
+        elif d.type != "cpu":
+            raise ValueError(f"unsupported device {d}")
+        out.append(d)
+    return out
+
+
 def torch_dtype(name: str | None) -> torch.dtype | None:
     """Config dtype name (``"bfloat16"``) -> torch dtype; None stays None."""
     if name is None:

@@ -55,6 +55,19 @@ def top2_entry(a, prices):
     return lambda: entry(*args)
 
 
+_ERROR = []  # the error word of the bare calls (device-visible host memory)
+
+
+def one_launch(lib, ins, outs, flags, n, n_bytes, generation, arrivals, info, stream):
+    """K8's C entry as one launch for all ``n`` ranks of card 0, with a bound
+    of 10 s on its waits (the wrapper's single-card call)."""
+    if not _ERROR:
+        _ERROR.append(torch.zeros(1, dtype=torch.int64).pin_memory())
+    return lib.hgnn_ring_all_gather(ins, outs, flags, n, 0, n, n_bytes, generation, arrivals,
+                                    0, 1, int(rg.TIMEOUT_S * 1e9), _ERROR[0].data_ptr(), 0,
+                                    info, 0, stream)
+
+
 def gather_entry(blocks):
     """A bare call of K8's C entry on outputs and pointer tables made once;
     the flag words' generation and arrival count move as the wrapper moves
@@ -62,19 +75,18 @@ def gather_entry(blocks):
     n = len(blocks)
     outs = rg._outputs(blocks[0], n)
     stream = rg._stream(blocks[0])
-    device = blocks[0].get_device()
-    flags = rg._group_flags(device, n, stream)
+    flags = rg._group_flags(rg._layout(blocks))
     table = rg._table(n)
     ins, outs_p = table(*(b.data_ptr() for b in blocks)), table(*(o.data_ptr() for o in outs))
-    entry = rg._entry()
+    lib = rg.library(rg.SOURCE)
     n_bytes = blocks[0].numel() * blocks[0].element_size()
 
     def call():
-        rc = entry(ins, outs_p, flags.pointers, n, n_bytes, flags.generation + 1,
-                   flags.arrivals, device, flags.info, stream)
+        rc = one_launch(lib, ins, outs_p, flags.pointers, n, n_bytes, flags.generation + 1,
+                        flags.arrivals, flags.info[0], stream)
         assert rc == 0, rc
         flags.generation += 1
-        flags.arrivals += flags.info[0]
+        flags.arrivals += flags.info[0][0]
     return call
 
 
@@ -183,7 +195,7 @@ def main():
                 "tables": host_us(lambda: (table(*[x.data_ptr() for x in blocks]),
                                            table(*[o.data_ptr() for o in outs]))),
                 "checks": host_us(lambda: rg._check_blocks(blocks)),
-                "flags": host_us(lambda: rg._group_flags(0, p, stream))}
+                "flags": host_us(lambda: rg._group_flags(rg._layout(blocks)))}
         print(f"K8 bf16 P={p} block [{b}, 256]: ms {c.time_ms(torch, fn):.4f} device_ms "
               f"{found} | host us " + ", ".join(f"{k} {v:.1f}" for k, v in host.items()),
               flush=True)
@@ -206,8 +218,8 @@ def main():
             outp = table(*[o.data_ptr() for o in outs])
 
             def call(lib=lib, ins=ins, outp=outp, fl=fl, info=info, state=state):
-                rc = lib.hgnn_ring_all_gather(ins, outp, fl, p, n_bytes, state["gen"] + 1,
-                                              state["arr"], 0, info, stream)
+                rc = one_launch(lib, ins, outp, fl, p, n_bytes, state["gen"] + 1,
+                                state["arr"], info, stream)
                 assert rc == 0, rc
                 state["gen"] += 1
                 state["arr"] += info[0]
@@ -221,18 +233,19 @@ def main():
     # synchronisation contract taken out (for this measurement only; each is
     # still exact on one card, where the stream orders the calls), on a block
     # of 3 bytes and on the flagship halo
-    entry = "      wait_for(t.flags[r] + kEnteredAt + q, generation);"
+    entry = ("      if (!wait_for(t, t.flags[r] + kEnteredAt + q, generation, kEntryTimedOut)) "
+             "timed_out = 1;")
     fence = "    __threadfence_system();\n    red_release_sys_add"
-    exit_ = "  if (blockIdx.x == 0 && tid < t.n_local) wait_for("
+    exit_ = "  if (blockIdx.x == 0 && tid < t.n_local) {\n    wait_for("
     coop = "cudaLaunchCooperativeKernel(kernel"
     parts = variants("ring_gather.cu", [
         {"label": "as shipped"},
         {"label": "no entry wait", entry: ";"},
         {"label": "no fence before the arrival", fence: "    red_release_sys_add"},
-        {"label": "no exit wait", exit_: "  if (false) wait_for("},
+        {"label": "no exit wait", exit_: "  if (false) {\n    wait_for("},
         {"label": "a plain launch", coop: "cudaLaunchKernel(kernel"},
         {"label": "none of the four", entry: ";", fence: "    red_release_sys_add",
-         exit_: "  if (false) wait_for(", coop: "cudaLaunchKernel(kernel"},
+         exit_: "  if (false) {\n    wait_for(", coop: "cudaLaunchKernel(kernel"},
         {"label": "the whole ring of shared memory at every chunk size",
          "args, smem, stream": "args, kSmemBytes, stream"}])
     for shape, dtype in (((3,), torch.bool), ((768, 128), torch.bfloat16),
@@ -251,8 +264,8 @@ def main():
 
             def call(lib=lib, ins=ins, outp=outp, fl=fl, info=info, state=state,
                      n_bytes=blocks[0].numel() * blocks[0].element_size()):
-                rc = lib.hgnn_ring_all_gather(ins, outp, fl, 4, n_bytes, state["gen"] + 1,
-                                              state["arr"], 0, info, stream)
+                rc = one_launch(lib, ins, outp, fl, 4, n_bytes, state["gen"] + 1,
+                                state["arr"], info, stream)
                 assert rc == 0, rc
                 state["gen"] += 1
                 state["arr"] += info[0]
@@ -271,9 +284,9 @@ def main():
         blocks = [torch.randn(shape, generator=gen).to(dev, dtype) for _ in range(4)]
         fn = lambda: rg.ring_all_gather(blocks)
         assert all(torch.equal(o, torch.cat(blocks, 0)) for o in fn())
-        flags = rg._group_flags(0, 4, rg._stream(blocks[0]))
+        (grid, _, _, _, chunk), = rg.launch_info(blocks)
         print(f"K8 P=4 {list(shape)} {str(dtype)[6:]}: device_ms {dev_ms(fn, tag8)} (grid "
-              f"{flags.info[0]}, chunk {flags.info[4]}) | P torch.cat "
+              f"{grid}, chunk {chunk}) | P torch.cat "
               f"{dev_ms(lambda: [torch.cat(blocks, 0) for _ in range(4)], '')}", flush=True)
 
 

@@ -273,8 +273,8 @@ def test_all_gather_kernel_two_groups_on_two_streams(dev):
                     bad[i] += (out != want).sum()
     torch.cuda.synchronize()
     assert [int(b) for b in bad] == [0, 0]
-    keys = [k for k in rg._FLAGS if k[1] == 4]
-    assert {s.cuda_stream for s in streams} <= {k[2] for k in keys}
+    keys = [k for k in rg._FLAGS if len(k) == 1 and k[0].n_local == 4]
+    assert {s.cuda_stream for s in streams} <= {k[0].key[1] for k in keys}
 
 
 def test_halo_flat_in_on_the_card(dev):

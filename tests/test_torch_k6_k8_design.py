@@ -345,9 +345,13 @@ def test_sources_use_the_designs_instructions():
     assert rg.VEC_THREADS == 256 - 32
     # the occupancy is asked with the dynamic shared memory the launch uses
     assert re.search(r"cudaOccupancyMaxActiveBlocksPerMultiprocessor\([^;]*kSmemBytes\)", ring)
-    # the exit wait follows the completion of the stores and the release
+    # the exit wait follows the completion of the stores and the release; every
+    # wait on a flag is bounded by %globaltimer and gives up without a trap
     assert (ring.index("cp.async.bulk.wait_group 0") < ring.index("red_release_sys_add(t.flags")
-            < ring.rindex("wait_for(t.flags[t.rank0 + tid], arrivals_target)"))
+            < ring.rindex("wait_for(t, t.flags[t.rank0 + tid], arrivals_target,"))
+    assert "%%globaltimer" in ring and ring.count("wait_for(t, ") == 2
+    wait = ring[ring.index("bool wait_for("):ring.index("__device__ __forceinline__ uint32_t")]
+    assert "__trap" not in wait and "st_release_sys(t.error, code)" in wait
 
     src = (build.CSRC_DIR / "top2.cu").read_text()
     assert "const float4*" in src and "__ldg(x4 + v)" in src
@@ -410,8 +414,7 @@ def _gather_twice(blocks):
     torch.cuda.synchronize()
     for o1, o2 in zip(first, second):
         assert torch.equal(o1, want) and torch.equal(o2, want)
-    flags = rg._group_flags(blocks[0].get_device(), len(blocks), sa._stream(blocks[0]))
-    grid, vector, n_pairs, resident, chunk = flags.info
+    (grid, vector, n_pairs, resident, chunk), = rg.launch_info(blocks)
     cut = rg.gather_schedule(blocks[0].numel() * blocks[0].element_size(),
                              [b.data_ptr() for b in blocks], [o.data_ptr() for o in second],
                              resident)
