@@ -103,7 +103,12 @@ these phases and fails if any of them fails:
               line), ``transfer`` BC -> gMRT for 1 epoch; then ``train
               --model 2`` (Embedding-IN) 1 epoch and ``test``, whose
               ``track_eff`` and ``test_track_eff`` (HDBSCAN candidates on the
-              card) are finite; K1-K6, HD1 and HD2 launched;
+              card) are finite; then the flagship's ``train`` 1 epoch over
+              ``mesh_shape {data 1, graph 4}`` (rdma) with ``--devices
+              cuda:0,cuda:0,cuda:0,cuda:0``: every sharded forward placed its
+              ranks there, ``partition_ok`` at every step, the log finite
+              with ``score_cut`` below the clamp; K1-K6, K8, HD1 and HD2
+              launched;
  17. checkpoint  f32 at depth 2 + 2 under deterministic algorithms: a save
               at step 1 restored into a fresh ``Trainer`` takes step 2 as
               the saving trainer did (loss and every parameter compared), and
@@ -173,7 +178,19 @@ these phases and fails if any of them fails:
               count) cards: K8 exact on every card and timed, the f32 2 + 2
               sharded forward, step and TP step against one card, bf16 events
               and steps with host ms, peak GiB and idle share per card beside
-              the one-card run; with one card it prints that it did not run.
+              the one-card run; K8's library time (``torch.cuda.nccl``'s
+              all-gather, one call over the cards, its output equal to K8's);
+              the f32 step over the cards three times, twice under a probe
+              that hashes the gradient at every seam of the ranks' graphs;
+              (e) with 2 or more cards, 2 processes over NCCL, each bound to
+              cards of its own (phase 25's worker): the flagship's step over
+              ``{data 2, graph 2}``, losses and states equal, one gather a
+              step, K1-K6 and K8 in each, per-card busy, idle and peak, the
+              gather alone; its f32 2 + 2 step against one process over the
+              same cards; (f) with 4 cards, the CLI: ``train`` 1 epoch over
+              ``--devices cuda:0,cuda:1,cuda:2,cuda:3``, ``resume`` to epoch
+              2 and ``test``, its log against the one-card ``--devices`` run;
+              with fewer cards each of (d)-(f) prints that it did not run.
               ``python3 chip_smoke.py --multicard`` runs this phase alone.
 
 Each phase prints its seconds on a line of its own, and the script its
@@ -189,6 +206,7 @@ package beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import faulthandler
+import hashlib
 import json
 import math
 import subprocess
@@ -2565,12 +2583,119 @@ def _scratch_dir():
     return tempfile.TemporaryDirectory(dir=root, prefix="smoke_")
 
 
+CLI_MESH = {"data": 1, "graph": N_PARTS}  # the graph-sharded CLI runs of phases 16 and 26(f)
+
+
+class cli_spies:
+    """While the body runs: the devices on which every sharded forward placed
+    its ranks (``graph_shard.place_inputs``; None on the default path) and
+    the ``partition_ok`` of every training step (``Trainer._forward_backward``'s
+    ``last_stats``)."""
+
+    def __enter__(self):
+        from unittest import mock
+
+        from hierarchicalgnn_torch.parallel import comm, graph_shard
+        from hierarchicalgnn_torch.train.trainer import Trainer
+
+        self.placed, self.partition_ok = [], []
+        forward_backward = Trainer._forward_backward
+
+        def place(inputs, devices, buffers=()):
+            self.placed.append(None if devices is None else [str(d) for d in devices])
+            return comm.place_inputs(inputs, devices, buffers)
+
+        def step(trainer, batch, epoch):
+            out = forward_backward(trainer, batch, epoch)
+            self.partition_ok.append(trainer.last_stats.get("partition_ok"))
+            return out
+
+        self.patches = [mock.patch.object(graph_shard, "place_inputs", place),
+                        mock.patch.object(Trainer, "_forward_backward", step)]
+        for patch in self.patches:
+            patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        for patch in reversed(self.patches):
+            patch.stop()
+
+
+def _cards(torch, devices):
+    """The distinct cards among ``devices``, by index; the current card
+    where ``devices`` is None."""
+    if devices is None:
+        return [torch.device("cuda", torch.cuda.current_device())]
+    return sorted({torch.device(d) for d in devices}, key=lambda d: d.index)
+
+
+def cli_on_devices(torch, run_dir, devices, common, resume_to=None):
+    """The flagship through ``run.main`` over ``mesh_shape {data 1, graph 4}``
+    and ``halo_backend: rdma`` with ``--devices``: ``train`` 1 epoch and,
+    with ``resume_to``, ``resume`` from ``last`` to that many epochs, then
+    ``test``.  Asserts that every sharded forward placed its ranks on
+    ``devices``, that K8 launched, that ``partition_ok`` held at every step
+    and that the metric log is finite with ``score_cut`` below the clamp.
+    Returns the log, each command's seconds, the launches, the peak GiB per
+    card and the test's metrics."""
+    import contextlib
+    import io
+
+    from hierarchicalgnn_torch import run
+    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+
+    cards = _cards(torch, devices)
+    sets = [*common, "--set", f"mesh_shape={json.dumps(CLI_MESH)}", "--set",
+            'halo_backend="rdma"', "--devices", ",".join(devices)]
+    for d in cards:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    before = dict(sa.LAUNCHES)
+    seconds, tested = {}, None
+    with cli_spies() as spy:
+        t0 = time.perf_counter()
+        run.main(["train", "--model", "4", "--run-dir", run_dir, "--max-epochs", "1", *sets])
+        seconds["train"] = time.perf_counter() - t0
+        if resume_to is not None:
+            t0 = time.perf_counter()
+            run.main(["resume", "--run-dir", run_dir, "--max-epochs", str(resume_to), *sets])
+            seconds["resume"] = time.perf_counter() - t0
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                run.main(["test", "--run-dir", run_dir, *sets])
+            seconds["test"] = time.perf_counter() - t0
+            tested = json.loads(out.getvalue().strip().splitlines()[-1])
+    for d in cards:
+        torch.cuda.synchronize(d)
+    launches = {k: sa.LAUNCHES[k] - before[k] for k in sa.LAUNCHES if sa.LAUNCHES[k] > before[k]}
+    peaks = [torch.cuda.max_memory_allocated(d) / 2**30 for d in cards]
+    records = [json.loads(line) for line in Path(run_dir, "metrics.jsonl").read_text().splitlines()]
+    log(f"cli over --devices {','.join(devices)} (mesh {CLI_MESH}, rdma): seconds "
+        f"{ {k: round(v, 1) for k, v in seconds.items()} }, epoch_time "
+        f"{[r['epoch_time'] for r in records if 'epoch_time' in r]} s, peak GiB per card "
+        f"{[round(p, 2) for p in peaks]}, sharded forwards placed {len(spy.placed)} (on "
+        f"{sorted({str(p) for p in spy.placed})}), partition_ok {spy.partition_ok}, launches "
+        f"{launches}")
+    assert spy.placed and all(p == list(devices) for p in spy.placed), spy.placed
+    assert spy.partition_ok and all(ok is True for ok in spy.partition_ok), spy.partition_ok
+    assert launches.get("K8", 0) > 0, f"the CLI's sharded run never launched K8: {launches}"
+    for r in records:
+        assert all(math.isfinite(v) for v in r.values() if isinstance(v, float)), r
+        assert r.get("score_cut", 0.0) < SCORE_CUT_CLAMP, r
+    return {"records": records, "seconds": seconds, "launches": launches, "peak_gib": peaks,
+            "tested": tested}
+
+
 def phase_cli(torch):
     """The CLI on the card at the flagship's width: ``train`` 2 epochs on
     ``train_split [2,1,1]``, ``resume`` to epoch 3, ``test``, and
     ``transfer`` BC -> gMRT for 1 epoch; then Embedding-IN ``train`` 1 epoch
-    and ``test`` (HDBSCAN candidates).  Returns the launch counts of the
-    whole phase (this slice's main path)."""
+    and ``test`` (HDBSCAN candidates); then the flagship's ``train`` 1 epoch
+    over ``mesh_shape {data 1, graph 4}`` with ``--devices
+    cuda:0,cuda:0,cuda:0,cuda:0`` (the placement path on the one card, K8
+    and ``partition_ok`` asserted).  Returns the launch counts of the whole
+    phase (this slice's main path)."""
     import contextlib
     import io
 
@@ -2637,14 +2762,18 @@ def phase_cli(torch):
         assert any("test_track_eff" in r for r in records) and len(effs) >= 2, records
         assert all(math.isfinite(e) and 0.0 <= e <= 1.0 for e in effs + [emb_tested["track_eff"]])
         log(f"cli Embedding-IN: track_eff (validation, then test) {effs}")
+
+        # the graph ranks placed by --devices, all on the one card
+        placed = cli_on_devices(torch, f"{tmp}/placed", ["cuda:0"] * N_PARTS, common)
         torch.cuda.synchronize()
     counts = dict(sa.LAUNCHES)
     log(f"cli: train 2 epochs {t_train:.1f} s, resume 1 epoch {t_resume:.1f} s, test "
         f"{t_test:.1f} s, transfer BC -> gMRT 1 epoch {t_transfer:.1f} s, Embedding-IN train "
-        f"1 epoch {t_emb_train:.1f} s and test {t_emb_test:.1f} s (host clock, each "
+        f"1 epoch {t_emb_train:.1f} s and test {t_emb_test:.1f} s, train 1 epoch over "
+        f"--devices cuda:0 x {N_PARTS} {placed['seconds']['train']:.1f} s (host clock, each "
         f"with its model build and 4 synthetic events); checkpoint {size / 2**20:.1f} MiB; "
         f"launches {counts}")
-    for kernel in ("K1", "K2", "K3", "K4", "K5", "K6", "HD1", "HD2"):
+    for kernel in ("K1", "K2", "K3", "K4", "K5", "K6", "K8", "HD1", "HD2"):
         assert counts[kernel] > 0, f"the CLI never launched {kernel}"
     return counts
 
@@ -3439,7 +3568,7 @@ def process_batch(mesh, event):
     return distributed.globalize_batch(stack_events([event]), batch_sharding(mesh))
 
 
-def process_flagship(torch, rank, events):
+def process_flagship(torch, rank, events, devices=None):
     """Worker, part (a): the flagship (bf16, full width and depth, the
     capacities of phase 4) through ``make_sharded_train_step`` over ``{data
     2 across the processes, graph 2 in each}``, ``halo_backend: rdma``: a
@@ -3448,7 +3577,10 @@ def process_flagship(torch, rank, events):
     launches and the cross-process all-gather's count, bytes and host ms;
     ``assert_host_identical`` on params, moments and buffers before the
     warm-up and after each timed step and its repeat (which lines the
-    processes up for the next timed step)."""
+    processes up for the next timed step).  ``devices``: this process's
+    cards (phase 26(e)), on which ``make_global_mesh`` puts its graph ranks;
+    busy, idle and peak are then per card, and the all-gather of the step's
+    bytes is timed alone 5 times (CUDA events, packing included)."""
     from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
     from hierarchicalgnn_torch.parallel import distributed
     from hierarchicalgnn_torch.parallel.graph_shard import make_sharded_train_step
@@ -3458,38 +3590,60 @@ def process_flagship(torch, rank, events):
     assert (hp["latent"], hp["hidden"], hp["n_interaction_graph_iters"],
             hp["n_hierarchical_graph_iters"], hp["compute_dtype"], hp["remat"]) == (
         256, 512, 6, 6, "bfloat16", False), hp
-    mesh = distributed.make_global_mesh(graph_per_host=PROCESS_GRAPH)
+    mesh = distributed.make_global_mesh(graph_per_host=PROCESS_GRAPH, devices=devices)
     assert mesh.shape == {"data": PROCESS_WORLD, "graph": PROCESS_GRAPH}, mesh
+    cards = _cards(torch, devices)
+
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
     trainset, _, _ = trainer.make_datasets(events)
     batch = process_batch(mesh, trainset[rank][2])
     step = make_sharded_train_step(trainer.pipeline, trainer.optimizer, mesh, hp)
     assert step.matching_spmd is None and step.n_local == 1
+    assert next(trainer.model.parameters()).device == cards[0]
     distributed.replicate(train_state(trainer.model, trainer.optimizer), mesh, check=True)
     records = []
     with watchdog(), recording_path("processes flagship", checked=None) as rec:
         step(batch, TRAIN_EPOCH)  # warm-up
-        torch.cuda.synchronize()
+        sync()
         for i in range(2):
             # the processes start each timed step together: the last
             # collective before it is the state check below
-            torch.cuda.reset_peak_memory_stats()
+            for d in cards:
+                torch.cuda.reset_peak_memory_stats(d)
             before = dict(sa.LAUNCHES)
             t0 = time.perf_counter()
             metrics = step(batch, TRAIN_EPOCH)
-            torch.cuda.synchronize()
+            sync()
             ms = 1e3 * (time.perf_counter() - t0)
             counts = {k: sa.LAUNCHES[k] - before[k] for k in SHARDED_STEP_KERNELS}
             stats = dict(step.last_stats)
-            peak = torch.cuda.max_memory_allocated() / 2**30
+            peaks = [torch.cuda.max_memory_allocated(d) / 2**30 for d in cards]
+            peak = peaks[0] if devices is None else peaks
             values = {k: float(v) for k, v in metrics.items()}
-            _, _, busy = profile_call(torch, lambda: step(batch, TRAIN_EPOCH), ms,
-                                      f"process {rank}: flagship step {i} (its repeat under "
-                                      f"the profiler)", SHARDED_STEP_KERNELS, top=6)
+            busy_by_card = None
+            if devices is None:
+                _, _, busy = profile_call(torch, lambda: step(batch, TRAIN_EPOCH), ms,
+                                          f"process {rank}: flagship step {i} (its repeat "
+                                          f"under the profiler)", SHARDED_STEP_KERNELS, top=6)
+            else:
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    step(batch, TRAIN_EPOCH)
+                    sync()
+                busy_by_card = _busy_by_card(torch, prof)
+                busy = sum(busy_by_card.values()) or None
             state = train_state(trainer.model, trainer.optimizer)
             distributed.assert_host_identical(state, f"the flagship's state after step {i} "
                                                      f"and its repeat")
             record = {"host_ms": ms, "busy_ms": busy,
                       "idle_pct": None if busy is None else 100 * (1 - busy / ms),
+                      "busy_ms_by_card": busy_by_card,
+                      "idle_pct_by_card": None if busy_by_card is None else {
+                          k: 100 * (1 - v / ms) for k, v in busy_by_card.items()},
                       "peak_gib": peak, "loss": values["training_loss"].hex(),
                       "metrics": values, "launches": counts,
                       "partition_ok": stats["partition_ok"],
@@ -3500,27 +3654,67 @@ def process_flagship(torch, rank, events):
                       "fingerprint": distributed.fingerprint(state).hex()}
             records.append(record)
             log(f"process {rank} flagship step {i} over data {PROCESS_WORLD} (processes) x "
-                f"graph {PROCESS_GRAPH}: {ms:.1f} ms (host clock), device busy {busy} ms, "
-                f"peak {peak:.2f} GiB, gathers {stats['process_gathers']} of "
+                f"graph {PROCESS_GRAPH} on {[str(d) for d in cards]}: {ms:.1f} ms (host "
+                f"clock), device busy {busy} ms (by card {busy_by_card}), peak GiB "
+                f"{[round(p, 2) for p in peaks]}, gathers {stats['process_gathers']} of "
                 f"{stats['process_gather_bytes']} bytes in {stats['process_gather_ms']:.1f} ms "
                 f"(host), collectives {stats['collectives']}, partition_ok "
                 f"{stats['partition_ok']}, metrics {values}, launches {counts}")
             assert all(math.isfinite(v) for v in values.values()), values
             assert values["score_cut"] < SCORE_CUT_CLAMP, values
+        if devices is not None:
+            records.append(time_process_gather(torch, records[-1]["process_gather_bytes"]
+                                               // PROCESS_WORLD, cards[0], rank))
     del trainer, trainset, step
     torch.cuda.empty_cache()
     return records, sorted(str(key) for key in rec.seen)
 
 
-def process_parity(torch, rank, events):
+def time_process_gather(torch, n_bytes, device, rank, iters=5):
+    """The step's cross-process all-gather alone: ``gather_from_processes``
+    of one ``n_bytes`` buffer on ``device``, ``iters`` times, each timed by
+    CUDA events around the call (packing, the collective and its copies on
+    the card) and by the host clock to the end of a synchronize."""
+    from hierarchicalgnn_torch.parallel import distributed
+
+    buffer = torch.full((n_bytes,), rank + 1, dtype=torch.uint8, device=device)
+    device_ms, host_ms, stats = [], [], {}
+    for _ in range(iters):
+        torch.cuda.synchronize(device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        (copies,) = distributed.gather_from_processes([buffer], torch.distributed.group.WORLD,
+                                                      stats)
+        end.record()
+        torch.cuda.synchronize(device)
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        device_ms.append(start.elapsed_time(end))
+    assert [int(c[0]) for c in copies] == list(range(1, PROCESS_WORLD + 1)), "gather order"
+    record = {"gather_alone": True, "bytes_per_process": n_bytes,
+              "bytes_received": stats["process_gather_bytes"] // iters,
+              "device_ms": device_ms, "host_ms": host_ms}
+    log(f"process {rank} the cross-process all-gather alone ({n_bytes} bytes a process, "
+        f"{record['bytes_received']} received) on {device}: device ms "
+        f"{[round(t, 3) for t in device_ms]}, host ms {[round(t, 3) for t in host_ms]}")
+    return record
+
+
+def process_parity(torch, rank, events, devices=None, reference_devices=None):
     """Worker, part (b): f32 at depth 2 + 2, full width and capacities, under
     deterministic algorithms: one sharded step over ``{data 2 across the
     processes, graph 2}``; process 0 then takes the one-process ``{data 2,
     graph 2}`` step over both events from the same start and compares: the
     loss within 1e-4 relative, every parameter within rtol 5e-4 / atol 1e-5
-    (the leaf whose true gradient is zero within twice the learning rate)."""
+    (the leaf whose true gradient is zero within twice the learning rate),
+    and says whether they agree bit for bit.  ``devices``: this process's
+    cards (phase 26(e)); the one-process step then runs its events' ranks on
+    ``reference_devices`` (both processes' cards, in order).  The ops that
+    ran without a deterministic form (``warn_only``'s warnings) are
+    recorded."""
     from hierarchicalgnn_torch.parallel import distributed
     from hierarchicalgnn_torch.parallel.graph_shard import make_sharded_train_step
+    from hierarchicalgnn_torch.parallel.mesh import make_mesh
     from hierarchicalgnn_torch.train.checkpoint import load_model_state, train_state
     from hierarchicalgnn_torch.train.optim import make_optimizer
 
@@ -3529,7 +3723,14 @@ def process_parity(torch, rank, events):
     model, pipeline = trainer.model, trainer.pipeline
     batches = [b for _, _, b in trainer.make_datasets(events)[0][:PROCESS_WORLD]]
     start = train_state(model, trainer.optimizer)
-    mesh = distributed.make_global_mesh(graph_per_host=PROCESS_GRAPH)
+    mesh = distributed.make_global_mesh(graph_per_host=PROCESS_GRAPH, devices=devices)
+    reference = ({"data": PROCESS_WORLD, "graph": PROCESS_GRAPH} if reference_devices is None
+                 else make_mesh(PROCESS_WORLD, PROCESS_GRAPH, devices=reference_devices))
+    cards = _cards(torch, reference_devices or devices)
+
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
 
     def fresh():
         return make_optimizer(list(model.parameters()), hp, trainer._steps_per_epoch())
@@ -3537,22 +3738,21 @@ def process_parity(torch, rank, events):
     out = {}
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        with watchdog(), warnings.catch_warnings(), recording_path(
+        with watchdog(), warnings.catch_warnings(record=True) as caught, recording_path(
                 "processes parity", checked=None) as rec:
-            warnings.simplefilter("ignore", UserWarning)  # ops without a deterministic form
+            warnings.simplefilter("always")
             optimizer = fresh()
             metrics = make_sharded_train_step(pipeline, optimizer, mesh, hp)(
                 process_batch(mesh, batches[rank]), TRAIN_EPOCH)
-            torch.cuda.synchronize()
+            sync()
             got = {n: p.detach().clone() for n, p in model.named_parameters()}
             out["loss"] = float(metrics["training_loss"]).hex()
             if rank == 0:
                 lr = optimizer.schedule(0)
                 load_model_state(model, start)
-                want_metrics = make_sharded_train_step(
-                    pipeline, fresh(), {"data": PROCESS_WORLD, "graph": PROCESS_GRAPH}, hp)(
+                want_metrics = make_sharded_train_step(pipeline, fresh(), reference, hp)(
                     batches, TRAIN_EPOCH)
-                torch.cuda.synchronize()
+                sync()
                 loss, ref = float(metrics["training_loss"]), float(want_metrics["training_loss"])
                 worst, where, equal = 0.0, None, True
                 for n, value in model.named_parameters():
@@ -3565,10 +3765,16 @@ def process_parity(torch, rank, events):
                 out.update(ref_loss=ref, loss_rel=abs(loss / ref - 1), worst=worst,
                            worst_leaf=where, bit_for_bit=bool(equal and loss == ref))
                 log(f"processes parity f32 (2 + 2) over data {PROCESS_WORLD} (processes) x "
-                    f"graph {PROCESS_GRAPH} against one process's {{data {PROCESS_WORLD}, "
-                    f"graph {PROCESS_GRAPH}}}: loss {loss:.7f} vs {ref:.7f} (rel "
-                    f"{out['loss_rel']:.2e}), worst parameter {worst:.3f} of its bound "
-                    f"({where}), bit for bit: {out['bit_for_bit']}")
+                    f"graph {PROCESS_GRAPH} (ranks on {devices or 'the current card'}) against "
+                    f"one process's {{data {PROCESS_WORLD}, graph {PROCESS_GRAPH}}} (ranks on "
+                    f"{reference_devices or 'the current card'}): loss {loss:.7f} vs {ref:.7f} "
+                    f"(rel {out['loss_rel']:.2e}), worst parameter {worst:.3f} of its bound "
+                    f"(loss 1e-4 relative, rtol 5e-4 / atol 1e-5) ({where}), bit for bit: "
+                    f"{out['bit_for_bit']}")
+        out["nondeterministic"] = sorted({str(w.message).split(".")[0] for w in caught
+                                          if "deterministic" in str(w.message)})
+        log(f"process {rank} parity: ops without a deterministic form (warn_only's warnings) "
+            f"{out['nondeterministic']}")
     finally:
         torch.use_deterministic_algorithms(False)
     del trainer, model, pipeline
@@ -3633,12 +3839,16 @@ def process_ec_in(torch, rank, events, backend):
     return out, sorted(str(key) for key in rec.seen)
 
 
-def process_worker(rank: int, world: int, store: str, backend: str):
+def process_worker(rank: int, world: int, store: str, backend: str, cards=None,
+                   reference=None):
     """One process of phase 25 (``chip_smoke.py --process-worker <rank>
     <world> <store> <backend>``): joins the group through the ``file://``
     store, runs (a)-(c) with ``gloo`` (over CUDA tensors: two processes on
     one card), or only (c)'s DP step with ``nccl``; prints one line
-    ``PROCESS_RESULT {json}``."""
+    ``PROCESS_RESULT {json}``.  With ``cards`` (``... <backend> <cards>
+    <reference>``, comma lists: phase 26(e)) the process binds itself to its
+    first card and runs (a) and (b) with its graph ranks on ``cards``, (b)'s
+    one-process step on ``reference``."""
     import torch
 
     from hierarchicalgnn_torch.parallel import distributed
@@ -3646,38 +3856,51 @@ def process_worker(rank: int, world: int, store: str, backend: str):
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the worker needs a card")
     distributed.initialize(init_method=f"file://{store}", num_processes=world,
-                           process_id=rank, backend=backend, device="cuda",
-                           timeout_s=GROUP_TIMEOUT_S)
+                           process_id=rank, backend=backend,
+                           device=cards[0] if cards else "cuda", timeout_s=GROUP_TIMEOUT_S)
     assert torch.distributed.get_backend() == backend
+    if cards:
+        assert torch.cuda.current_device() == torch.device(cards[0]).index
     events = flagship_events()
-    result = {"rank": rank, "backend": backend, "keys": []}
+    result = {"rank": rank, "backend": backend, "keys": [], "cards": cards,
+              "current_device": torch.cuda.current_device()}
     try:
-        if backend == "gloo":
+        if cards:
+            result["flagship"], keys = process_flagship(torch, rank, events, cards)
+            result["keys"] += keys
+            result["parity"], keys = process_parity(torch, rank, events, cards, reference)
+            result["keys"] += keys
+        elif backend == "gloo":
             result["flagship"], keys = process_flagship(torch, rank, events)
             result["keys"] += keys
             result["parity"], keys = process_parity(torch, rank, events)
             result["keys"] += keys
-        result["ec_in"], keys = process_ec_in(torch, rank, events, backend)
-        result["keys"] += keys
+        if not cards:
+            result["ec_in"], keys = process_ec_in(torch, rank, events, backend)
+            result["keys"] += keys
     finally:
         torch.distributed.destroy_process_group()
     print(PROCESS_TAG + json.dumps(result), flush=True)
 
 
-def run_processes(world: int, backend: str, root: Path) -> list:
-    """Start ``world`` workers on the one card, each under PROCESS_TIMEOUT_S,
-    their output in files (a full pipe would stall a worker that its peer
-    waits for); relay it and return each worker's result.  Every worker is
-    ended before this returns."""
+def run_processes(world: int, backend: str, root: Path, cards=None, reference=None) -> list:
+    """Start ``world`` workers, each under PROCESS_TIMEOUT_S, their output in
+    files (a full pipe would stall a worker that its peer waits for); relay
+    it and return each worker's result.  Every worker is ended before this
+    returns.  Without ``cards`` they share the current card; with them
+    worker r runs on ``cards[r]`` (a list of device names, given on its
+    command line, not through ``CUDA_VISIBLE_DEVICES``: every worker sees
+    every card) and its one-process reference on ``reference``."""
     store = root / f"{backend}_store"
     logs = [root / f"{backend}_{rank}.log" for rank in range(world)]
     procs = []
     try:
         for rank, path in enumerate(logs):
+            placed = [] if cards is None else [",".join(cards[rank]), ",".join(reference)]
             with open(path, "w") as out:
                 procs.append(subprocess.Popen(
                     [sys.executable, str(Path(__file__).resolve()), "--process-worker",
-                     str(rank), str(world), str(store), backend],
+                     str(rank), str(world), str(store), backend, *placed],
                     stdout=out, stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent))
         deadline = time.monotonic() + PROCESS_TIMEOUT_S
         for p in procs:
@@ -3995,6 +4218,227 @@ def multicard_one_card(torch, events):
     torch.cuda.empty_cache()
 
 
+class cotangent_probe:
+    """While the body runs, the gradient that autograd's engine hands each
+    rank at the graph's seams, by the sha256 of its bytes: at every
+    collective a rank enters (``ShardGroup.meet``), its input (``in``: every
+    term added, the collective's and the rank's own consumers') and its
+    output (``out``: the rank's consumers' terms), keyed ``(kind, the rank's
+    call number, rank, side)``; and each rank's outputs where the forward
+    brings them to the model's card (``("result", leaf, rank, "out")``).
+    Each hook copies its gradient to the host."""
+
+    def __enter__(self):
+        from unittest import mock
+
+        import torch
+        import torch.utils._pytree as pytree
+
+        from hierarchicalgnn_torch.parallel import comm, graph_shard
+
+        self.digests, lock, calls, inside = {}, threading.Lock(), {}, threading.local()
+        meet, reassemble = comm.ShardGroup.meet, graph_shard._reassemble
+
+        def record(key):
+            def hook(grad):
+                data = grad.detach().reshape(-1).contiguous().view(torch.uint8).cpu()
+                with lock:
+                    self.digests[key] = hashlib.sha256(data.numpy().tobytes()).hexdigest()[:16]
+            return hook
+
+        def probed_meet(group, rank, kind, value):
+            with lock:
+                n = calls.get((id(group), rank), 0)
+                calls[(id(group), rank)] = n + 1
+            if isinstance(value, torch.Tensor) and value.requires_grad:
+                value.register_hook(record((kind, n, rank, "in")))
+            out = meet(group, rank, kind, value)
+            if isinstance(out, torch.Tensor) and out.requires_grad:
+                out.register_hook(record((kind, n, rank, "out")))
+            return out
+
+        def probed_reassemble(spec, outs, device=None):
+            if getattr(inside, "on", False):
+                return reassemble(spec, outs, device)
+            for rank, out in enumerate(outs):
+                leaves = [t for t in pytree.tree_leaves(out) if isinstance(t, torch.Tensor)]
+                for i, t in enumerate(leaves):
+                    if t.requires_grad:
+                        t.register_hook(record(("result", i, rank, "out")))
+            inside.on = True
+            try:
+                return reassemble(spec, outs, device)
+            finally:
+                inside.on = False
+
+        self.patches = [mock.patch.object(comm.ShardGroup, "meet", probed_meet),
+                        mock.patch.object(graph_shard, "_reassemble", probed_reassemble)]
+        for patch in self.patches:
+            patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        for patch in reversed(self.patches):
+            patch.stop()
+
+
+def _backward_order(key):
+    """The probe's keys in the order the backward meets them: the ranks'
+    outputs, then the collectives from the last call to the first, each
+    one's output before its input."""
+    kind, n, rank, side = key
+    return (kind != "result", -n if kind != "result" else n, side != "out", rank)
+
+
+def divergence(want, got):
+    """The probe keys whose gradients differ between two runs, in backward
+    order, and the first input among them whose collective's outputs all
+    agree: the add into that input is where the runs part."""
+    differ = sorted((k for k in set(want) | set(got) if want.get(k) != got.get(k)),
+                    key=_backward_order)
+    for kind, n, rank, side in differ:
+        if side == "in" and kind != "result" and all(
+                want.get(k) == got.get(k) for k in want if k[:2] == (kind, n) and k[3] == "out"):
+            return differ, (kind, n, rank, side)
+    return differ, None
+
+
+def multicard_f32(torch, events, cards, devices, n_cards):
+    """26(d)'s f32 part at depth 2 + 2, under the caller's deterministic
+    algorithms: the sharded forward over the cards against one card (clusters
+    and edges equal, scores within 1e-4); the sharded step on one card once
+    and over the cards three times, against one card (the loss within 1e-4
+    relative, every gradient within 1e-3 of its leaf's largest entry plus
+    1e-7), the first and the last run under ``cotangent_probe``, so that the
+    first gradient at a seam that differs from one card's is named; the TP
+    step over the cards against one card (the same bounds)."""
+    from hierarchicalgnn_torch.data.event import preprocess_event
+    from hierarchicalgnn_torch.models.registry import model_selector
+    from hierarchicalgnn_torch.ops.graph import Graph
+    from hierarchicalgnn_torch.parallel.graph_shard import (
+        make_sharded_forward, make_sharded_train_step)
+
+    out = {}
+    f32 = {**FLAGSHIP, "compute_dtype": None, "n_interaction_graph_iters": 2,
+           "n_hierarchical_graph_iters": 2, "halo_backend": "rdma"}
+    hp, model, pipeline = model_selector("BC-HGNN-GMM", f32)
+    batch = preprocess_event(events[0], hp, stage="test")
+    one = _sharded_outputs(make_sharded_forward(pipeline, N_PARTS, hp)(batch))
+    many = _sharded_outputs(make_sharded_forward(pipeline, N_PARTS, hp, devices=devices)(batch))
+    c = hp["max_clusters"]
+    (k1, s1), (k2, s2) = (canonical_scores(torch, Graph(*o[:3]), o[3], c) for o in (one, many))
+    score_err = float((s1 - s2).abs().max()) if torch.equal(k1, k2) else float("inf")
+    emb_err = float((one[4] - many[4]).abs().max())
+    log(f"26(d) f32 2 + 2 sharded forward over {n_cards} cards against one card: clusters "
+        f"{'equal' if torch.equal(one[5], many[5]) else 'DIFFER'}, edges "
+        f"{'equal' if torch.equal(k1, k2) else 'DIFFER'}, scores within {score_err:.2e}, "
+        f"embeddings within {emb_err:.2e}")
+    assert torch.equal(one[5], many[5]) and torch.equal(k1, k2) and score_err <= 1e-4
+    del model, pipeline
+    hp_t, trainer = flagship_trainer({**f32, "mesh_shape": {"data": 1, "graph": N_PARTS}})
+    train_batch = trainer.make_datasets(events[:1])[0][0][2]
+    start = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    names = [n for n, _ in trainer.model.named_parameters()]
+
+    def restart():
+        with torch.no_grad():
+            for k, v in trainer.model.state_dict().items():
+                v.copy_(start[k])
+
+    runs = []
+    for label, devs, probed in (("one card", None, True), ("cards 1", devices, False),
+                                ("cards 2", devices, False), ("cards 3", devices, True)):
+        restart()
+        step = make_sharded_train_step(trainer.pipeline, trainer.optimizer, {"graph": N_PARTS},
+                                       hp_t, devices=devs)
+        if probed:
+            with cotangent_probe() as probe:
+                grads, metrics = step.forward_backward(train_batch, TRAIN_EPOCH)
+                for d in cards:
+                    torch.cuda.synchronize(d)
+            digests = probe.digests
+        else:
+            grads, metrics = step.forward_backward(train_batch, TRAIN_EPOCH)
+            digests = None
+        buffers = {k: v.detach().clone() for k, v in trainer.model.named_buffers()}
+        runs.append((label, metrics["training_loss"].detach().clone(), grads, buffers, digests))
+        del step
+    (_, loss1, g1, b1, d1) = runs[0]
+    out["step"] = {}
+    for label, loss2, g2, b2, d2 in runs[1:]:
+        worst, differ = 0.0, []
+        for name, a, b in zip(names, g1, g2):
+            assert (a is None) == (b is None), name
+            if a is not None:
+                assert a.device == b.device == cards[0]
+                worst = max(worst, float((a - b).abs().max()) / (1e-3 * float(a.abs().max())
+                                                                 + 1e-7))
+                if not torch.equal(a, b):
+                    differ.append(name)
+        buffers = [k for k in b1 if not torch.equal(b1[k], b2[k])]
+        rel = abs(float(loss2) / float(loss1) - 1)
+        seams = first = None
+        if d2 is not None:
+            seams, first = divergence(d1, d2)
+        out["step"][label] = {"loss_equal": bool(torch.equal(loss1, loss2)), "loss_rel": rel,
+                              "worst": worst, "leaves_differ": len(differ),
+                              "buffers_differ": buffers, "first_leaves": differ[:6],
+                              "seams_differ": None if seams is None else len(seams),
+                              "seams_probed": None if d2 is None else len(d2),
+                              "first_seams": None if seams is None else seams[:8],
+                              "first_input": first}
+        log(f"26(d) f32 2 + 2 sharded step over {n_cards} cards ({label}) against one card: "
+            f"loss {float(loss2):.7f} vs {float(loss1):.7f} (rel {rel:.2e}, equal "
+            f"{out['step'][label]['loss_equal']}), worst gradient error {worst:.3f} of its "
+            f"bound, gradient leaves that differ {len(differ)} of {len(names)} (first "
+            f"{differ[:6]}), buffers that differ {buffers}"
+            + ("" if d2 is None else
+               f"; seams probed {len(d2)}, differing {len(seams)} (first in backward order "
+               f"{seams[:8]}); first input whose collective's outputs all agree: {first}"))
+        assert rel <= 1e-4 and worst <= 1
+    out["cards_runs_equal"] = {
+        f"{a} / {b}": all(x is None or torch.equal(x, y) for x, y in zip(ga, gb))
+        for (a, _, ga, _, _), (b, _, gb, _, _) in zip(runs[1:], runs[2:])}
+    log(f"26(d) f32 2 + 2 sharded step over the cards, run against run (gradients bit for "
+        f"bit): {out['cards_runs_equal']}")
+    del runs, g1
+
+    # the TP step over {data 1, model 4} with the model ranks on the cards
+    from hierarchicalgnn_torch.parallel import tp
+    from hierarchicalgnn_torch.train.checkpoint import train_state
+    from hierarchicalgnn_torch.train.optim import make_optimizer
+    results = []
+    for devs in (None, devices):
+        restart()
+        optimizer = make_optimizer(list(trainer.model.parameters()), hp_t,
+                                   trainer._steps_per_epoch())
+        mesh = tp.make_tp_mesh(1, N_PARTS, hp_t["hidden"], devices=devs)
+        state, step = tp.make_tp_train_step(trainer.pipeline, optimizer, mesh,
+                                            train_state(trainer.model, optimizer),
+                                            hp_t["hidden"])
+        step.state = state
+        grads, metrics = step.mean_step.forward_backward(train_batch, TRAIN_EPOCH)
+        step.state = None
+        results.append((float(metrics["training_loss"]), [g.cpu() if g is not None else None
+                                                           for g in grads],
+                        sorted({str(p.device) for p in state.leaves()})))
+        del state, step, grads
+    (loss1, g1, cards1), (loss2, g2, cards2) = results
+    worst = max(float((a - b).abs().max()) / (1e-3 * float(a.abs().max()) + 1e-7)
+                for a, b in zip(g1, g2) if a is not None)
+    equal = loss1 == loss2 and all(a is None or torch.equal(a, b) for a, b in zip(g1, g2))
+    peaks = [torch.cuda.max_memory_allocated(d) / 2**30 for d in cards]
+    log(f"26(d) f32 2 + 2 TP step {{data 1, model {N_PARTS}}} with its leaves on {cards2} "
+        f"against one card ({cards1}): loss {loss2:.7f} vs {loss1:.7f} (rel "
+        f"{abs(loss2 / loss1 - 1):.2e}), worst gradient error {worst:.3f} of its bound, bit "
+        f"for bit {equal}; peak GiB per card so far {[round(p, 2) for p in peaks]}")
+    assert abs(loss2 / loss1 - 1) <= 1e-4 and worst <= 1
+    out["tp"] = {"loss_rel": abs(loss2 / loss1 - 1), "worst": worst, "bit_for_bit": equal}
+    restart()
+    del trainer, results, g1, g2
+    return out
+
+
 def _busy_by_card(torch, prof):
     """Device ms per card of a profiled run (its kernels and copies)."""
     busy = {}
@@ -4012,11 +4456,11 @@ def multicard_cards(torch, events, n_cards):
     """26(d), on a host with 2 or more cards: the flagship's ranks (P 4) on
     ``n_cards`` cards.  K8 at P 4 on the halo input with each rank's block on
     its card, exact against torch.cat on every card (its bulk stores reach
-    the peers' memory), timed beside its plain version; the sharded forward,
-    the sharded step and the TP step at f32 depth 2 + 2 against the one-card
-    run (clusters and edges equal, scores within 1e-4, the loss within 1e-4
-    relative and every gradient within 1e-3 of its leaf's largest entry plus
-    1e-7); then bf16 at full depth, on one card and then over the cards in
+    the peers' memory), timed beside its plain version and, with one rank a
+    card, NCCL's all-gather of the same blocks (``torch.cuda.nccl``, one
+    call; equal to K8's output); the f32 part (``multicard_f32``) under
+    deterministic algorithms, recording the ops ``warn_only`` names; then
+    bf16 at full depth, on one card and then over the cards in
     the same call: 2 sharded events and 2 sharded steps after a warm-up
     each, with the host ms, the peak GiB of each card and each card's idle
     share (a profiled repeat).  Returns the records, K8's row among them."""
@@ -4054,14 +4498,32 @@ def multicard_cards(torch, events, n_cards):
     dev_ms = sum(_device_us(ev) for ev in hits) / 1e3 / n if n else None
     block_bytes = 6144 * 256 * 2
     nvlink_ms = 1e3 * (N_PARTS - 1) * block_bytes / 450e9  # each rank receives the others' blocks
+    # the library's all-gather of the same blocks: NCCL, one process over the
+    # cards, one call (torch.cuda.nccl takes one tensor per card)
+    library_ms = library_exact = None
+    if len(set(devices)) == N_PARTS:
+        from torch.cuda import nccl
+
+        gathered = [torch.empty((N_PARTS * 6144, 256), dtype=torch.bfloat16, device=d)
+                    for d in devices]
+        nccl.all_gather(blocks, gathered)
+        for d in cards:
+            torch.cuda.synchronize(d)
+        library_exact = all(torch.equal(g, o) for g, o in zip(gathered, outs))
+        library_ms = time_streams(torch, lambda: nccl.all_gather(blocks, gathered), streams)
+        del gathered
     log(f"26(d) K8 bf16 P=4 [6144, 256] over {n_cards} cards (devices {records['devices']}): "
         f"{'exact' if exact else 'NOT exact'} on every card, {ms:.4f} ms per call, device "
         f"{dev_ms} ms per launch ({n} launches profiled), plain {plain_ms:.4f} ms (a torch.cat "
-        f"on each card); bound {nvlink_ms:.4f} ms over NVLink at 450 GB/s; launches "
-        f"{rg.launch_info(blocks)}")
+        f"on each card), library {library_ms} ms (torch.cuda.nccl.all_gather, one call over "
+        f"the cards; equal to K8's outputs: {library_exact}); bound {nvlink_ms:.4f} ms over "
+        f"NVLink at 450 GB/s; launches {rg.launch_info(blocks)}")
     assert exact, "K8 over the cards differs from torch.cat"
+    assert library_exact in (None, True), "NCCL's all-gather differs from K8's"
     records["k8_row"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": nvlink_ms, "bound_by": "bytes", "library_ms": None,
+                         "bound_ms": nvlink_ms, "bound_by": "bytes", "library_ms": library_ms,
+                         "library": "torch.cuda.nccl.all_gather (one process, one call over "
+                                    "the cards)" if library_ms is not None else None,
                          "device_ms": dev_ms,
                          "shape": f"halo bf16 P=4 block [6144, 256], one rank a card over "
                                   f"{n_cards} cards (NVLink)"}
@@ -4070,87 +4532,19 @@ def multicard_cards(torch, events, n_cards):
     # f32 depth 2 + 2 against the one-card run, under deterministic algorithms
     # (else atomics add in another order and a near-tie of the bipartite kNN
     # can pick another edge; the runs then see the same graph, as phase 14's
-    # replayed kNN makes them)
+    # replayed kNN makes them); warn_only's warnings name the ops that ran
+    # without a deterministic form
     torch.use_deterministic_algorithms(True, warn_only=True)
-    warnings.simplefilter("ignore", UserWarning)
-    f32 = {**FLAGSHIP, "compute_dtype": None, "n_interaction_graph_iters": 2,
-           "n_hierarchical_graph_iters": 2, "halo_backend": "rdma"}
-    hp, model, pipeline = model_selector("BC-HGNN-GMM", f32)
-    batch = preprocess_event(events[0], hp, stage="test")
-    one = _sharded_outputs(make_sharded_forward(pipeline, N_PARTS, hp)(batch))
-    many = _sharded_outputs(make_sharded_forward(pipeline, N_PARTS, hp, devices=devices)(batch))
-    c = hp["max_clusters"]
-    (k1, s1), (k2, s2) = (canonical_scores(torch, __import__("hierarchicalgnn_torch.ops.graph",
-                                                              fromlist=["Graph"]).Graph(*o[:3]),
-                                           o[3], c) for o in (one, many))
-    score_err = float((s1 - s2).abs().max()) if torch.equal(k1, k2) else float("inf")
-    emb_err = float((one[4] - many[4]).abs().max())
-    log(f"26(d) f32 2 + 2 sharded forward over {n_cards} cards against one card: clusters "
-        f"{'equal' if torch.equal(one[5], many[5]) else 'DIFFER'}, edges "
-        f"{'equal' if torch.equal(k1, k2) else 'DIFFER'}, scores within {score_err:.2e}, "
-        f"embeddings within {emb_err:.2e}")
-    assert torch.equal(one[5], many[5]) and torch.equal(k1, k2) and score_err <= 1e-4
-    del model, pipeline
-    hp_t, trainer = flagship_trainer({**f32, "mesh_shape": {"data": 1, "graph": N_PARTS}})
-    train_batch = trainer.make_datasets(events[:1])[0][0][2]
-    start = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
-    from hierarchicalgnn_torch.parallel.graph_shard import make_sharded_train_step
-    results = []
-    for devs in (None, devices):
-        with torch.no_grad():
-            for k, v in trainer.model.state_dict().items():
-                v.copy_(start[k])
-        step = make_sharded_train_step(trainer.pipeline, trainer.optimizer, {"graph": N_PARTS},
-                                       hp_t, devices=devs)
-        grads, metrics = step.forward_backward(train_batch, TRAIN_EPOCH)
-        results.append((float(metrics["training_loss"]), grads))
-    (loss1, g1), (loss2, g2) = results
-    worst = 0.0
-    for a, b in zip(g1, g2):
-        assert (a is None) == (b is None)
-        if a is not None:
-            assert a.device == b.device == cards[0]
-            worst = max(worst, float((a - b).abs().max()) / (1e-3 * float(a.abs().max()) + 1e-7))
-    log(f"26(d) f32 2 + 2 sharded step over {n_cards} cards against one card: loss {loss2:.7f} "
-        f"vs {loss1:.7f} (rel {abs(loss2 / loss1 - 1):.2e}), worst gradient error {worst:.3f} "
-        f"of its bound")
-    assert abs(loss2 / loss1 - 1) <= 1e-4 and worst <= 1
-    del step, grads, g1, g2, results
-
-    # the TP step over {data 1, model 4} with the model ranks on the cards
-    from hierarchicalgnn_torch.parallel import tp
-    from hierarchicalgnn_torch.train.checkpoint import train_state
-    from hierarchicalgnn_torch.train.optim import make_optimizer
-    results = []
-    for devs in (None, devices):
-        with torch.no_grad():
-            for k, v in trainer.model.state_dict().items():
-                v.copy_(start[k])
-        optimizer = make_optimizer(list(trainer.model.parameters()), hp_t,
-                                   trainer._steps_per_epoch())
-        mesh = tp.make_tp_mesh(1, N_PARTS, hp_t["hidden"], devices=devs)
-        state, step = tp.make_tp_train_step(trainer.pipeline, optimizer, mesh,
-                                            train_state(trainer.model, optimizer),
-                                            hp_t["hidden"])
-        step.state = state
-        grads, metrics = step.mean_step.forward_backward(train_batch, TRAIN_EPOCH)
-        step.state = None
-        results.append((float(metrics["training_loss"]), [g.cpu() if g is not None else None
-                                                           for g in grads],
-                        sorted({str(p.device) for p in state.leaves()})))
-        del state, step, grads
-    (loss1, g1, cards1), (loss2, g2, cards2) = results
-    worst = max(float((a - b).abs().max()) / (1e-3 * float(a.abs().max()) + 1e-7)
-                for a, b in zip(g1, g2) if a is not None)
-    peaks = [torch.cuda.max_memory_allocated(d) / 2**30 for d in cards]
-    log(f"26(d) f32 2 + 2 TP step {{data 1, model {N_PARTS}}} with its leaves on {cards2} "
-        f"against one card ({cards1}): loss {loss2:.7f} vs {loss1:.7f} (rel "
-        f"{abs(loss2 / loss1 - 1):.2e}), worst gradient error {worst:.3f} of its bound; peak "
-        f"GiB per card so far {[round(p, 2) for p in peaks]}")
-    assert abs(loss2 / loss1 - 1) <= 1e-4 and worst <= 1
-    torch.use_deterministic_algorithms(False)
-    warnings.resetwarnings()
-    del trainer, results, g1, g2
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            records["f32"] = multicard_f32(torch, events, cards, devices, n_cards)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    records["f32"]["nondeterministic"] = sorted({str(w.message).split(".")[0] for w in caught
+                                                if "deterministic" in str(w.message)})
+    log(f"26(d) ops without a deterministic form (warn_only's warnings) in the f32 forward, "
+        f"steps and TP steps: {records['f32']['nondeterministic']}")
     torch.cuda.empty_cache()
 
     # bf16, full depth: the sharded event and the sharded step, on one card
@@ -4216,13 +4610,97 @@ def multicard_cards(torch, events, n_cards):
     return records
 
 
+def multicard_processes(torch, count):
+    """26(e), on a host with 2 or more cards: the data axis over 2 processes
+    that meet over NCCL, each on cards of its own.  Of n = 4 cards (2 where
+    the host has fewer than 4) process p takes ``cards[p n / 2:(p + 1) n /
+    2]``, named on its command line; with one card each its two graph ranks
+    share it.  Each binds itself to its first card (``initialize``), builds
+    ``make_global_mesh(2, devices=its cards)`` and keeps its model there.
+    (a) The flagship (phase 25's worker, bf16, full width and depth, rdma):
+    the processes' losses equal bit for bit and their states identical at
+    both timed steps, K1-K6 and K8 launched in each, one gather a step,
+    ``partition_ok``; host ms, busy and idle and peak per card, the gather's
+    ms and bytes, and the gather alone.  (b) f32 at depth 2 + 2 against
+    process 0's one-process ``{data 2, graph 2}`` step with its events' ranks
+    on the same cards: within phase 25's bounds (loss 1e-4 relative, every
+    parameter rtol 5e-4 / atol 1e-5), whether bit for bit is printed.
+    Returns the workers' results."""
+    n = 4 if count >= 4 else 2
+    cards = [f"cuda:{i}" for i in range(n)]
+    per = n // PROCESS_WORLD
+    own = [cards[p * per:(p + 1) * per] for p in range(PROCESS_WORLD)]
+    own = [c * (PROCESS_GRAPH // len(c)) for c in own]  # one card: both ranks share it
+    reference = [d for c in own for d in c]
+    with _scratch_dir() as tmp:
+        results = run_processes(PROCESS_WORLD, "nccl", Path(tmp), own, reference)
+    if PATH_CHECKED:  # phase 3 ran in this process
+        unchecked = sorted({k for r in results for k in r["keys"]}
+                           - {str(key) for key in PATH_CHECKED})
+        assert not unchecked, f"26(e)'s kernel inputs never checked: {unchecked}"
+    for r, mine in zip(results, own):
+        assert r["backend"] == "nccl" and r["cards"] == mine, r
+        assert r["current_device"] == torch.device(mine[0]).index, r
+    for i in range(2):
+        steps = [r["flagship"][i] for r in results]
+        assert len({s["loss"] for s in steps}) == 1, f"26(e) step {i}: the losses differ"
+        assert len({s["fingerprint"] for s in steps}) == 1, f"26(e) step {i}: states differ"
+        for s in steps:
+            assert s["partition_ok"] and s["process_gathers"] == 1, s
+            for kernel in SHARDED_STEP_KERNELS:
+                assert s["launches"][kernel] > 0, (kernel, s["launches"])
+    parity = results[0]["parity"]
+    assert results[1]["parity"]["loss"] == parity["loss"], "26(e): the parity losses differ"
+    if parity["loss_rel"] > 1e-4 or parity["worst"] > 1:
+        raise AssertionError(f"26(e): the 2-process step differs from one process's: {parity}")
+    log(f"26(e) processes over nccl on cards {own}: losses equal and states identical at "
+        f"both steps; f32 2 + 2 against one process over {reference}: loss rel "
+        f"{parity['loss_rel']:.2e}, worst parameter {parity['worst']:.3f} of phase 25's bound, "
+        f"bit for bit {parity['bit_for_bit']}; ops without a deterministic form "
+        f"{sorted({op for r in results for op in r['parity']['nondeterministic']})}")
+    return results
+
+
+def multicard_cli(torch, count):
+    """26(f), on a host with 4 cards: the CLI over the cards.  The flagship's
+    ``train`` 1 epoch over ``mesh_shape {data 1, graph 4}`` with ``--devices
+    cuda:0,cuda:0,cuda:0,cuda:0`` (phase 16's run), then with ``--devices
+    cuda:0,cuda:1,cuda:2,cuda:3`` ``train`` 1 epoch, ``resume`` from
+    ``last`` to epoch 2 and ``test`` (``cli_on_devices`` asserts each).  The
+    logs' records up to the first epoch's end have the same keys in the same
+    order, and the one over the cards goes on with a second epoch and the
+    test.  Returns both runs' records."""
+    common = ["--synthetic-particles", str(N_PARTICLES), "--log-every-n-steps", "1",
+              *_flagship_sets((("train_split", [2, 1, 1]),))]
+    with _scratch_dir() as tmp:
+        one = cli_on_devices(torch, f"{tmp}/one", ["cuda:0"] * N_PARTS, common)
+        many = cli_on_devices(torch, f"{tmp}/cards", [f"cuda:{i}" for i in range(N_PARTS)],
+                              common, resume_to=2)
+    keys = lambda records: [sorted(r) for r in records]
+    first = len(one["records"])
+    assert keys(many["records"][:first]) == keys(one["records"]), (one["records"],
+                                                                   many["records"])
+    rest = many["records"][first:]
+    assert [r["epoch"] for r in rest if "val_loss" in r] == [1], rest
+    assert any("test_track_eff" in r for r in rest), rest
+    assert set(many["tested"]) == {"val_loss", "track_eff", "track_pur", "hit_eff", "hit_pur"}
+    log(f"26(f) cli over {N_PARTS} cards: train / resume / test seconds {many['seconds']}, "
+        f"epoch_time {[r['epoch_time'] for r in many['records'] if 'epoch_time' in r]} s (one "
+        f"card: {[r['epoch_time'] for r in one['records'] if 'epoch_time' in r]}), peak GiB per "
+        f"card {[round(p, 2) for p in many['peak_gib']]} (one card {one['peak_gib']}); test "
+        f"{many['tested']}")
+    return {"one card": one, "cards": many}
+
+
 def phase_multicard(torch, events):
     """Phase 26: the card count, every card's ``nvidia-smi`` line and the
     peer-access matrix; (a) K8's split launches on one card, (b) the bound
     on its waits, (c) ``devices=[cuda:0] * 4`` against ``devices=None``, (d)
-    the ranks on several cards where the host has 2 or more (else one line
-    says it did not run).  Returns (K8's split-launch rows, 26(d)'s records
-    or None)."""
+    the ranks on several cards and (e) processes over NCCL on cards of
+    their own where the host has 2 or more, (f) the CLI over 4 cards (else
+    one line each says it did not run); last, that the f32 steps of (d) and
+    (e) equal one card's and one process's bit for bit.  Returns (K8's
+    split-launch rows, the records of (d)-(f) or None)."""
     count = torch.cuda.device_count()
     lines = subprocess.run(
         ["nvidia-smi", "--query-gpu=index,name,power.limit", "--format=csv,noheader"],
@@ -4238,13 +4716,36 @@ def phase_multicard(torch, events):
         counted = multicard_split_launches(torch, rows)
         multicard_timeout(torch)
         multicard_one_card(torch, events)
-        if count >= 2:
+    if count >= 2:
+        with watchdog():
             records = multicard_cards(torch, events, min(N_PARTS, count))
-            log("26(d) " + json.dumps(records))
-        else:
-            records = None
-            log(f"26(d) did not run: this host has {count} card; the ranks on several cards "
-                f"need at least 2")
+        log("26(d) " + json.dumps(records))
+        # the workers bound themselves (watchdog, PROCESS_TIMEOUT_S, the group's timeout)
+        records["processes"] = multicard_processes(torch, count)
+        log("26(e) " + json.dumps(records["processes"]))
+    else:
+        records = None
+        log(f"26(d) did not run: this host has {count} card; the ranks on several cards "
+            f"need at least 2")
+        log(f"26(e) did not run: this host has {count} card; processes on cards of their "
+            f"own need at least 2")
+    if count >= N_PARTS:
+        with watchdog():
+            records["cli"] = multicard_cli(torch, count)
+        log("26(f) " + json.dumps(records["cli"]))
+    else:
+        log(f"26(f) did not run: this host has {count} card(s); the CLI over cards needs "
+            f"{N_PARTS}")
+    if records is not None:
+        # asserted last, so that a failure still leaves (e) and (f) measured:
+        # the step over the cards adds every gradient's terms as one card does
+        steps = records["f32"]["step"]
+        assert all(r["loss_equal"] and r["leaves_differ"] == 0 and not r["buffers_differ"]
+                   for r in steps.values()), (
+            f"26(d): the f32 step over the cards is not one card's bit for bit: {steps}")
+        parity = records["processes"][0]["parity"]
+        assert parity["bit_for_bit"], (
+            f"26(e): the processes' f32 step is not one process's bit for bit: {parity}")
     for split, n in counted.items():
         label = " + ".join(str(k) for k in split)
         rows[f"K8 split {label}"]["launches"] = n
@@ -4252,7 +4753,11 @@ def phase_multicard(torch, events):
     if records is not None:
         rows[f"K8 over {min(N_PARTS, count)} cards"] = {
             **records.pop("k8_row"), "launches_counted_in":
-            "phase 26(d): 2 sharded events and 2 sharded steps over the cards"}
+            "phase 26(d): 2 sharded events and 2 sharded steps over the cards",
+            "launches_processes": sum(step["launches"]["K8"] for r in records["processes"]
+                                      for step in r["flagship"][:2]),
+            "launches_processes_counted_in": "phase 26(e): 2 steps in each process, over "
+                                             "its own cards"}
     return rows, records
 
 
@@ -4271,7 +4776,9 @@ def main():
                          "run it from a checkout of the repo")
     if sys.argv[1:2] == ["--process-worker"]:
         rank, world, store, backend = sys.argv[2:6]
-        return process_worker(int(rank), int(world), store, backend)
+        cards, reference = ([a.split(",") for a in sys.argv[6:8]] if len(sys.argv) > 6
+                            else (None, None))
+        return process_worker(int(rank), int(world), store, backend, cards, reference)
     import torch
 
     if sys.argv[1:2] == ["--multicard"]:  # phase 26 alone, on every card the host has

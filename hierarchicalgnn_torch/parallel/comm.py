@@ -69,8 +69,15 @@ the all-gather's backward is a reduce-scatter of the ranks' cotangents
 (``ops/kernels/ring_gather.py``, the same for both backends), the feature
 all-gather's gives each rank its column block of the summed cotangents,
 ``psum``'s gives each rank's input the ranks' cotangents summed in rank order,
-and ``psum_scatter``'s is autograd's own.  No rendezvous is needed in the
-backward.
+and ``psum_scatter``'s hands each rank's input the ranks' block cotangents
+side by side.  No rendezvous is needed in the backward.
+
+Across cards every cross-card step of a forward is one autograd node
+whether the ranks share a card or not (the collectives above, and
+:func:`to_card` where a rank's outputs come back to the model's card), so
+the ranks' graphs are the same on one card and on several, node for node;
+``parallel/step.py`` runs the backward on the caller's thread, which then
+meets the nodes in the same order on both.
 """
 
 from __future__ import annotations
@@ -142,6 +149,58 @@ class _FeatureGather(torch.autograd.Function):
         with current_streams(ctx.streams):
             parts = sum_in_rank_order(given).split(ctx.widths, -1)
             return tuple(p.to(d) for p, d in zip(parts, ctx.devices))
+
+
+class _PsumScatter(torch.autograd.Function):
+    """The ranks' values summed in rank order, each rank handed its row block
+    on its card (:func:`reduce_scatter_plain`); backward: each value's
+    cotangent is the ranks' cotangents of their blocks, side by side, on the
+    value's card.  One node whether the ranks share a card or not, so their
+    graphs are the same on one card and on several."""
+
+    @staticmethod
+    def forward(ctx, *values):
+        ctx.set_materialize_grads(False)  # a rank that never reads its block adds nothing
+        _remember(ctx, values)
+        ctx.block = (values[0].shape[0] // len(values), *values[0].shape[1:])
+        ctx.dtype = values[0].dtype
+        return tuple(t.view_as(t) for t in reduce_scatter_plain(values, devices=ctx.devices))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if all(g is None for g in grads):
+            return (None,) * len(grads)
+        with current_streams(ctx.streams):
+            return tuple(torch.cat([torch.zeros(ctx.block, dtype=ctx.dtype, device=d)
+                                    if g is None else g.to(d) for g in grads], 0)
+                         for d in ctx.devices)
+
+
+class _ToDevice(torch.autograd.Function):
+    """``x`` on ``device``: a copy, or a view where it lies there already;
+    backward: the cotangent on ``x``'s card."""
+
+    @staticmethod
+    def forward(ctx, x, device):
+        ctx.device = x.device
+        ctx.streams = _streams_of([x.device, device])
+        y = x.to(device)
+        return y.view_as(y) if y is x else y
+
+    @staticmethod
+    def backward(ctx, grad):
+        with current_streams(ctx.streams):
+            return grad.to(ctx.device), None
+
+
+def to_card(x, device):
+    """``x`` on ``device`` through one autograd node where it requires grad,
+    a view where it lies on ``device`` already: a rank's output brought to
+    the model's card makes the same node whether the ranks share that card
+    or not."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ToDevice.apply(x, device)
+    return x.to(device)
 
 
 def _cat_features(blocks):
@@ -253,6 +312,8 @@ class ShardGroup:
         return on_each(sum_in_rank_order(values), [v.device for v in values])
 
     def _psum_scatter(self, values):
+        if torch.is_grad_enabled() and any(v.requires_grad for v in values):
+            return list(_PsumScatter.apply(*values))
         return reduce_scatter_plain(values, devices=[v.device for v in values])
 
     def _pmax(self, values):
@@ -342,9 +403,10 @@ class Comm:
 
 
 def to_device(tree, device):
-    """Every tensor of ``tree`` (a pytree) on ``device``: a rank's outputs
-    brought to the caller's card."""
-    return pytree.tree_map(lambda v: v.to(device) if isinstance(v, torch.Tensor) else v, tree)
+    """Every tensor of ``tree`` (a pytree) on ``device`` (:func:`to_card`): a
+    rank's outputs brought to the caller's card."""
+    return pytree.tree_map(lambda v: to_card(v, device) if isinstance(v, torch.Tensor) else v,
+                           tree)
 
 
 def place_inputs(inputs, devices, buffers=()):

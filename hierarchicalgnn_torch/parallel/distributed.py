@@ -19,6 +19,13 @@ one-process step over the same events bit for bit.
 
 The group's ``timeout`` bounds every collective, so a peer that hangs or
 dies fails the run instead of holding it.
+
+Each process owns its cards: :func:`initialize` binds it to the card it
+names (NCCL takes no two processes on one card), and
+``make_global_mesh(graph_per_host, devices=its cards)`` puts its ``graph``
+ranks on them as the JAX mesh puts a host's on its local chips.  The
+gather's buffer lies on the model's card (``params[0]``), the process's
+first.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ import torch.distributed as dist
 from hierarchicalgnn_torch.data.event import Event
 from hierarchicalgnn_torch.parallel.comm import THREAD_PREFIX
 from hierarchicalgnn_torch.parallel.mesh import Mesh, Sharding, make_mesh
-from hierarchicalgnn_torch.utils.device import resolve_device
+from hierarchicalgnn_torch.utils.device import resolve_device, resolve_devices
 
 TIMEOUT_S = 300.0
 _ALIGN = 16  # bytes: each tensor of a gathered buffer starts on a multiple
@@ -57,8 +64,16 @@ def initialize(coordinator_address: str | None = None, num_processes: int | None
     ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``), the counterpart of JAX's
     auto-detection.  ``backend`` defaults to ``nccl`` on the card and
     ``gloo`` on the CPU; ``device`` defaults to the card and raises without
-    one.  ``timeout_s`` bounds every collective of the group."""
-    device = resolve_device(device)
+    one.  ``timeout_s`` bounds every collective of the group.
+
+    A card binds the process to it: a named one (``cuda:2``) becomes the
+    current card (``torch.cuda.set_device``) before the group forms, a bare
+    ``cuda`` stays the current one, and under ``nccl`` the group is made for
+    that card (``device_id``), so its collectives (:func:`_group_device`)
+    take their tensors there.  Processes of one host that share no card
+    therefore each name their own.  Nothing falls back: if NCCL cannot form
+    the group or a collective fails, the call raises."""
+    device = resolve_devices([resolve_device(device)])[0]
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     if coordinator_address is not None:
         if init_method is not None:
@@ -76,22 +91,42 @@ def initialize(coordinator_address: str | None = None, num_processes: int | None
         if num_processes is None or process_id is None:
             raise ValueError("num_processes and process_id name this process in the group")
         kwargs.update(world_size=int(num_processes), rank=int(process_id))
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        if backend == "nccl":
+            kwargs["device_id"] = device
     dist.init_process_group(backend, init_method=init_method,
                             timeout=datetime.timedelta(seconds=timeout_s), **kwargs)
     return dist.group.WORLD
 
 
-def make_global_mesh(graph_per_host: int = 1) -> Mesh:
+def make_global_mesh(graph_per_host: int = 1, devices=None) -> Mesh:
     """The mesh over every process of the default group (one process when
-    none is initialised): one event a step in each process, split over
-    ``graph_per_host`` thread ranks, so ``data`` is the processes.  (For
-    several events a process, ``make_mesh(world * k, graph, group)``.)
-    Raises when ``graph_per_host`` is below 1."""
+    none is initialised), its ``graph`` axis inside each process.  Raises
+    when ``graph_per_host`` is below 1.
+
+    ``devices``: this process's local devices, as ``jax.local_devices()``
+    are to the JAX ``make_global_mesh`` (``distributed.py:34-44`` of the JAX
+    package), whose rule this follows: ``graph_per_host`` must divide them
+    (else ``ValueError``, "incompatible"), ``data`` is ``world x
+    len(devices) / graph_per_host``, and this process's event e runs its
+    ranks on ``devices[e * graph_per_host:(e + 1) * graph_per_host]``
+    (``make_mesh(data, graph_per_host, group, devices)``).  Without
+    ``devices`` each process runs one event a step on its current card, so
+    ``data`` is the processes.  (For several events a process on one card,
+    ``make_mesh(world * k, graph, group)``.)"""
     if graph_per_host < 1:
         raise ValueError(f"graph_per_host {graph_per_host} must be at least 1")
     group = dist.group.WORLD if dist.is_initialized() else None
     world = dist.get_world_size() if group is not None else 1
-    return make_mesh(world, graph_per_host, group)
+    if devices is None:
+        return make_mesh(world, graph_per_host, group)
+    devices = list(devices)
+    local = len(devices)
+    if graph_per_host > local or local % graph_per_host:
+        raise ValueError(f"graph_per_host {graph_per_host} incompatible with {local} local "
+                         f"devices")
+    return make_mesh(world * local // graph_per_host, graph_per_host, group, devices)
 
 
 class GlobalBatch(NamedTuple):
@@ -168,7 +203,8 @@ def fingerprint(tree) -> bytes:
 
 
 def _group_device(group) -> torch.device:
-    """Where the group's collectives take their tensors."""
+    """Where the group's collectives take their tensors: under ``nccl`` the
+    current card, which :func:`initialize` made the process's own."""
     if dist.get_backend(group) == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")

@@ -69,7 +69,7 @@ from hierarchicalgnn_torch.ops.segment import segment_sum
 from hierarchicalgnn_torch.models.buffers import agreed, placed_buffers, staged_writes
 from hierarchicalgnn_torch.models.mlp import TPBinding, tensor_parallel
 from hierarchicalgnn_torch.parallel.comm import (
-    HALO_BACKENDS, Comm, place_inputs, replicate, run_sharded, to_device)
+    HALO_BACKENDS, Comm, place_inputs, replicate, run_sharded, to_card, to_device)
 from hierarchicalgnn_torch.parallel.mesh import as_mesh, make_mesh
 from hierarchicalgnn_torch.parallel.step import EventMeanStep, event_index
 from hierarchicalgnn_torch.utils.config import SHARD_DEFAULTS
@@ -395,7 +395,7 @@ def _reassemble(spec, outs, device=None):
     """The ranks' outputs in the unsharded layout; on ``device`` where given
     (the ranks' outputs lie on their cards)."""
     if spec == SHARDED:
-        return torch.cat(outs if device is None else [o.to(device) for o in outs], 0)
+        return torch.cat(outs if device is None else [to_card(o, device) for o in outs], 0)
     if spec == REPLICATED:
         return outs[0] if device is None else to_device(outs[0], device)
     parts = [_reassemble(s, [o[i] for o in outs], device) for i, s in enumerate(spec)]

@@ -10,7 +10,12 @@ the buffers as they were before the step: its writes are staged
 (``models/buffers.py``) and the means applied once at the end.
 
 The events run one after another, each with its backward before the next
-forward, so the step holds one event's activations at a time; the gradient
+forward, so the step holds one event's activations at a time.  Each
+backward runs on the caller's thread: autograd otherwise runs each card's
+nodes on a thread of that card and adds a tensor's gradient terms in the
+order they arrive from those threads, which varies from run to run once
+the ranks' graphs span several cards; on one thread the order follows the
+graph alone, the same on one card and on several.  The gradient
 of the mean loss is the sum of each event's gradient of ``loss / B``, added
 in event order on the parameters' device.  Local event e runs on row e of
 the mesh's devices where it has them: the forward reads e from
@@ -168,7 +173,12 @@ class EventMeanStep:
                 out, staged = self.forward(event, stats)
             loss, event_metrics = self.pipeline.loss_from_outputs(
                 out, event, epoch, stats=stats, matching_spmd=self.matching_spmd)
-            event_grads = torch.autograd.grad(loss / self.n_events, params, allow_unused=True)
+            # on this thread, not on autograd's thread per card: one thread
+            # meets the ranks' nodes in one order, so a tensor's gradient
+            # terms are added in the same order on one card and on several
+            with torch.autograd.set_multithreading_enabled(False):
+                event_grads = torch.autograd.grad(loss / self.n_events, params,
+                                                  allow_unused=True)
             grads = event_grads if grads is None else [
                 b if a is None else a if b is None else a + b
                 for a, b in zip(grads, event_grads)]

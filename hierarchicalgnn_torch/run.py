@@ -14,7 +14,18 @@ Every command runs on the card (``--device cuda``, the default) and raises
 without one; ``--device cpu`` runs it on the CPU, where the JAX CLI reads
 its platform from ``JAX_PLATFORMS``.  On the card the process first takes
 the single-tenant device lock (``utils/device_lock.py``), after the
-arguments are parsed, so ``--help`` never waits for it.  Data comes from
+arguments are parsed, so ``--help`` never waits for it, and after every
+card that ``--device`` and ``--devices`` name was found, so a card that
+does not exist fails at once.
+
+``--devices cuda:0,cuda:1,...`` (a comma list; ``cpu`` entries run on the
+CPU) places the graph ranks of a config with ``mesh_shape.graph`` > 1 as the
+JAX CLI's mesh over ``jax.devices()`` does (``parallel/mesh.py::make_mesh``):
+the first ``data x graph`` of them, rank g of event e on entry ``e * graph +
+g``; fewer raise ("mesh 1x4 needs 4 devices, have 2").  The model, the loss
+and the optimizer stay on ``--device``.  With ``mesh_shape.graph`` 1 the
+JAX trainer builds no mesh, so ``--devices`` is accepted and changes
+nothing.  Without it every rank runs on ``--device``.  Data comes from
 ``--input-dir`` (a directory of event files, ``data/reader.py``) or the
 synthetic generator when the config's ``input_dir`` is ``synthetic://``
 (every shipped config).  The JAX CLI's persistent compile cache has no
@@ -40,6 +51,20 @@ def _load_events(hparams, args):
     return load_event_dir(input_dir, hparams["datatype_names"], limit=n_events)
 
 
+def _device_list(text):
+    """``--devices``: a comma list of device names, each checked by
+    ``torch.device``."""
+    names = [d.strip() for d in text.split(",") if d.strip()]
+    if not names:
+        raise argparse.ArgumentTypeError("--devices names no device")
+    for name in names:
+        try:
+            torch.device(name)
+        except RuntimeError as exc:
+            raise argparse.ArgumentTypeError(str(exc)) from None
+    return names
+
+
 def _overrides(args):
     o = {}
     for kv in args.set or []:
@@ -58,7 +83,8 @@ def _build(args):
 
     hparams, model, pipeline = model_selector(args.model, _overrides(args))
     trainer = Trainer(hparams, model, pipeline, run_dir=args.run_dir,
-                      log_every_n_steps=args.log_every_n_steps, device=args.device)
+                      log_every_n_steps=args.log_every_n_steps, device=args.device,
+                      devices=args.devices)
     return hparams, trainer
 
 
@@ -135,7 +161,15 @@ def main(argv=None):
         sp.add_argument("--log-every-n-steps", type=int, default=50)
         sp.add_argument("--synthetic-particles", type=int, default=120)
         sp.add_argument("--device", default="cuda",
-                        help="cuda (the default; raises without a card) or cpu")
+                        help="cuda (the default; raises without a card) or cpu: where "
+                             "the model, the loss and the optimizer run")
+        sp.add_argument("--devices", type=_device_list, default=None,
+                        metavar="DEV,DEV,...",
+                        help="where the graph ranks of mesh_shape {data, graph > 1} run, "
+                             "as the JAX mesh places them: the first data x graph of "
+                             "these (e.g. cuda:0,cuda:1,cuda:2,cuda:3; cpu allowed); "
+                             "fewer raise. With graph 1 no mesh is built and this has "
+                             "no effect; without it every rank runs on --device")
         # None: resume tries last, autosave, best in that order; test and
         # transfer take best.  An explicit value always wins.
         sp.add_argument("--checkpoint", default=None)
@@ -146,11 +180,12 @@ def main(argv=None):
     # parse before taking the device lock: --help or a mistyped command
     # prints its usage at once instead of waiting behind a running job
     args = p.parse_args(argv)
-    if torch.device(args.device).type == "cuda":
+    named = [args.device, *(args.devices or ())]
+    if any(torch.device(d).type == "cuda" for d in named):
         from hierarchicalgnn_torch.utils import device_lock
-        from hierarchicalgnn_torch.utils.device import resolve_device
+        from hierarchicalgnn_torch.utils.device import resolve_device, resolve_devices
 
-        resolve_device(args.device)
+        resolve_devices([resolve_device(d) for d in named])
         device_lock.acquire(wait_s=6 * 3600.0, status=print)
     args.fn(args)
 

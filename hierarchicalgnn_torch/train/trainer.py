@@ -45,6 +45,7 @@ from hierarchicalgnn_torch.data.event import Event, preprocess_event
 from hierarchicalgnn_torch.evaluation.tracking import eval_metrics
 from hierarchicalgnn_torch.ops.graph import bidirectionalize
 from hierarchicalgnn_torch.parallel.graph_shard import make_sharded_train_step
+from hierarchicalgnn_torch.parallel.mesh import make_mesh
 from hierarchicalgnn_torch.train import checkpoint as ckpt_lib
 from hierarchicalgnn_torch.train.optim import apply_gradients, make_optimizer
 from hierarchicalgnn_torch.train.pipelines import event_to
@@ -73,7 +74,9 @@ class Trainer:
     (None: no file is written and no checkpoint saved).  ``device``
     defaults to the card and raises without one.  ``devices``: where the
     graph-partitioned step's ranks run (``parallel/mesh.py::make_mesh``'s
-    ``devices``; None: all on ``device``)."""
+    ``devices``; None: all on ``device``); too few for ``mesh_shape``'s
+    ``data x graph`` raise here, in the JAX mesh's words.  With ``graph`` 1
+    no mesh is built (as in the JAX trainer) and ``devices`` is unused."""
 
     def __init__(self, hparams: dict, model, pipeline, run_dir: str | None = None,
                  log_every_n_steps: int = 50, device: str | torch.device = "cuda",
@@ -81,6 +84,8 @@ class Trainer:
         self.hparams = hparams
         self.device = resolve_device(device)
         self.devices = devices
+        if devices is not None and self._mesh("graph") > 1:
+            make_mesh(self._mesh("data"), self._mesh("graph"), devices=devices)
         self.model = model.to(self.device)
         self.pipeline = pipeline
         self.run_dir = run_dir
