@@ -169,7 +169,9 @@ these phases and fails if any of them fails:
               nvidia-smi line and the peer-access matrix; (a) K8 at P 4 on
               the halo input (bf16, f32) as 2 launches of 2 ranks and 4 of 1
               on streams of card 0, grids capped at their share, exact, timed
-              beside one launch; (b) a launch whose peer sleeps past a 2 s
+              beside one launch (``k8_timings``: ms a call, host us a call
+              over 100 calls enqueued without a wait, device ms a launch,
+              block 0's entry spin and run); (b) a launch whose peer sleeps past a 2 s
               bound gives up, the next call raises, fresh flags are exact;
               (c) ``devices=[cuda:0] * 4`` against ``devices=None``: the f32
               2 + 2 sharded forward's outputs, the step's loss, buffers and
@@ -179,7 +181,8 @@ these phases and fails if any of them fails:
               sharded forward, step and TP step against one card, bf16 events
               and steps with host ms, peak GiB and idle share per card beside
               the one-card run; K8's library time (``torch.cuda.nccl``'s
-              all-gather, one call over the cards, its output equal to K8's);
+              all-gather, one call over the cards, its output equal to K8's,
+              its host us), K8 timed again after it;
               the f32 step over the cards three times, twice under a probe
               that hashes the gradient at every seam of the ranks' graphs;
               (e) with 2 or more cards, 2 processes over NCCL, each bound to
@@ -187,7 +190,9 @@ these phases and fails if any of them fails:
               ``{data 2, graph 2}``, losses and states equal, one gather a
               step, K1-K6 and K8 in each, per-card busy, idle and peak, the
               gather alone; its f32 2 + 2 step against one process over the
-              same cards; (f) with 4 cards, the CLI: ``train`` 1 epoch over
+              same cards; K8 at each process's P 2 over its 2 cards (2
+              launches a call) timed beside NCCL's all-gather of the same
+              blocks; (f) with 4 cards, the CLI: ``train`` 1 epoch over
               ``--devices cuda:0,cuda:1,cuda:2,cuda:3``, ``resume`` to epoch
               2 and ``test``, its log against the one-card ``--devices`` run;
               with fewer cards each of (d)-(f) prints that it did not run.
@@ -2162,9 +2167,13 @@ def phase_ring_gather(torch, rows):
                 f"not measured (its bound: {nvlink_ms:.4f} ms to receive "
                 f"{(p - 1) * block_bytes} bytes per rank at 450 GB/s)")
             if p == N_PARTS:
+                timed = k8_timings(torch, fn, blocks, [])
+                log(f"K8 halo bf16 P={p} block [{b}, 256], one launch: {k8_text(timed)}")
                 rows["K8"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                               "bound_ms": b_ms, "bound_by": "bytes", "library_ms": lib_ms,
-                              "device_ms": dev_ms,
+                              "device_ms": dev_ms, "host_us": timed["host_us"],
+                              "entry_spin_us": timed["entry_spin_us"],
+                              "streams_ms": timed["ms"],
                               "shape": f"halo bf16 P={p} block [{b}, 256], ranks on one card"}
 
 
@@ -3839,6 +3848,35 @@ def process_ec_in(torch, rank, events, backend):
     return out, sorted(str(key) for key in rec.seen)
 
 
+def process_k8(torch, cards):
+    """Worker, on cards of its own (phase 26(e)): K8 at this process's P 2 on
+    the flagship step's halo block ([12288, 256] bf16, one rank on each of
+    its cards), exact against torch.cat on each card; its timings
+    (``k8_timings``: 2 launches a call) beside NCCL's all-gather of the same
+    blocks over the same cards."""
+    from hierarchicalgnn_torch.ops.kernels import ring_gather as rg
+
+    devices = [torch.device(c) for c in cards]
+    gen = torch.Generator().manual_seed(29)
+    blocks = [torch.randn((12288, 256), generator=gen).to(torch.bfloat16).to(d)
+              for d in devices]
+    want = torch.cat([b.cpu() for b in blocks], 0)
+    outs = rg.ring_all_gather(blocks)
+    for d in devices:
+        torch.cuda.synchronize(d)
+    exact = all(torch.equal(o.cpu(), want) for o in outs)
+    assert exact, f"K8 over cards {cards} differs from torch.cat"
+    streams = [torch.cuda.current_stream(d) for d in devices]
+    timed = k8_timings(torch, lambda: rg.ring_all_gather(blocks), blocks, streams)
+    library_ms, library_host_us, library_exact = nccl_gather_timings(torch, blocks, outs,
+                                                                     streams)
+    assert library_exact, "NCCL's all-gather differs from K8's"
+    block_bytes = 12288 * 256 * 2
+    return {**timed, "exact": exact, "launches": len(rg.launch_info(blocks)),
+            "library_ms": library_ms, "library_host_us": library_host_us,
+            "bound_ms": 1e3 * (len(blocks) - 1) * block_bytes / 450e9}
+
+
 def process_worker(rank: int, world: int, store: str, backend: str, cards=None,
                    reference=None):
     """One process of phase 25 (``chip_smoke.py --process-worker <rank>
@@ -3870,6 +3908,8 @@ def process_worker(rank: int, world: int, store: str, backend: str, cards=None,
             result["keys"] += keys
             result["parity"], keys = process_parity(torch, rank, events, cards, reference)
             result["keys"] += keys
+            if len(set(cards)) > 1:
+                result["k8"] = process_k8(torch, cards)
         elif backend == "gloo":
             result["flagship"], keys = process_flagship(torch, rank, events)
             result["keys"] += keys
@@ -4009,6 +4049,60 @@ def time_streams(torch, fn, streams, iters=100, warm=200):
     return start.elapsed_time(end) / iters
 
 
+def k8_timings(torch, fn, blocks, streams, per_rank=None):
+    """K8 as ``fn`` calls it on ``blocks`` (``per_rank``: the streams it
+    names, as ``ring_all_gather`` takes them), its launches on ``streams``:
+    ms per call (``time_streams``); host us per call, 100 calls enqueued
+    without a wait; the profiler's device ms per launch; and what block 0 of
+    each launch measured (``launch_stats``): us spun at the entry and us run,
+    per launch, over those 100 calls and over 20 calls each waited for."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hierarchicalgnn_torch.ops.kernels import ring_gather as rg
+
+    cards = sorted({b.get_device() for b in blocks})
+
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    def window(calls, wait):
+        sync()
+        before = rg.launch_stats(blocks, per_rank)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+            if wait:
+                sync()
+        host = 1e6 * (time.perf_counter() - t0) / calls
+        sync()
+        after = rg.launch_stats(blocks, per_rank)
+        return host, [[round((a[k] - b[k]) / calls / 1e3, 2) for a, b in zip(after, before)]
+                      for k in (0, 1)]
+
+    ms = time_streams(torch, fn, streams)
+    host_us, (spin, run) = window(100, False)
+    _, (spin_waited, run_waited) = window(20, True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            fn()
+        sync()
+    hits = [ev for ev in prof.key_averages() if PROFILE_TAGS["K8"] in ev.key]
+    n = sum(ev.count for ev in hits)
+    return {"ms": ms, "host_us": host_us,
+            "device_ms": sum(_device_us(ev) for ev in hits) / 1e3 / n if n else None,
+            "entry_spin_us": spin, "run_us": run, "entry_spin_us_waited": spin_waited,
+            "run_us_waited": run_waited}
+
+
+def k8_text(t):
+    """One line of ``k8_timings``' numbers."""
+    return (f"{t['ms']:.4f} ms per call, host {t['host_us']:.1f} us per call, device "
+            f"{t['device_ms']} ms per launch; block 0's entry spin / run us per launch "
+            f"{t['entry_spin_us']} / {t['run_us']} back to back, {t['entry_spin_us_waited']} / "
+            f"{t['run_us_waited']} with each call waited for")
+
+
 def multicard_split_launches(torch, rows):
     """26(a): K8 at P 4 on the flagship halo input ([6144, 256], bf16 and
     f32) as 2 launches of 2 ranks and as 4 launches of 1, each on a stream of
@@ -4025,8 +4119,10 @@ def multicard_split_launches(torch, rows):
     for dtype in (torch.bfloat16, torch.float32):
         blocks = [torch.randn((6144, 256), generator=gen).to(dtype).to(dev) for _ in range(4)]
         want = torch.cat(blocks, 0)
-        single = time_streams(torch, lambda: rg.ring_all_gather(blocks), [])
+        single = k8_timings(torch, lambda: rg.ring_all_gather(blocks), blocks, [])
         (grid1, *_), = rg.launch_info(blocks)
+        log(f"26(a) K8 {str(dtype)[6:]} P=4 [6144, 256] as one launch on card 0 (grid "
+            f"{grid1}): {k8_text(single)}")
         plain_ms = time_ms(torch, lambda: rg.ring_all_gather_plain(blocks))
         lib_ms = time_ms(torch, lambda: [torch.cat(blocks, 0) for _ in range(4)])
         block_bytes = blocks[0].numel() * blocks[0].element_size()
@@ -4045,7 +4141,7 @@ def multicard_split_launches(torch, rows):
             outs = gather()
             torch.cuda.synchronize()
             first = all(torch.equal(o, want) for o in outs)
-            ms = time_streams(torch, gather, streams)
+            timed = k8_timings(torch, gather, blocks, streams, per_rank)
             outs = gather()
             torch.cuda.synchronize()
             last = all(torch.equal(o, want) for o in outs)
@@ -4055,17 +4151,18 @@ def multicard_split_launches(torch, rows):
             log(f"26(a) K8 {str(dtype)[6:]} P=4 [6144, 256] as {len(split)} launches "
                 f"({label} ranks) on {len(split)} streams of card 0: first and last of "
                 f"{calls[0]} calls {'equal' if first and last else 'NOT equal'} to torch.cat, "
-                f"{ms:.4f} ms per call against {single:.4f} ms as one launch (grid "
-                f"{grid1}); grids {[i[0] for i in info]} of caps {[i[3] for i in info]}, "
-                f"chunks {[i[4] for i in info]}; launches {made}")
+                f"{k8_text(timed)}; against {single['ms']:.4f} ms as one launch and "
+                f"{lib_ms:.4f} ms for 4 torch.cat; grids {[i[0] for i in info]} of caps "
+                f"{[i[3] for i in info]}, chunks {[i[4] for i in info]}; launches {made}")
             assert first and last, f"split K8 {split} {dtype} differs from torch.cat"
             assert made["K8"] == made["K8_split"] == len(split) * calls[0], made
             counted[split] = counted.get(split, 0) + made["K8_split"]
             if dtype == torch.bfloat16:
                 rows[f"K8 split {label}"] = {
-                    "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                    "max_abs_err": 0.0, **timed, "plain_ms": plain_ms,
                     "bound_ms": 1e3 * n_bytes / HBM_BYTES_PER_S, "bound_by": "bytes",
-                    "library_ms": lib_ms, "single_launch_ms": single,
+                    "library_ms": lib_ms, "single_launch_ms": single["ms"],
+                    "single_launch_host_us": single["host_us"],
                     "grids": [i[0] for i in info], "caps": [i[3] for i in info],
                     "shape": f"halo bf16 P=4 block [6144, 256], {len(split)} launches of "
                              f"{label} ranks on streams of one card"}
@@ -4452,6 +4549,30 @@ def _busy_by_card(torch, prof):
     return busy
 
 
+def nccl_gather_timings(torch, blocks, outs, streams):
+    """NCCL's all-gather of ``blocks`` (one on each card, one call over the
+    cards: ``torch.cuda.nccl``): ms per call (``time_streams``), host us per
+    call (100 calls enqueued without a wait), and whether its outputs equal
+    ``outs``."""
+    from torch.cuda import nccl
+
+    shape = (len(blocks) * blocks[0].shape[0],) + tuple(blocks[0].shape[1:])
+    gathered = [torch.empty(shape, dtype=b.dtype, device=b.device) for b in blocks]
+    call = lambda: nccl.all_gather(blocks, gathered)
+    call()
+    for b in blocks:
+        torch.cuda.synchronize(b.device)
+    exact = all(torch.equal(g, o) for g, o in zip(gathered, outs))
+    ms = time_streams(torch, call, streams)
+    t0 = time.perf_counter()
+    for _ in range(100):
+        call()
+    host_us = 1e6 * (time.perf_counter() - t0) / 100
+    for b in blocks:
+        torch.cuda.synchronize(b.device)
+    return ms, host_us, exact
+
+
 def multicard_cards(torch, events, n_cards):
     """26(d), on a host with 2 or more cards: the flagship's ranks (P 4) on
     ``n_cards`` cards.  K8 at P 4 on the halo input with each rank's block on
@@ -4486,45 +4607,33 @@ def multicard_cards(torch, events, n_cards):
     exact = all(torch.equal(o.cpu(), want) for o in outs)
     streams = [torch.cuda.current_stream(d) for d in cards]
     fn = lambda: rg.ring_all_gather(blocks)
-    ms = time_streams(torch, fn, streams)
+    timed = k8_timings(torch, fn, blocks, streams)
     plain_ms = time_streams(torch, lambda: rg.ring_all_gather_plain(blocks), streams)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            fn()
-        for d in cards:
-            torch.cuda.synchronize(d)
-    hits = [ev for ev in prof.key_averages() if PROFILE_TAGS["K8"] in ev.key]
-    n = sum(ev.count for ev in hits)
-    dev_ms = sum(_device_us(ev) for ev in hits) / 1e3 / n if n else None
     block_bytes = 6144 * 256 * 2
     nvlink_ms = 1e3 * (N_PARTS - 1) * block_bytes / 450e9  # each rank receives the others' blocks
     # the library's all-gather of the same blocks: NCCL, one process over the
     # cards, one call (torch.cuda.nccl takes one tensor per card)
-    library_ms = library_exact = None
+    library_ms = library_exact = library_host_us = None
     if len(set(devices)) == N_PARTS:
-        from torch.cuda import nccl
-
-        gathered = [torch.empty((N_PARTS * 6144, 256), dtype=torch.bfloat16, device=d)
-                    for d in devices]
-        nccl.all_gather(blocks, gathered)
-        for d in cards:
-            torch.cuda.synchronize(d)
-        library_exact = all(torch.equal(g, o) for g, o in zip(gathered, outs))
-        library_ms = time_streams(torch, lambda: nccl.all_gather(blocks, gathered), streams)
-        del gathered
+        library_ms, library_host_us, library_exact = nccl_gather_timings(
+            torch, blocks, outs, streams)
+    # the new per-layout path against nothing else: K8 again after NCCL, in turns
+    again = k8_timings(torch, fn, blocks, streams)
     log(f"26(d) K8 bf16 P=4 [6144, 256] over {n_cards} cards (devices {records['devices']}): "
-        f"{'exact' if exact else 'NOT exact'} on every card, {ms:.4f} ms per call, device "
-        f"{dev_ms} ms per launch ({n} launches profiled), plain {plain_ms:.4f} ms (a torch.cat "
-        f"on each card), library {library_ms} ms (torch.cuda.nccl.all_gather, one call over "
-        f"the cards; equal to K8's outputs: {library_exact}); bound {nvlink_ms:.4f} ms over "
-        f"NVLink at 450 GB/s; launches {rg.launch_info(blocks)}")
+        f"{'exact' if exact else 'NOT exact'} on every card, {k8_text(timed)}; again after "
+        f"NCCL {again['ms']:.4f} ms, host {again['host_us']:.1f} us; plain {plain_ms:.4f} ms (a "
+        f"torch.cat on each card), library {library_ms} ms, host {library_host_us} us "
+        f"(torch.cuda.nccl.all_gather, one call over the cards; equal to K8's outputs: "
+        f"{library_exact}); bound {nvlink_ms:.4f} ms over NVLink at 450 GB/s; launches "
+        f"{rg.launch_info(blocks)}")
     assert exact, "K8 over the cards differs from torch.cat"
     assert library_exact in (None, True), "NCCL's all-gather differs from K8's"
-    records["k8_row"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+    records["k8_row"] = {"max_abs_err": 0.0, **timed, "plain_ms": plain_ms,
                          "bound_ms": nvlink_ms, "bound_by": "bytes", "library_ms": library_ms,
+                         "library_host_us": library_host_us, "ms_again": again["ms"],
+                         "host_us_again": again["host_us"],
                          "library": "torch.cuda.nccl.all_gather (one process, one call over "
                                     "the cards)" if library_ms is not None else None,
-                         "device_ms": dev_ms,
                          "shape": f"halo bf16 P=4 block [6144, 256], one rank a card over "
                                   f"{n_cards} cards (NVLink)"}
     del blocks, outs
@@ -4653,6 +4762,12 @@ def multicard_processes(torch, count):
     assert results[1]["parity"]["loss"] == parity["loss"], "26(e): the parity losses differ"
     if parity["loss_rel"] > 1e-4 or parity["worst"] > 1:
         raise AssertionError(f"26(e): the 2-process step differs from one process's: {parity}")
+    for r in results:
+        if "k8" in r:
+            log(f"26(e) process {r['rank']}: K8 bf16 P=2 [12288, 256] over its cards "
+                f"{r['cards']}, exact, {r['k8']['launches']} launches a call: "
+                f"{k8_text(r['k8'])}; NCCL {r['k8']['library_ms']:.4f} ms, host "
+                f"{r['k8']['library_host_us']:.1f} us; bound {r['k8']['bound_ms']:.4f} ms")
     log(f"26(e) processes over nccl on cards {own}: losses equal and states identical at "
         f"both steps; f32 2 + 2 against one process over {reference}: loss rel "
         f"{parity['loss_rel']:.2e}, worst parameter {parity['worst']:.3f} of phase 25's bound, "
@@ -4757,7 +4872,8 @@ def phase_multicard(torch, events):
             "launches_processes": sum(step["launches"]["K8"] for r in records["processes"]
                                       for step in r["flagship"][:2]),
             "launches_processes_counted_in": "phase 26(e): 2 steps in each process, over "
-                                             "its own cards"}
+                                             "its own cards",
+            "processes_k8": [r["k8"] for r in records["processes"] if "k8" in r]}
     return rows, records
 
 

@@ -18,7 +18,9 @@
 // cut into a head (the bytes before the first 16-byte boundary), a bulk span
 // of whole 16-byte units, and a tail.  The bulk span is cut into chunks of
 // kChunk (32 KB) bytes, halved down to kMinChunk while the call has fewer
-// chunks than the card holds blocks; all (rank, chunk) pairs of the call are
+// chunks than the card holds blocks -- or of kMinChunk where a call's
+// launches span several cards: over NVLink the copy ran faster the smaller
+// its chunks, over HBM not (the caller's plan says which); all (rank, chunk) pairs of the call are
 // dealt round the blocks of a persistent grid (one block a SM; block b takes
 // pairs b, b + G, b + 2G, ...), so neither a large P nor a small block leaves
 // SMs idle.  One thread of each block runs a ring of kStages chunk buffers in
@@ -48,20 +50,45 @@
 // pointers -- each rank's input block, output and flag words -- and the range
 // of ranks that its launch serves ([rank0, rank0 + n_local)).  Whether those
 // pointers are allocations of this card or peer-mapped memory of other cards
-// is the caller's business.  The caller makes one launch per card (or per
-// stream of a card), each serving that card's contiguous ranks, on the
-// card's stream: a launch reads only its own ranks' inputs and stores into
-// every rank's output and flags, over NVLink where the rank lies on another
-// card (hgnn_enable_peer_access maps them).  Every launch of a call gets the
-// call's total arrival count (its own blocks plus `other_blocks`), which the
-// caller learns first from plan-only calls of the entry.  The launch is
-// cooperative: the runtime refuses a grid that cannot be resident at once.
-// Where `share` launches of one call share a card, each grid is capped at
-// 1/share of what the card holds, so that all of them fit at once.  The bulk
-// stores reach a peer's memory through its peer-mapped address as they reach
-// the card's own (checked exact over four H100s joined by NVLink).  One set
-// of flag words serves one layout of launches (cards and streams): calls on
-// it are ordered by each stream, and the caller keeps a set per layout.
+// is the caller's business.  A call makes one launch per card (or per stream
+// of a card), each serving that card's contiguous ranks, on the card's
+// stream: a launch reads only its own ranks' inputs and stores into every
+// rank's output and flags, over NVLink where the rank lies on another card
+// (hgnn_enable_peer_access maps them).  The bulk stores reach a peer's memory
+// through its peer-mapped address as they reach the card's own (checked
+// exact over four H100s joined by NVLink).
+//
+// The host side of a call is one C call, whatever the number of launches.
+// A layout (hgnn_k8_layout: each launch's card, stream and rank range, the
+// ranks' flag words and the error word) is made once and kept by the
+// caller with its flags; it holds a ring of kEventSlots events per launch.
+// The cut of a call (the plan: the vector width, each launch's grid and
+// chunk, each rank's head and bulk) depends only on the layout, the block's
+// bytes, what each card holds and the pointers' places against 16 bytes, so
+// the caller plans it once per such key (ring_gather.gather_schedule, the
+// grids capped at what each card holds over the launches that share it) and
+// passes it with every call; the arrival target (the running total of every
+// launch's blocks) follows from it.  hgnn_ring_all_gather checks the plan
+// against the pointers, then issues every launch in one loop -- switching to
+// its card, launching, recording the launch's event in the slot of the
+// call's generation -- and gives the caller's device back.  Launches issued
+// so close together enter close together, which keeps the entry wait short
+// (issued one by one, from Python, a card's grid spins for as long as the
+// host takes to reach the last launch).
+// hgnn_k8_ended reads a call's events: a slot reused by a later call on the
+// same layout reports that call, which the same streams order after it, so
+// the answer errs only towards "not yet".
+//
+// The launches stay cooperative.  All blocks of a grid must be resident at
+// once (block 0 waits for every block's arrival, every block for the peers'
+// entry), and several layouts may run on one card at once (groups on
+// separate streams, the split launches of one call): a plain launch could
+// leave two grids each partly resident and each waiting for the other's SMs.
+// The runtime starts a cooperative grid only whole, and each grid is capped
+// at its share of the card, so every launch of a call fits beside the others.
+// Block 0 of each launch adds the nanoseconds it spun at the entry and the
+// nanoseconds it ran to word kSpinAt and kLaunchAt of its first rank's flags
+// (for measurement; two timer reads and two adds a launch).
 //
 // Synchronisation contract (what carries over from the TPU kernel's barrier
 // semaphore and DMA semaphores):
@@ -94,8 +121,8 @@
 //
 // Bound: memory.  P * block_bytes read, P * P * block_bytes written.
 //
-// Interface to the host: plain C, loaded with ctypes.  The entry launches on
-// the given stream, allocates nothing, and returns cudaGetLastError().
+// Interface to the host: plain C, loaded with ctypes.  The entries allocate
+// no device memory and return a cudaError_t (0 for success).
 
 #include <cuda_runtime.h>
 #include <cstddef>
@@ -113,6 +140,10 @@ constexpr int kStages = 6;                 // chunk buffers in shared memory
 constexpr int kAhead = 3;                  // loads started ahead of the stores
 constexpr int kSmemBytes = kChunk * kStages;
 constexpr int kEnteredAt = 16;   // flags[kEnteredAt + q]: generation rank q entered
+constexpr int kSpinAt = 1;       // flags[kSpinAt] of a launch's first rank: ns spun at the entry
+constexpr int kLaunchAt = 2;     // flags[kLaunchAt]: ns from block 0's start to its end
+constexpr int kEventSlots = 16;  // events per launch of a layout, one per call in flight
+constexpr int kDevices = 64;     // cards a process may use
 constexpr unsigned long long kSpinLimit = 1ull << 25;
 constexpr unsigned long long kEntryTimedOut = 1, kArrivalTimedOut = 2;  // error codes
 
@@ -215,6 +246,8 @@ all_gather_kernel(PeerTable t, int n_ranks, long long block_bytes,
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ int timed_out;
   const int tid = threadIdx.x;
+  const bool timer = blockIdx.x == 0 && tid == 0;
+  const unsigned long long started = timer ? global_ns() : 0;
   const int n_pairs = t.chunk_start[t.n_local];
   const int n_mine = blockIdx.x < n_pairs ? (n_pairs - 1 - blockIdx.x) / gridDim.x + 1 : 0;
   // the offset (within rank r's block) and bytes of this block's j-th pair
@@ -262,6 +295,7 @@ all_gather_kernel(PeerTable t, int n_ranks, long long block_bytes,
     }
     return;
   }
+  if (timer) atomicAdd(t.flags[t.rank0] + kSpinAt, global_ns() - started);
 
   if (tid == 0) {
     // the bulk spans: this block's (rank, chunk) pairs through the ring
@@ -318,139 +352,266 @@ all_gather_kernel(PeerTable t, int n_ranks, long long block_bytes,
   if (blockIdx.x == 0 && tid < t.n_local) {
     wait_for(t, t.flags[t.rank0 + tid], arrivals_target, kArrivalTimedOut);
   }
+  if (blockIdx.x == 0) {
+    __syncthreads();
+    if (timer) atomicAdd(t.flags[t.rank0] + kLaunchAt, global_ns() - started);
+  }
 }
 
-template <typename V>
-int launch(const PeerTable& table, int n_ranks, long long block_bytes, long long vec_units,
-           unsigned long long generation, unsigned long long arrivals_before,
-           long long other_blocks, int share, int device, int* info, bool plan_only,
-           cudaStream_t stream) {
-  const void* kernel = reinterpret_cast<const void*>(&all_gather_kernel<V>);
-  // blocks of this kernel that one device holds at once, asked once per device
-  constexpr int kDevices = 64;
-  static int held[kDevices] = {};
-  if (device < 0 || device >= kDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  cudaError_t err;
-  if (held[device] == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaFuncSetAttribute(all_gather_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+// the kernel's instantiations, by the log2 of their vector's bytes
+const void* const kKernels[] = {
+    reinterpret_cast<const void*>(&all_gather_kernel<uint8_t>),
+    reinterpret_cast<const void*>(&all_gather_kernel<uint16_t>),
+    reinterpret_cast<const void*>(&all_gather_kernel<uint32_t>),
+    reinterpret_cast<const void*>(&all_gather_kernel<uint2>),
+    reinterpret_cast<const void*>(&all_gather_kernel<uint4>)};
+
+int kernel_of(long long vector) {
+  for (int k = 0; k < 5; ++k) {
+    if (vector == (1ll << k)) return k;
+  }
+  return -1;
+}
+
+// blocks of the kernel (every instantiation) that a card holds at once, 0
+// until asked; asking also lets the kernel take the ring's shared memory
+int g_held[kDevices];
+
+cudaError_t prepare(int device) {
+  if (g_held[device]) return cudaSuccess;
+  int sms = 0, least = 1 << 30;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  for (int k = 0; k < 5 && err == cudaSuccess; ++k) {
+    int per_sm = 0;
+    err = cudaFuncSetAttribute(kKernels[k], cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, all_gather_kernel<V>,
-                                                        kThreads, kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    held[device] = per_sm * sms;
-  }
-  // what this launch may hold: the card's share of the launches that share it
-  const int resident = held[device] / share;
-  if (resident < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  // chunks of kChunk bytes, halved (down to kMinChunk) while the pairs are
-  // fewer than the blocks this launch may hold
-  PeerTable t = table;
-  for (t.chunk = kChunk;; t.chunk /= 2) {
-    for (int i = 0; i < t.n_local; ++i) {
-      const long long bulk = t.bulk[t.rank0 + i];
-      t.chunk_start[i + 1] = t.chunk_start[i] + static_cast<int>((bulk + t.chunk - 1) / t.chunk);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kKernels[k], kThreads,
+                                                          kSmemBytes);
     }
-    if (t.chunk <= kMinChunk || t.chunk_start[t.n_local] >= resident) break;
+    if (per_sm < least) least = per_sm;
   }
-  // one block per (rank, chunk) pair, or per kVecBatch vectors of every vector
-  // thread, whichever asks more; at most what this launch may hold
-  const long long n_pairs = t.chunk_start[t.n_local];
-  const long long by_vec = (vec_units + static_cast<long long>(kVecThreads) * kVecBatch - 1) /
-                           (static_cast<long long>(kVecThreads) * kVecBatch);
-  long long want = n_pairs > by_vec ? n_pairs : by_vec;
-  if (want < 1) want = 1;
-  const int blocks = static_cast<int>(want < resident ? want : resident);
-  info[0] = blocks;
-  info[1] = static_cast<int>(sizeof(V));
-  info[2] = static_cast<int>(n_pairs);
-  info[3] = resident;
-  info[4] = t.chunk;
-  if (plan_only) return 0;
-  unsigned long long target = arrivals_before + static_cast<unsigned long long>(other_blocks) +
-                              static_cast<unsigned long long>(blocks);
-  void* args[] = {&t, &n_ranks, &block_bytes, &generation, &target};
-  // the ring at this call's chunk size (the occupancy above is the whole ring's)
-  const size_t smem = static_cast<size_t>(kStages) * t.chunk;
-  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args, smem, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  if (err == cudaSuccess) g_held[device] = least * sms;
+  return err;
+}
+
+// One layout of launches, made once: each launch's card, stream and ranks,
+// the ranks' flag words, the error word, and a ring of events per launch.
+struct Layout {
+  int n_launches, n_ranks;
+  int device[kMaxRanks], rank0[kMaxRanks], n_local[kMaxRanks];
+  cudaStream_t stream[kMaxRanks];
+  cudaEvent_t ended[kMaxRanks][kEventSlots];
+  unsigned long long* flags[kMaxRanks];
+  unsigned long long* error;
+};
+
+void destroy(Layout* layout) {
+  for (int i = 0; i < layout->n_launches; ++i) {
+    if (cudaSetDevice(layout->device[i]) != cudaSuccess) continue;
+    for (int s = 0; s < kEventSlots; ++s) {
+      if (layout->ended[i][s]) cudaEventDestroy(layout->ended[i][s]);
+    }
+  }
+  delete layout;
 }
 
 }  // namespace
 
 extern "C" {
 
-// in/out/flags: host arrays of n_ranks device pointers (an output or flag
-// words on another card: peer-mapped).  Launches ranks [rank0, rank0 +
-// n_local) in one grid on `device`, which must be the current one.
-// generation: this call's number on these flags (1, 2, ...); arrivals_before:
-// what word 0 of every rank's flags holds when all earlier calls have ended;
-// other_blocks: the blocks of the call's other launches; share: the launches
-// of the call on this card; timeout_ns, error: the bound of every wait on a flag and
-// the word (device-visible host memory) a wait that exceeds it sets.
-// info[0] <- blocks (each adds 1 arrival to every rank), info[1] <- bytes per
-// vector of the vector loop, info[2] <- (rank, chunk) pairs of the bulk
-// copies, info[3] <- blocks this launch may hold, info[4] <- bytes per chunk.
-// plan_only: fill info and launch nothing.
-int hgnn_ring_all_gather(const void* const* in, void* const* out, void* const* flags,
-                         int n_ranks, int rank0, int n_local, long long block_bytes,
-                         unsigned long long generation, unsigned long long arrivals_before,
-                         long long other_blocks, int share,
-                         unsigned long long timeout_ns, void* error, int device, int* info,
-                         int plan_only, void* stream) {
-  if (n_ranks < 1 || n_ranks > kMaxRanks || block_bytes < 0 || rank0 < 0 || n_local < 1 ||
-      rank0 + n_local > n_ranks || share < 1 || other_blocks < 0) {
+// Makes the layout of n_launches launches: launch i runs on card devices[i]
+// and stream streams[i] and serves ranks [rank0s[i], rank0s[i] + n_locals[i])
+// of n_ranks, in rank order, each rank on one launch.  flags: n_ranks device
+// pointers to each rank's flag words (peer-mapped where another card holds
+// them); error: device-visible host memory that a wait past its bound sets.
+// held[i] <- blocks of the kernel that launch i's card holds at once;
+// *handle <- the layout (hgnn_k8_layout_free releases it).
+int hgnn_k8_layout(int n_launches, const int* devices, void* const* streams,
+                   const int* rank0s, const int* n_locals, int n_ranks, void* const* flags,
+                   void* error, int* held, void** handle) {
+  *handle = nullptr;
+  if (n_ranks < 1 || n_ranks > kMaxRanks || n_launches < 1 || n_launches > n_ranks) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int next = 0;
+  for (int i = 0; i < n_launches; ++i) {
+    if (devices[i] < 0 || devices[i] >= kDevices || rank0s[i] != next || n_locals[i] < 1) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    next += n_locals[i];
+  }
+  if (next != n_ranks) return static_cast<int>(cudaErrorInvalidValue);
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Layout* layout = new Layout();
+  layout->n_launches = n_launches;
+  layout->n_ranks = n_ranks;
+  layout->error = static_cast<unsigned long long*>(error);
+  for (int r = 0; r < n_ranks; ++r) {
+    layout->flags[r] = static_cast<unsigned long long*>(flags[r]);
+  }
+  for (int i = 0; i < n_launches && err == cudaSuccess; ++i) {
+    layout->device[i] = devices[i];
+    layout->stream[i] = static_cast<cudaStream_t>(streams[i]);
+    layout->rank0[i] = rank0s[i];
+    layout->n_local[i] = n_locals[i];
+    err = cudaSetDevice(devices[i]);
+    if (err == cudaSuccess) err = prepare(devices[i]);
+    held[i] = g_held[devices[i]];
+    for (int s = 0; s < kEventSlots && err == cudaSuccess; ++s) {
+      err = cudaEventCreateWithFlags(&layout->ended[i][s], cudaEventDisableTiming);
+    }
+  }
+  if (err != cudaSuccess) {
+    destroy(layout);
+  } else {
+    *handle = layout;
+  }
+  cudaSetDevice(current);
+  return static_cast<int>(err);
+}
+
+int hgnn_k8_layout_free(void* handle) {
+  if (handle == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  destroy(static_cast<Layout*>(handle));
+  if (err == cudaSuccess) err = cudaSetDevice(current);
+  return static_cast<int>(err);
+}
+
+// One call of K8 on `handle`'s layout: every launch, in one loop.  plan
+// (int64): [0] bytes per vector of the vector loop, [1 + 2i] launch i's grid,
+// [2 + 2i] its chunk bytes, then for every rank r, at 1 + 2 n_launches + 2r,
+// its head and its bulk bytes.  in/out: n_ranks device pointers each (an
+// output on another card: peer-mapped).  generation: this call's number on
+// the layout's flags (1, 2, ...); target: what word 0 of every rank's flags
+// holds once this call's launches have all arrived (the earlier calls'
+// blocks and this call's); timeout_ns: the bound of every wait on a flag.
+// issued[0] <- the launches issued (on an error, those before the failed
+// one: they wait for it until their bound).
+int hgnn_ring_all_gather(void* handle, const long long* plan, const void* const* in,
+                         void* const* out, long long block_bytes,
+                         unsigned long long generation, unsigned long long target,
+                         unsigned long long timeout_ns, int* issued) {
+  issued[0] = 0;
+  const Layout* layout = static_cast<const Layout*>(handle);
+  if (layout == nullptr || block_bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_ranks = layout->n_ranks, n_launches = layout->n_launches;
+  const int kind = kernel_of(plan[0]);
+  if (kind < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t vector = static_cast<uintptr_t>(plan[0]);
+  PeerTable t = {};
+  t.error = layout->error;
+  t.timeout_ns = timeout_ns;
+  uintptr_t bits = static_cast<uintptr_t>(block_bytes);
+  for (int r = 0; r < n_ranks; ++r) {
+    t.in[r] = static_cast<const unsigned char*>(in[r]);
+    t.out[r] = static_cast<unsigned char*>(out[r]);
+    t.flags[r] = layout->flags[r];
+    bits |= reinterpret_cast<uintptr_t>(in[r]) | reinterpret_cast<uintptr_t>(out[r]);
+  }
+  // the plan must fit these pointers (a plan of another key would make a
+  // bulk copy misaligned, and the context unusable): checked before anything
+  // is issued
+  if (bits % vector) return static_cast<int>(cudaErrorInvalidValue);
+  const long long* cut = plan + 1 + 2 * n_launches;
+  for (int r = 0; r < n_ranks; ++r) {
+    const long long head = cut[2 * r], bulk = cut[2 * r + 1];
+    if (head < 0 || bulk < 0 || bulk % 16 || head + bulk > block_bytes) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (bulk > 0) {
+      bool aligned = (reinterpret_cast<uintptr_t>(in[r]) + head) % 16 == 0;
+      for (int q = 0; q < n_ranks; ++q) {
+        aligned = aligned && (reinterpret_cast<uintptr_t>(out[q]) +
+                              static_cast<uintptr_t>(r * block_bytes + head)) % 16 == 0;
+      }
+      if (!aligned) return static_cast<int>(cudaErrorInvalidValue);
+    }
+    t.head[r] = head;
+    t.bulk[r] = bulk;
+  }
+  for (int i = 0; i < n_launches; ++i) {
+    const long long grid = plan[1 + 2 * i], chunk = plan[2 + 2 * i];
+    if (grid < 1 || grid > g_held[layout->device[i]] || chunk < kMinChunk || chunk > kChunk ||
+        chunk % 16) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (current != device) return static_cast<int>(cudaErrorInvalidDevice);
-  PeerTable table = {};
-  table.rank0 = rank0;
-  table.n_local = n_local;
-  table.error = static_cast<unsigned long long*>(error);
-  table.timeout_ns = timeout_ns;
-  uintptr_t bits = static_cast<uintptr_t>(block_bytes);
-  for (int r = 0; r < n_ranks; ++r) {
-    table.in[r] = static_cast<const unsigned char*>(in[r]);
-    table.out[r] = static_cast<unsigned char*>(out[r]);
-    table.flags[r] = static_cast<unsigned long long*>(flags[r]);
-    bits |= reinterpret_cast<uintptr_t>(in[r]) | reinterpret_cast<uintptr_t>(out[r]);
-  }
-  // the cut of each rank's block: a head up to the source's first 16-byte
-  // boundary, whole 16-byte units, a tail -- if every destination sits as the
-  // source does against 16 bytes; else all of it goes through the vector loop
-  long long vec_bytes = 0;
-  for (int r = 0; r < n_ranks; ++r) {
-    const uintptr_t mis = reinterpret_cast<uintptr_t>(in[r]) % 16;
-    bool same = true;
-    for (int q = 0; q < n_ranks; ++q) {
-      const uintptr_t dst = reinterpret_cast<uintptr_t>(out[q]) +
-                            static_cast<uintptr_t>(r) * static_cast<uintptr_t>(block_bytes);
-      same = same && dst % 16 == mis;
+  int device = current;
+  const int slot = static_cast<int>(generation % kEventSlots);
+  for (int i = 0; i < n_launches && err == cudaSuccess; ++i) {
+    t.rank0 = layout->rank0[i];
+    t.n_local = layout->n_local[i];
+    t.chunk = static_cast<int>(plan[2 + 2 * i]);
+    for (int j = 0; j < t.n_local; ++j) {
+      t.chunk_start[j + 1] = t.chunk_start[j] +
+                             static_cast<int>((t.bulk[t.rank0 + j] + t.chunk - 1) / t.chunk);
     }
-    long long head = same ? static_cast<long long>((16 - mis) % 16) : block_bytes;
-    if (head > block_bytes) head = block_bytes;
-    table.head[r] = head;
-    table.bulk[r] = (block_bytes - head) / 16 * 16;
-    // the vector loop's bytes of the ranks this launch serves
-    if (r >= rank0 && r < rank0 + n_local) vec_bytes += block_bytes - table.bulk[r];
+    if (layout->device[i] != device) {
+      err = cudaSetDevice(layout->device[i]);
+      if (err != cudaSuccess) break;
+      device = layout->device[i];
+    }
+    int ranks = n_ranks;
+    long long bytes = block_bytes;
+    void* args[] = {&t, &ranks, &bytes, &generation, &target};
+    // the ring at this launch's chunk size (the occupancy is the whole ring's)
+    err = cudaLaunchCooperativeKernel(kKernels[kind], dim3(static_cast<unsigned>(plan[1 + 2 * i])),
+                                      dim3(kThreads), args,
+                                      static_cast<size_t>(kStages) * t.chunk, layout->stream[i]);
+    if (err == cudaSuccess) err = cudaGetLastError();
+    if (err != cudaSuccess) break;
+    issued[0] = i + 1;
+    err = cudaEventRecord(layout->ended[i][slot], layout->stream[i]);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define HGNN_LAUNCH(V)                                                                    \
-  launch<V>(table, n_ranks, block_bytes, vec_bytes / static_cast<long long>(sizeof(V)), \
-            generation, arrivals_before, other_blocks, share, device, info, plan_only != 0, s)
-  if (bits % 16 == 0) return HGNN_LAUNCH(uint4);
-  if (bits % 8 == 0) return HGNN_LAUNCH(uint2);
-  if (bits % 4 == 0) return HGNN_LAUNCH(uint32_t);
-  if (bits % 2 == 0) return HGNN_LAUNCH(uint16_t);
-  return HGNN_LAUNCH(uint8_t);
-#undef HGNN_LAUNCH
+  if (device != current) {
+    const cudaError_t back = cudaSetDevice(current);
+    if (err == cudaSuccess) err = back;
+  }
+  return static_cast<int>(err);
+}
+
+// Whether the first n_launches launches of call `generation` on the layout
+// have ended: 0 if they have, cudaErrorNotReady if one has not (with `wait`,
+// waits for them instead), another cudaError_t if a query failed.  While the
+// error word is clear one event answers for all: a launch ends only once its
+// ranks' arrival words reach the call's target, and every block of every
+// launch adds to every rank's word after its last store, so no launch of the
+// call touches an input or an output after the first has ended.
+int hgnn_k8_ended(void* handle, unsigned long long generation, int n_launches, int wait) {
+  const Layout* layout = static_cast<const Layout*>(handle);
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int slot = static_cast<int>(generation % kEventSlots);
+  if (!wait && n_launches == layout->n_launches) {
+    err = cudaSetDevice(layout->device[0]);
+    if (err == cudaSuccess) err = cudaEventQuery(layout->ended[0][slot]);
+    if (err == cudaSuccess && *static_cast<volatile unsigned long long*>(layout->error) == 0) {
+      return static_cast<int>(cudaSetDevice(current));
+    }
+    if (err != cudaSuccess) {
+      cudaSetDevice(current);
+      return static_cast<int>(err);
+    }
+  }
+  for (int i = 0; i < n_launches && i < layout->n_launches && err == cudaSuccess; ++i) {
+    err = cudaSetDevice(layout->device[i]);
+    if (err == cudaSuccess) {
+      err = wait ? cudaEventSynchronize(layout->ended[i][slot])
+                 : cudaEventQuery(layout->ended[i][slot]);
+    }
+  }
+  const cudaError_t back = cudaSetDevice(current);
+  if (err == cudaSuccess) err = back;
+  return static_cast<int>(err);
 }
 
 // Lets `device` (the current one) reach `peer`'s memory: 0 if it can now

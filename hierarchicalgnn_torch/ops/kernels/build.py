@@ -59,11 +59,16 @@ SIGNATURES = {
         "hgnn_csr_gather_sum_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
     "ring_gather.cu": {
-        # (in[], out[], flags[], n_ranks, rank0, n_local, block_bytes, generation,
-        #  arrivals_before, other_blocks, share, timeout_ns, error, device, info[5],
-        #  plan_only, stream)
-        "hgnn_ring_all_gather": (_P, _P, _P, _I, _I, _I, _L, _U, _U, _L, _I, _U, _P, _I,
-                                 ctypes.POINTER(_I), _I, _P),
+        # (n_launches, devices[], streams[], rank0s[], n_locals[], n_ranks, flags[],
+        #  error, held[], handle[1])
+        "hgnn_k8_layout": (_I, _P, _P, _P, _P, _I, _P, _P, _P, _P),
+        # (layout)
+        "hgnn_k8_layout_free": (_P,),
+        # (layout, plan[], in[], out[], block_bytes, generation, target, timeout_ns,
+        #  issued[1])
+        "hgnn_ring_all_gather": (_P, _P, _P, _P, _L, _U, _U, _U, _P),
+        # (layout, generation, n_launches, wait)
+        "hgnn_k8_ended": (_P, _U, _I, _I),
         # (device, peer)
         "hgnn_enable_peer_access": (_I, _I),
     },

@@ -28,9 +28,15 @@ The kernel sees its peers only through a table of device pointers and the
 range of ranks its launch serves.  The wrapper groups the ranks by the card
 their block lies on (and, where ``streams`` names them, by stream): the
 ranks of one card must be contiguous, and each group gets ONE cooperative
-launch on its card's stream, issued one after another from the calling
-thread in rank order (:func:`launch_groups`).  Each rank's output and flag
-words are allocated on its own card; a launch stores into the outputs and
+launch on its card's stream (:func:`launch_groups`).  A call is one call
+into the library whatever the number of launches: the library's layout
+(made once per layout, with the flag words) issues every launch in rank
+order from one loop and records its end on an event of its own, and the
+cut of the call (:func:`gather_schedule` for each launch, the grids capped
+at what each card holds over the launches that share it) is planned once
+per layout, block size and placement of the pointers against 16 bytes
+(``_GroupFlags.plan``), the arrival target with it.  Each rank's output and
+flag words are allocated on its own card; a launch stores into the outputs and
 flags of the other cards through peer-mapped pointers, over NVLink (peer
 access is enabled once per ordered pair of cards, :func:`enable_peers`).
 When all ranks share one card and one stream (``parallel/comm.py`` without
@@ -47,8 +53,8 @@ has its own.
 Every wait on a flag is bounded (``TIMEOUT_S``, or the call's
 ``timeout_s``): a launch whose peer never comes writes an error word and
 ends instead of hanging the card.  A call of several launches stays
-pending until an event after each of its launches has passed: until then
-it holds its inputs, outputs and flag words, since a late launch may still
+pending until the library's event after each of its launches has passed:
+until then it holds its inputs, outputs and flag words, since a late launch may still
 write into the outputs of a peer that gave up.  :func:`settle` waits for
 the pending calls and raises for one that timed out (the sharded forward
 calls it before reading its results back); a call on a layout whose error
@@ -84,6 +90,7 @@ import ctypes
 import dataclasses
 import functools
 import threading
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -94,10 +101,12 @@ from hierarchicalgnn_torch.ops.kernels.sorted_agg import (
 
 SOURCE = "ring_gather.cu"
 ENTRY = "hgnn_ring_all_gather"
-PEER_ENTRY = "hgnn_enable_peer_access"
+LAYOUT_ENTRY = "hgnn_k8_layout"
 TIMEOUT_S = 10.0    # the bound of every wait on a flag, by default
 MAX_RANKS = 16      # kMaxRanks of the source
 FLAG_WORDS = 32     # int64 words per rank: [0] arrivals, [16 + q] entered by q
+SPIN_AT, LAUNCH_AT = 1, 2  # words of a launch's first rank: ns spun at the entry, ns run
+NOT_READY = 600     # cudaErrorNotReady
 # the cut of the source's launcher: kChunk, kMinChunk, kStages, kAhead, kVecThreads,
 # kVecBatch
 CHUNK, MIN_CHUNK, STAGES, AHEAD, VEC_THREADS, VEC_BATCH = 32768, 2048, 6, 3, 224, 4
@@ -111,8 +120,9 @@ class GatherSchedule:
     (its tail) for the vector loop again; pair k of the ``n_pairs`` (rank,
     chunk) pairs goes to block ``k % grid``, and each block runs its pairs
     through ``stages`` chunk buffers, ``ahead`` loads ahead of the stores.
-    The chunk is CHUNK bytes, halved down to MIN_CHUNK while the pairs are
-    fewer than the blocks the launch may hold.
+    The chunk is the largest one given (CHUNK; MIN_CHUNK where the call's
+    launches span several cards), halved down to MIN_CHUNK while the pairs
+    are fewer than the blocks the launch may hold.
     The vector loop moves ``vector`` bytes at a time.  ``head`` and ``bulk``
     cover every rank; the launch serves ranks ``rank0`` to ``rank0 + n_local
     - 1``, and only their pairs are in ``n_pairs``."""
@@ -137,12 +147,13 @@ class GatherSchedule:
 
 
 def gather_schedule(block_bytes, in_addrs, out_addrs, resident, rank0=0,
-                    n_local=None) -> GatherSchedule:
+                    n_local=None, chunk=CHUNK) -> GatherSchedule:
     """The cut of the launch that serves ranks ``rank0`` to ``rank0 + n_local
     - 1`` (by default all) of a call over P = len(in_addrs) ranks whose
     blocks start at ``in_addrs`` and whose outputs start at ``out_addrs``;
     the launch may hold ``resident`` blocks at once (what the card holds,
-    over the launches that share it)."""
+    over the launches that share it); its chunks are ``chunk`` bytes at
+    most."""
     n = len(in_addrs)
     n_local = n - rank0 if n_local is None else n_local
     served = range(rank0, rank0 + n_local)
@@ -157,7 +168,6 @@ def gather_schedule(block_bytes, in_addrs, out_addrs, resident, rank0=0,
         h = min((16 - mis) % 16 if same else block_bytes, block_bytes)
         head.append(h)
         bulk.append((block_bytes - h) // 16 * 16)
-    chunk = CHUNK
     while True:
         n_pairs = sum(-(-bulk[r] // chunk) for r in served)
         if chunk <= MIN_CHUNK or n_pairs >= resident:
@@ -196,51 +206,112 @@ def launch_groups(keys) -> tuple:
     return tuple(launches)
 
 
+class _Plan(NamedTuple):
+    """The cut of a call on one layout: ``cuts[i]`` launch i's
+    :class:`GatherSchedule` (capped at ``resident[i]`` blocks), ``table`` the
+    library's form of it (int64: the vector bytes, each launch's grid and
+    chunk, each rank's head and bulk), ``blocks`` the arrivals it adds."""
+
+    cuts: tuple
+    resident: tuple
+    table: object
+    blocks: int
+
+
+def _plan(block_bytes, ins, outs, launches, resident) -> _Plan:
+    # over NVLink the copy ran faster the smaller its chunks, over HBM not (P 4,
+    # [6144, 256] bf16, a launch, scripts/k8_chunks.py: over four H100s 53 us
+    # at 16 KB, 39 at 4 KB, 37 at 2 KB; on one, 28 at 32 KB, 31 at 4 KB)
+    chunk = MIN_CHUNK if len({launch.key[0] for launch in launches}) > 1 else CHUNK
+    cuts = tuple(gather_schedule(block_bytes, ins, outs, cap, launch.rank0, launch.n_local,
+                                 chunk) for launch, cap in zip(launches, resident))
+    first = cuts[0]
+    words = [first.vector, *(x for cut in cuts for x in (cut.grid, cut.chunk)),
+             *(x for r in range(len(ins)) for x in (first.head[r], first.bulk[r]))]
+    return _Plan(cuts, tuple(resident), (ctypes.c_longlong * len(words))(*words),
+                 sum(cut.grid for cut in cuts))
+
+
+def _device_words(launches):
+    """Each rank's flag words on its launch's card (zeroed, the cards
+    synchronised before the first call), peer access between the launches'
+    cards, and the error word (host memory the cards write).  Returns (the
+    ranks' words, the error word)."""
+    rows = []
+    for launch in launches:
+        words = torch.zeros((launch.n_local, FLAG_WORDS), dtype=torch.int64,
+                            device=torch.device("cuda", launch.key[0]))
+        rows += list(words.unbind(0))
+    cards = [launch.key[0] for launch in launches]
+    for device in set(cards):
+        torch.cuda.synchronize(device)
+    if len(set(cards)) > 1:
+        enable_peers(cards)
+    return rows, torch.zeros(1, dtype=torch.int64).pin_memory()
+
+
 class _GroupFlags:
-    """The flag words of one layout of ``launches`` (each rank's words on its
-    launch's card), the host's copy of what they hold once every call so far
-    has ended, and the error word (host memory the cards write) that a wait
-    past its bound sets.  Each launch's stream orders the calls that share
-    them; the words are zeroed, and the cards synchronised, before the
-    first.  Layouts on other streams have words of their own, so their
-    arrival counts cannot mix.  ``info[i]`` receives launch i's cut of the
-    last call (blocks, vector bytes, bulk pairs, blocks the launch may hold,
-    chunk bytes)."""
+    """One layout of ``launches``: the flag words of its ranks
+    (:func:`_device_words`), the host's copy of what they hold once every
+    call so far has ended, the error word that a wait past its bound sets,
+    the library's layout (``handle``: each launch's card, stream and ranks,
+    its events) and the cuts planned for it.  Each launch's stream orders
+    the calls that share them; layouts on other streams have words of their
+    own, so their arrival counts cannot mix.  ``last`` is the plan of the
+    last call."""
 
     def __init__(self, launches):
-        rows = []
-        for launch in launches:
-            words = torch.zeros((launch.n_local, FLAG_WORDS), dtype=torch.int64,
-                                device=torch.device("cuda", launch.key[0]))
-            rows += list(words.unbind(0))
-        for device in {launch.key[0] for launch in launches}:
-            torch.cuda.synchronize(device)
-        self.words = rows
-        self.pointers = (ctypes.c_void_p * len(rows))(*(w.data_ptr() for w in rows))
-        self.error = torch.zeros(1, dtype=torch.int64).pin_memory()
+        self.launches = launches
+        self.words, self.error = _device_words(launches)
         self.error_word = self.error.numpy()  # read without a device call
-        self.error_ptr = self.error.data_ptr()
+        n, ints = len(launches), ctypes.c_int * len(launches)
+        held, handle = ints(), (ctypes.c_void_p * 1)()
+        lib = _library()
+        _raise_on(lib.hgnn_k8_layout(
+            n, ints(*(launch.key[0] for launch in launches)),
+            (ctypes.c_void_p * n)(*(launch.key[1] for launch in launches)),
+            ints(*(launch.rank0 for launch in launches)),
+            ints(*(launch.n_local for launch in launches)), len(self.words),
+            _table(len(self.words))(*(w.data_ptr() for w in self.words)),
+            self.error.data_ptr(), held, handle), LAYOUT_ENTRY)
+        self.handle = handle[0]
+        weakref.finalize(self, lib.hgnn_k8_layout_free, self.handle).atexit = False
         cards = [launch.key[0] for launch in launches]
-        if len(set(cards)) > 1:
-            enable_peers(cards)
-        self.share = [cards.count(card) for card in cards]  # launches on each one's card
+        self.devices = [torch.device("cuda", card) for card in cards]
+        # the call's pointer tables and issued count, filled under the lock
+        self.ins, self.outs = _table(len(self.words))(), _table(len(self.words))()
+        self.issued = (ctypes.c_int * 1)()
+        # what each launch may hold: its card's blocks over the launches sharing it
+        self.resident = [h // cards.count(card) for h, card in zip(held, cards)]
+        self.plans = {}
+        self.last = None
         self.generation = 0
         self.arrivals = 0
-        self.info = [(ctypes.c_int * 5)() for _ in launches]
         self.lock = threading.Lock()
         self.retired = False  # its error raised once
 
+    def plan(self, block_bytes, ins, outs) -> _Plan:
+        """The cut of a call whose blocks start at ``ins`` and outputs at
+        ``outs``: planned at the first call of its key (it depends on the
+        addresses only through their places against 16 bytes)."""
+        key = (block_bytes, *[a & 15 for a in ins], *[a & 15 for a in outs])
+        found = self.plans.get(key)
+        if found is None:
+            found = self.plans[key] = _plan(block_bytes, ins, outs, self.launches,
+                                            self.resident)
+        return found
+
 
 class _Call(NamedTuple):
-    """A call of several launches still in flight: its layout, its flags, an
-    event after each launch on the launch's stream, and its inputs and
-    outputs, kept referenced until every launch has ended (a launch writes
-    into other cards' or streams' outputs, which their allocators do not
-    know of; a late one may still write after its peer gave up)."""
+    """A call of several launches still in flight: its flags, its
+    generation, the launches issued, and its inputs and outputs, kept
+    referenced until every launch has ended (a launch writes into other
+    cards' or streams' outputs, which their allocators do not know of; a late
+    one may still write after its peer gave up)."""
 
-    launches: tuple
     flags: _GroupFlags
-    ended: list
+    generation: int
+    issued: int
     tensors: list
 
 
@@ -260,33 +331,20 @@ def _group_flags(launches) -> _GroupFlags:
     return flags
 
 
-def _retire(launches, flags):
+def _retire(flags):
     """Take ``flags`` out of use after a wait past its bound or a failed
-    launch: the next call on ``launches`` gets fresh ones (a pending call
+    launch: the next call on its layout gets fresh ones (a pending call
     that ran on them keeps them alive until its launches have ended), and
     their error is raised once.  Returns the error to raise."""
     with _FLAGS_LOCK:
-        if _FLAGS.get(launches) is flags:
-            del _FLAGS[launches]
+        if _FLAGS.get(flags.launches) is flags:
+            del _FLAGS[flags.launches]
     flags.retired = True
     return RuntimeError(
-        f"K8 over {[(l.key, l.rank0, l.n_local) for l in launches]}: a wait on a flag "
+        f"K8 over {[(l.key, l.rank0, l.n_local) for l in flags.launches]}: a wait on a flag "
         f"outlasted its bound (error {int(flags.error_word[0])}: 1 a peer never entered, "
         f"2 a peer's bytes never arrived); its flags are retired, the next call starts on "
         f"fresh ones")
-
-
-def _track(launches, flags, issued, tensors):
-    """Keep the call whose first ``issued`` launches are on their streams
-    pending until they have ended."""
-    ended = []
-    for launch in launches[:issued]:
-        card, stream = launch.key
-        event = torch.cuda.Event()
-        event.record(torch.cuda.ExternalStream(stream, device=torch.device("cuda", card)))
-        ended.append(event)
-    with _FLAGS_LOCK:
-        _PENDING.append(_Call(launches, flags, ended, tensors))
 
 
 def _reap(wait: bool):
@@ -297,17 +355,17 @@ def _reap(wait: bool):
         calls = list(_PENDING)
     done = 0
     for call in calls:
-        if wait:
-            for event in call.ended:
-                event.synchronize()
-        elif not all(event.query() for event in call.ended):
+        rc = _library().hgnn_k8_ended(call.flags.handle, call.generation, call.issued,
+                                      int(wait))
+        if rc == NOT_READY:
             break
+        _raise_on(rc, "hgnn_k8_ended")
         done += 1
     with _FLAGS_LOCK:
         del _PENDING[:done]
-    failed = {call.launches: call.flags for call in calls[:done]
+    failed = {id(call.flags): call.flags for call in calls[:done]
               if call.flags.error_word[0] and not call.flags.retired}
-    errors = [_retire(launches, flags) for launches, flags in failed.items()]
+    errors = [_retire(flags) for flags in failed.values()]
     if errors:
         raise errors[0]
 
@@ -330,15 +388,19 @@ def enable_peers(devices):
             if a == b or (a, b) in _PEERS:
                 continue
             with torch.cuda.device(a):
-                rc = getattr(library(SOURCE), PEER_ENTRY)(a, b)
+                rc = _library().hgnn_enable_peer_access(a, b)
             if rc:
                 raise RuntimeError(f"card {a} cannot reach card {b}'s memory: cudaError {rc}")
             _PEERS.add((a, b))
 
 
 @functools.cache
+def _library():
+    return library(SOURCE)
+
+
 def _entry():
-    return getattr(library(SOURCE), ENTRY)
+    return getattr(_library(), ENTRY)
 
 
 @functools.cache
@@ -464,6 +526,23 @@ def _check_blocks(blocks):
         raise ValueError(f"{len(blocks)} ranks, the kernel's table holds {MAX_RANKS}")
 
 
+def _on_stream(stream, fn, *args):
+    """``fn(*args)`` with ``stream`` current on its card and the caller's
+    card and streams as they were after (the raw setters: a
+    ``torch.cuda.stream`` context costs more than the allocation it
+    orders)."""
+    device = torch._C._cuda_getDevice()
+    before = torch._C._cuda_getCurrentStream(stream.device_index)
+    torch._C._cuda_setStream(stream_id=stream.stream_id, device_index=stream.device_index,
+                             device_type=stream.device_type)
+    out = fn(*args)
+    torch._C._cuda_setStream(stream_id=before[0], device_index=before[1],
+                             device_type=before[2])
+    if torch._C._cuda_getDevice() != device:
+        torch._C._cuda_setDevice(device)
+    return out
+
+
 def _outputs(first, n_ranks, count=None, device=None):
     """``count`` (by default P) outputs of ``[P * B, ...]`` on ``device`` (by
     default ``first``'s) in one allocation, each starting on a 16-byte
@@ -474,7 +553,9 @@ def _outputs(first, n_ranks, count=None, device=None):
     shape = (n_ranks * first.shape[0],) + tuple(first.shape[1:])
     nbytes = n_ranks * first.numel() * first.element_size()
     if nbytes % 16 == 0:
-        return list(first.new_empty((count,) + shape, device=device).unbind(0))
+        if count == 1:  # one rank on the card: no views to cut
+            return [torch.empty(shape, dtype=first.dtype, device=device)]
+        return list(torch.empty((count,) + shape, dtype=first.dtype, device=device).unbind(0))
     stride = -(-nbytes // 16) * 16 // first.element_size()
     flat = first.new_empty(count * stride, device=device)
     size = n_ranks * first.numel()
@@ -487,8 +568,8 @@ def _layout(blocks, streams=None):
         device = blocks[0].get_device()
         if all(b.get_device() == device for b in blocks):
             return _one_launch(device, _stream(blocks[0]), len(blocks))
-        return launch_groups([(b.get_device(), _stream(b)) for b in blocks])
-    return launch_groups([(b.get_device(), s.cuda_stream) for b, s in zip(blocks, streams)])
+        return _grouped(tuple((b.get_device(), _stream(b)) for b in blocks))
+    return _grouped(tuple((b.get_device(), s.cuda_stream) for b, s in zip(blocks, streams)))
 
 
 @functools.cache
@@ -497,11 +578,28 @@ def _one_launch(device, stream, n_ranks):
     return (Launch((device, stream), 0, n_ranks),)
 
 
+@functools.cache
+def _grouped(keys):
+    return launch_groups(keys)
+
+
 def launch_info(blocks, streams=None):
-    """The launchers' cut of the last call on ``blocks``' layout (as
+    """The cut of the last call on ``blocks``' layout (as
     :func:`ring_all_gather` takes them), one tuple per launch: (blocks,
     vector bytes, bulk pairs, blocks the launch may hold, chunk bytes)."""
-    return [tuple(info) for info in _group_flags(_layout(blocks, streams)).info]
+    plan = _group_flags(_layout(blocks, streams)).last
+    return [(cut.grid, cut.vector, cut.n_pairs, resident, cut.chunk)
+            for cut, resident in zip(plan.cuts, plan.resident)]
+
+
+def launch_stats(blocks, streams=None):
+    """What block 0 of each launch of ``blocks``' layout measured, summed
+    over the calls so far: (ns spun at the entry, ns from its start to its
+    end), one tuple per launch.  Call it with the layout's cards
+    synchronised."""
+    flags = _group_flags(_layout(blocks, streams))
+    return [tuple(flags.words[launch.rank0][SPIN_AT:LAUNCH_AT + 1].tolist())
+            for launch in flags.launches]
 
 
 def ring_all_gather(blocks, streams=None, timeout_s=None):
@@ -526,54 +624,46 @@ def ring_all_gather(blocks, streams=None, timeout_s=None):
         return ring_all_gather_plain(blocks)
     _check_blocks(blocks)
     first, n_ranks = blocks[0], len(blocks)
-    launches = _layout(blocks, streams)
-    flags = _group_flags(launches)
-    current = torch.cuda.current_device()
-    if len(launches) == 1 and launches[0].key[0] == current:
+    flags = _group_flags(_layout(blocks, streams))
+    launches = flags.launches
+    if len(launches) == 1 and launches[0].key[0] == torch.cuda.current_device():
         outs = _outputs(first, n_ranks)
-    else:
+    elif streams is None:  # each card's outputs, on its current stream
         outs = []
-        for launch in launches:  # each card's outputs, on the stream of its launch
-            device = torch.device("cuda", launch.key[0])
-            with (contextlib.nullcontext() if streams is None
-                  else torch.cuda.stream(streams[launch.rank0])):
-                outs += _outputs(first, n_ranks, launch.n_local, device)
-    table = _table(n_ranks)
-    ins, outs_t = table(*[b.data_ptr() for b in blocks]), table(*[o.data_ptr() for o in outs])
+        for launch, device in zip(launches, flags.devices):
+            outs += _outputs(first, n_ranks, launch.n_local, device)
+    else:  # ... on the stream of its launch
+        outs = []
+        for launch, device in zip(launches, flags.devices):
+            outs += _on_stream(streams[launch.rank0], _outputs, first, n_ranks, launch.n_local,
+                               device)
+    ins, outs_at = [b.data_ptr() for b in blocks], [o.data_ptr() for o in outs]
     nbytes = first.numel() * first.element_size()
+    plan = flags.plan(nbytes, ins, outs_at)
     timeout_ns = int(1e9 * (TIMEOUT_S if timeout_s is None else timeout_s))
-    if len(launches) > 1:
+    if _PENDING:
         _reap(wait=False)
     with flags.lock:
         if flags.error_word[0]:
-            raise _retire(launches, flags)
-
-        def call(i, others, plan_only):
-            launch = launches[i]
-            card, stream = launch.key
-            with (contextlib.nullcontext() if card == current else torch.cuda.device(card)):
-                return _entry()(
-                    ins, outs_t, flags.pointers, n_ranks, launch.rank0, launch.n_local, nbytes,
-                    flags.generation + 1, flags.arrivals, others, flags.share[i], timeout_ns,
-                    flags.error_ptr, card, flags.info[i], plan_only, stream)
-
-        grids = [0] * len(launches)
-        if len(launches) > 1:  # every launch's target counts every launch's blocks
-            for i in range(len(launches)):
-                _raise_on(call(i, 0, 1), ENTRY)
-                grids[i] = flags.info[i][0]
-        for i in range(len(launches)):
-            rc = call(i, sum(grids) - grids[i], 0)
-            if rc and i:  # the launches already issued wait for this one until their bound
-                _track(launches, flags, i, blocks + outs)
-                _retire(launches, flags)  # the launch's failure is raised instead
-            _raise_on(rc, ENTRY)
-            with COUNT_LOCK:
+            raise _retire(flags)
+        # one call into the library: every launch, with the plan and the arrival target
+        flags.ins[:], flags.outs[:] = ins, outs_at
+        rc = _entry()(flags.handle, plan.table, flags.ins, flags.outs, nbytes,
+                      flags.generation + 1, flags.arrivals + plan.blocks, timeout_ns,
+                      flags.issued)
+        issued = flags.issued[0]
+        with COUNT_LOCK:
+            for _ in range(issued):  # one for each launch the library issued
                 LAUNCHES["K8"] += 1
                 if len(launches) > 1:
                     LAUNCHES["K8_split"] += 1
-        if len(launches) > 1:
-            _track(launches, flags, len(launches), blocks + outs)
+        if len(launches) > 1 and issued:  # pending until its launches have ended
+            with _FLAGS_LOCK:
+                _PENDING.append(_Call(flags, flags.generation + 1, issued, blocks + outs))
+        if rc and issued:  # those issued wait for the others until their bound
+            _retire(flags)  # the launch's failure is raised instead
+        _raise_on(rc, ENTRY)
         flags.generation += 1
-        flags.arrivals += sum(info[0] for info in flags.info)
+        flags.arrivals += plan.blocks
+        flags.last = plan
     return outs

@@ -55,38 +55,68 @@ def top2_entry(a, prices):
     return lambda: entry(*args)
 
 
-_ERROR = []  # the error word of the bare calls (device-visible host memory)
-
-
-def one_launch(lib, ins, outs, flags, n, n_bytes, generation, arrivals, info, stream):
-    """K8's C entry as one launch for all ``n`` ranks of card 0, with a bound
-    of 10 s on its waits (the wrapper's single-card call)."""
-    if not _ERROR:
-        _ERROR.append(torch.zeros(1, dtype=torch.int64).pin_memory())
-    return lib.hgnn_ring_all_gather(ins, outs, flags, n, 0, n, n_bytes, generation, arrivals,
-                                    0, 1, int(rg.TIMEOUT_S * 1e9), _ERROR[0].data_ptr(), 0,
-                                    info, 0, stream)
-
-
 def gather_entry(blocks):
-    """A bare call of K8's C entry on outputs and pointer tables made once;
-    the flag words' generation and arrival count move as the wrapper moves
-    them, so the calls stay in step with the wrapper's."""
+    """A bare call of K8's C entry on outputs, pointer tables and a plan made
+    once; the flag words' generation and arrival count move as the wrapper
+    moves them, so the calls stay in step with the wrapper's."""
     n = len(blocks)
     outs = rg._outputs(blocks[0], n)
-    stream = rg._stream(blocks[0])
     flags = rg._group_flags(rg._layout(blocks))
     table = rg._table(n)
-    ins, outs_p = table(*(b.data_ptr() for b in blocks)), table(*(o.data_ptr() for o in outs))
-    lib = rg.library(rg.SOURCE)
+    ins, outs_at = [b.data_ptr() for b in blocks], [o.data_ptr() for o in outs]
     n_bytes = blocks[0].numel() * blocks[0].element_size()
+    plan = flags.plan(n_bytes, ins, outs_at)
+    args = (flags.handle, plan.table, table(*ins), table(*outs_at), n_bytes)
+    timeout_ns, issued, entry = int(rg.TIMEOUT_S * 1e9), (ctypes.c_int * 1)(), rg._entry()
 
     def call():
-        rc = one_launch(lib, ins, outs_p, flags.pointers, n, n_bytes, flags.generation + 1,
-                        flags.arrivals, flags.info[0], stream)
+        rc = entry(*args, flags.generation + 1, flags.arrivals + plan.blocks, timeout_ns,
+                   issued)
         assert rc == 0, rc
         flags.generation += 1
-        flags.arrivals += flags.info[0][0]
+        flags.arrivals += plan.blocks
+    return call
+
+
+def variant_call(lib, blocks, outs, consts=None):
+    """K8 through the C entries of ``lib`` (a variant's library) as one
+    launch for all ranks of the blocks' card, on a layout and flag words of
+    its own, the plan made by ``gather_schedule`` with ``consts`` (CHUNK,
+    MIN_CHUNK) in place of the package's.  Returns the call; ``call.cut`` is
+    its cut and ``call.resident`` the blocks the card holds."""
+    n = len(blocks)
+    device = blocks[0].get_device()
+    words = torch.zeros((n, rg.FLAG_WORDS), dtype=torch.int64, device=blocks[0].device)
+    torch.cuda.synchronize()
+    error = torch.zeros(1, dtype=torch.int64).pin_memory()
+    ints = ctypes.c_int * 1
+    held, handle = ints(), (ctypes.c_void_p * 1)()
+    table = rg._table(n)
+    rc = lib.hgnn_k8_layout(1, ints(device), (ctypes.c_void_p * 1)(rg._stream(blocks[0])),
+                            ints(0), ints(n), n, table(*(w.data_ptr() for w in words)),
+                            error.data_ptr(), held, handle)
+    assert rc == 0, rc
+    ins, outs_at = [b.data_ptr() for b in blocks], [o.data_ptr() for o in outs]
+    n_bytes = blocks[0].numel() * blocks[0].element_size()
+    saved = {k: getattr(rg, k) for k in (consts or {})}
+    try:
+        for k, v in (consts or {}).items():
+            setattr(rg, k, v)
+        plan = rg._plan(n_bytes, ins, outs_at, rg._layout(blocks), [held[0]])
+    finally:
+        for k, v in saved.items():
+            setattr(rg, k, v)
+    args = (handle[0], plan.table, table(*ins), table(*outs_at), n_bytes)
+    state = {"gen": 0, "arr": 0}
+    issued = ints()
+
+    def call():
+        rc = lib.hgnn_ring_all_gather(*args, state["gen"] + 1, state["arr"] + plan.blocks,
+                                      int(rg.TIMEOUT_S * 1e9), issued)
+        assert rc == 0, rc
+        state["gen"] += 1
+        state["arr"] += plan.blocks
+    call.cut, call.resident, call.keep = plan.cuts[0], held[0], (words, error)
     return call
 
 
@@ -145,6 +175,9 @@ def main():
         for ch, st, ah, least in ((32768, 6, 3, 2048), (16384, 8, 4, 2048), (32768, 6, 3, 8192),
                                   (32768, 4, 2, 2048), (32768, 6, 4, 2048),
                                   (16384, 12, 6, 2048))])
+    # the cut is planned in Python: each variant's chunk sizes, for gather_schedule
+    k8_cuts = {label: {"CHUNK": int(label.split()[1]), "MIN_CHUNK": int(label.split()[-1])}
+               for label in k8_variants}
     tag6, tag8 = c.PROFILE_TAGS["K6"], c.PROFILE_TAGS["K8"]
     for p, label in ((4096, "full sweep"), (256, "tail sweep")):
         a = torch.rand(p, cols, generator=gen) * 40.0
@@ -186,7 +219,6 @@ def main():
         want = torch.cat(blocks, 0)
         assert all(torch.equal(o, want) for o in fn())
         found = c.device_ms(torch, fn, (tag8,))[tag8]
-        stream = rg._stream(blocks[0])
         outs = rg._outputs(blocks[0], p)
         table = rg._table(p)
         host = {"wrapper": host_us(fn), "ctypes entry": host_us(gather_entry(blocks)),
@@ -208,26 +240,14 @@ def main():
         print(f"  the same {p * p * b * 512} bytes written: " + ", ".join(
             f"{k} {dev_ms(f, '')} ms" for k, f in rates.items()),
             flush=True)
-        n_bytes = b * 256 * 2
         for vlabel, lib in k8_variants.items():
-            words = torch.zeros((p, rg.FLAG_WORDS), dtype=torch.int64, device=dev)
-            state = {"gen": 0, "arr": 0}
-            info = (ctypes.c_int * 5)()
-            fl = (ctypes.c_void_p * p)(*(words[r].data_ptr() for r in range(p)))
-            ins = table(*[x.data_ptr() for x in blocks])
-            outp = table(*[o.data_ptr() for o in outs])
-
-            def call(lib=lib, ins=ins, outp=outp, fl=fl, info=info, state=state):
-                rc = one_launch(lib, ins, outp, fl, p, n_bytes, state["gen"] + 1,
-                                state["arr"], info, stream)
-                assert rc == 0, rc
-                state["gen"] += 1
-                state["arr"] += info[0]
+            call = variant_call(lib, blocks, outs, k8_cuts[vlabel])
             call()
             torch.cuda.synchronize()
             assert all(torch.equal(o, want) for o in outs), vlabel
             print(f"  variant {vlabel}: device_ms {dev_ms(call, tag8)} "
-                  f"(grid {info[0]}, resident {info[3]}, chunk {info[4]})", flush=True)
+                  f"(grid {call.cut.grid}, resident {call.resident}, chunk {call.cut.chunk})",
+                  flush=True)
 
     # what the fixed cost of a call is made of: the kernel with parts of its
     # synchronisation contract taken out (for this measurement only; each is
@@ -237,38 +257,24 @@ def main():
              "timed_out = 1;")
     fence = "    __threadfence_system();\n    red_release_sys_add"
     exit_ = "  if (blockIdx.x == 0 && tid < t.n_local) {\n    wait_for("
-    coop = "cudaLaunchCooperativeKernel(kernel"
+    coop = "cudaLaunchCooperativeKernel(kKernels[kind]"
     parts = variants("ring_gather.cu", [
         {"label": "as shipped"},
         {"label": "no entry wait", entry: ";"},
         {"label": "no fence before the arrival", fence: "    red_release_sys_add"},
         {"label": "no exit wait", exit_: "  if (false) {\n    wait_for("},
-        {"label": "a plain launch", coop: "cudaLaunchKernel(kernel"},
+        {"label": "a plain launch", coop: "cudaLaunchKernel(kKernels[kind]"},
         {"label": "none of the four", entry: ";", fence: "    red_release_sys_add",
-         exit_: "  if (false) {\n    wait_for(", coop: "cudaLaunchKernel(kernel"},
+         exit_: "  if (false) {\n    wait_for(", coop: "cudaLaunchKernel(kKernels[kind]"},
         {"label": "the whole ring of shared memory at every chunk size",
-         "args, smem, stream": "args, kSmemBytes, stream"}])
+         "static_cast<size_t>(kStages) * t.chunk,": "kSmemBytes,"}])
     for shape, dtype in (((3,), torch.bool), ((768, 128), torch.bfloat16),
                          ((6144, 256), torch.bfloat16)):
         blocks = [torch.randn(shape, generator=gen).to(dev, dtype) for _ in range(4)]
         outs = rg._outputs(blocks[0], 4)
         want = torch.cat(blocks, 0)
-        table = rg._table(4)
         for vlabel, lib in parts.items():
-            words = torch.zeros((4, rg.FLAG_WORDS), dtype=torch.int64, device=dev)
-            state = {"gen": 0, "arr": 0}
-            info = (ctypes.c_int * 5)()
-            fl = (ctypes.c_void_p * 4)(*(words[r].data_ptr() for r in range(4)))
-            ins, outp = table(*[x.data_ptr() for x in blocks]), table(*[o.data_ptr() for o in outs])
-            stream = rg._stream(blocks[0])
-
-            def call(lib=lib, ins=ins, outp=outp, fl=fl, info=info, state=state,
-                     n_bytes=blocks[0].numel() * blocks[0].element_size()):
-                rc = one_launch(lib, ins, outp, fl, 4, n_bytes, state["gen"] + 1,
-                                state["arr"], info, stream)
-                assert rc == 0, rc
-                state["gen"] += 1
-                state["arr"] += info[0]
+            call = variant_call(lib, blocks, outs)
             call()
             torch.cuda.synchronize()
             assert all(torch.equal(o, want) for o in outs), vlabel

@@ -328,7 +328,8 @@ def test_sources_use_the_designs_instructions():
     """K8 moves the aligned bytes with bulk loads and stores through shared
     memory, on mbarriers, and waits for the stores to complete before its
     release; K6 reads aligned rows with float4 loads.  The launchers' cut
-    constants are the Python schedules'."""
+    constants are the Python schedules'.  A call's launches are issued from
+    one loop of the library, each with the event that records its end."""
     ring = (build.CSRC_DIR / "ring_gather.cu").read_text()
     for needle in ("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes",
                    "cp.async.bulk.global.shared::cta.bulk_group",
@@ -336,8 +337,15 @@ def test_sources_use_the_designs_instructions():
                    "cp.async.bulk.wait_group 0", "mbarrier.arrive.expect_tx",
                    "mbarrier.try_wait.parity", "fence.mbarrier_init.release.cluster",
                    "fence.proxy.async.global", "cudaFuncAttributeMaxDynamicSharedMemorySize",
-                   "cudaLaunchCooperativeKernel", "red.release.sys", "ld.acquire.sys"):
+                   "cudaLaunchCooperativeKernel", "red.release.sys", "ld.acquire.sys",
+                   "cudaEventRecord", "cudaEventQuery", "cudaEventSynchronize",
+                   "cudaSetDevice"):
         assert needle in ring, needle
+    # one loop issues every launch of a call, each followed by its event
+    loop = ring[ring.index("int hgnn_ring_all_gather("):ring.index("int hgnn_k8_ended(")]
+    assert loop.count("for (int i = 0; i < n_launches") == 2  # the plan's check, the launches
+    assert (loop.index("cudaLaunchCooperativeKernel(") < loop.index("cudaEventRecord(")
+            < loop.index("cudaSetDevice(current)"))
     for name, value in (("kChunk", rg.CHUNK), ("kMinChunk", rg.MIN_CHUNK), ("kStages", rg.STAGES),
                         ("kAhead", rg.AHEAD), ("kVecBatch", rg.VEC_BATCH)):
         assert re.search(rf"constexpr int {name} = {value};", ring), name
