@@ -1,0 +1,7 @@
+"""Auction rounds launched a training step (Trainer.last_stats)."""
+
+from portbench.harness import readers
+
+
+def read(rec):
+    return readers.mean_counter(rec, "train", "auction_rounds")
