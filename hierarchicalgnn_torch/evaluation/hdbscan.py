@@ -68,8 +68,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hierarchicalgnn_torch.ops.connected import count_host_sync
 from hierarchicalgnn_torch.ops.kernels.hdbscan import core_distances, prim_mst
+from hierarchicalgnn_torch.utils.profiling import host_read
 
 # sklearn's MST_edge_dtype (_linkage.pyx:47): the array whose "distance"
 # field _process_mst argsorts
@@ -98,13 +98,14 @@ def hdbscan_labels(x, min_cluster_size: int, stats=None) -> np.ndarray:
         raise ValueError(f"HDBSCAN needs more than one sample, got {n}")
     if k > n:
         raise ValueError(f"min_samples ({k}) must be in [1, {n}], the number of samples")
-    count_host_sync(stats)
-    if not bool(torch.isfinite(x).all()):
+    with host_read(stats):
+        finite = bool(torch.isfinite(x).all())
+    if not finite:
         raise ValueError("x has non-finite values")
     x = x.contiguous()
     src, dst, dist = prim_mst(x, core_distances(x, k))
-    edges = torch.stack((src, dst, dist.view(torch.int64))).cpu().numpy()  # one copy
-    count_host_sync(stats)
+    with host_read(stats):
+        edges = torch.stack((src, dst, dist.view(torch.int64))).cpu().numpy()  # one copy
     return labels_from_mst(edges[0], edges[1], edges[2].view(np.float64), min_cluster_size)
 
 

@@ -30,7 +30,7 @@ import torch
 from torch import nn
 
 from hierarchicalgnn_torch.ops import gmm as gmm_ops
-from hierarchicalgnn_torch.ops.connected import cluster_labels_sorted, count_host_sync
+from hierarchicalgnn_torch.ops.connected import cluster_labels_sorted
 from hierarchicalgnn_torch.ops.graph import Graph
 from hierarchicalgnn_torch.ops.kernels.sorted_agg import (
     build_sorted_plan, build_transposed_plan, cross_permutation,
@@ -47,6 +47,7 @@ from hierarchicalgnn_torch.models.dynamic_graph import DynamicGraphConstruction
 from hierarchicalgnn_torch.models.mlp import MLP, MatchDims
 from hierarchicalgnn_torch.utils.config import ArchConfig
 from hierarchicalgnn_torch.utils.device import torch_dtype
+from hierarchicalgnn_torch.utils.profiling import host_read, span
 
 
 def l2_normalize(x, dim=-1, eps=1e-12):
@@ -223,8 +224,9 @@ class HierarchicalGNNBlock(nn.Module):
             sc = torch.where(valid, 0.95 * sc + (1 - 0.95) * cut, sc)
             write_buffer(self.score_cut, sc[None])
         else:
-            count_host_sync(stats)
-            if bool(torch.isinf(sc)):
+            with host_read(stats):
+                unset = bool(torch.isinf(sc))
+            if unset:
                 # eval cuts at the buffer value; solve_cut only feeds the
                 # training EMA, so eval fits the GMM for its means alone
                 sc = torch.mean(fit_gmm().means)
@@ -240,8 +242,9 @@ class HierarchicalGNNBlock(nn.Module):
                 clusters, n_clusters = cluster_labels_sorted(
                     plan, mask, n, min_cluster_size=cfg.min_cluster_size,
                     node_mask=node_mask, stats=stats)
-            count_host_sync(stats)
-            return clusters, int(n_clusters)
+            with host_read(stats):
+                n_clusters = int(n_clusters)
+            return clusters, n_clusters
 
         clusters, n_clusters = cluster(keep)
         # over-cut fallback: <= 3 clusters -> recluster on the full graph
@@ -313,11 +316,12 @@ class HierarchicalGNNBlock(nn.Module):
             clusters, n_clusters, means, emb_global, mask_global = self._pool_sharded(
                 embeddings, node_mask, shard, stats, training)
         else:
-            clusters, n_clusters = self.clustering(embeddings, graph, node_mask, plan,
-                                                   stats, training)
-            in_cluster = clusters >= 0
-            seg = torch.where(in_cluster, clusters, 0).long()
-            means = segment_mean(embeddings, seg, cfg.max_clusters, mask=in_cluster)
+            with span("pool", device=True):
+                clusters, n_clusters = self.clustering(embeddings, graph, node_mask, plan,
+                                                       stats, training)
+                in_cluster = clusters >= 0
+                seg = torch.where(in_cluster, clusters, 0).long()
+                means = segment_mean(embeddings, seg, cfg.max_clusters, mask=in_cluster)
         means = l2_normalize(means)
         cluster_valid = torch.arange(cfg.max_clusters, device=means.device) < n_clusters
         means = torch.where(cluster_valid[:, None], means, 0.0)

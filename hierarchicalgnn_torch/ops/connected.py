@@ -18,13 +18,7 @@ import torch
 from hierarchicalgnn_torch.ops.kernels.sorted_agg import (
     INT32_MAX, build_sorted_plan, sorted_segment_min_i32)
 from hierarchicalgnn_torch.ops.segment import segment_sum
-
-
-def count_host_sync(stats):
-    """Count one read of a device value by the host in ``stats`` (a dict, or
-    None to count nothing)."""
-    if stats is not None:
-        stats["host_syncs"] = stats.get("host_syncs", 0) + 1
+from hierarchicalgnn_torch.utils.profiling import host_read
 
 
 def connected_components_sorted(plan, keep_sorted, num_nodes, node_mask=None,
@@ -46,8 +40,8 @@ def connected_components_sorted(plan, keep_sorted, num_nodes, node_mask=None,
     labels = arange
     for _ in range(max_iters // 2):
         new = hop(hop(labels))
-        count_host_sync(stats)
-        changed = bool(torch.any(new != labels))
+        with host_read(stats):
+            changed = bool(torch.any(new != labels))
         labels = new
         if not changed:
             break

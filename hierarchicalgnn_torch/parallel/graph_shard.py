@@ -58,7 +58,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from hierarchicalgnn_torch.ops.connected import compact_labels, count_host_sync
+from hierarchicalgnn_torch.ops.connected import compact_labels
 from hierarchicalgnn_torch.ops.graph import Graph, graph_to
 from hierarchicalgnn_torch.ops.kernels.ring_gather import settle
 from hierarchicalgnn_torch.ops.kernels.sorted_agg import (
@@ -74,6 +74,7 @@ from hierarchicalgnn_torch.parallel.mesh import as_mesh, make_mesh
 from hierarchicalgnn_torch.parallel.step import EventMeanStep, event_index
 from hierarchicalgnn_torch.utils.config import SHARD_DEFAULTS
 from hierarchicalgnn_torch.utils.device import resolve_device, resolve_devices
+from hierarchicalgnn_torch.utils.profiling import host_read
 
 # The JAX package rounds the per-rank edge capacity to the edge block of its
 # Pallas kernels (``BLOCK_E`` of ops/pallas/sorted_agg.py).  CSR needs no
@@ -276,8 +277,8 @@ def sharded_cluster_labels(shard: ShardTools, keep_local, num_nodes: int,
     labels = arange
     for _ in range(max_iters // 2):
         new = hop(hop(labels))
-        count_host_sync(stats)
-        changed = bool(torch.any(new != labels))
+        with host_read(stats):
+            changed = bool(torch.any(new != labels))
         labels = new
         if not changed:
             break

@@ -38,8 +38,8 @@ from __future__ import annotations
 
 import torch
 
-from hierarchicalgnn_torch.ops.connected import count_host_sync
 from hierarchicalgnn_torch.ops.kernels.top2 import NEG, row_top2
+from hierarchicalgnn_torch.utils.profiling import host_read
 
 VIRTUAL_VALUE = 1e-12
 
@@ -103,8 +103,8 @@ def auction_match(pair_scores, n_particles, n_clusters, eps=None,
 
     for round_ in range(max_iters):
         if round_ % poll_every == 0:
-            count_host_sync(stats)
-            still, n_un = torch.stack([active.long(), n_local]).tolist()
+            with host_read(stats):
+                still, n_un = torch.stack([active.long(), n_local]).tolist()
             if not still:
                 break
             tail = use_tail and n_un <= tail_cap

@@ -21,9 +21,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hierarchicalgnn_torch.ops.connected import count_host_sync
 from hierarchicalgnn_torch.parallel.comm import run_sharded
 from hierarchicalgnn_torch.train.auction import auction_match
+from hierarchicalgnn_torch.utils.profiling import host_read
 
 
 def host_matching(pair_scores, n_particles, n_clusters, p_max):
@@ -128,10 +128,11 @@ def match_particles_to_candidates(scores, bip_senders, bip_receivers, bip_mask,
         col_match = col_match.long()
         row_match = torch.arange(p_max, device=dev)
     elif backend == "host":
-        count_host_sync(stats)
+        pair_scores = dense()
+        with host_read(stats):
+            args = pair_scores.cpu().numpy(), int(n_particles), int(n_clusters)
         row_match, col_match, valid = (
-            torch.from_numpy(a).to(dev) for a in host_matching(
-                dense().cpu().numpy(), int(n_particles), int(n_clusters), p_max))
+            torch.from_numpy(a).to(dev) for a in host_matching(*args, p_max))
     else:
         raise ValueError(f"unknown matching backend {backend!r}")
 

@@ -31,6 +31,7 @@ from hierarchicalgnn_torch.ops.kernels.sorted_agg import (
 from hierarchicalgnn_torch.ops.knn import knn_graph
 from hierarchicalgnn_torch.train import losses
 from hierarchicalgnn_torch.train.matching import match_particles_to_candidates
+from hierarchicalgnn_torch.utils.profiling import span
 
 
 def event_to(event: Event, device) -> Event:
@@ -50,8 +51,10 @@ class _Pipeline:
         self.hparams = hparams
 
     def loss(self, batch: Event, epoch, stats=None):
-        out = self.model(batch.x, batch.graph, batch.node_mask, stats=stats)
-        return self.loss_from_outputs(out, batch, epoch, stats=stats)
+        with span("forward", device=True):
+            out = self.model(batch.x, batch.graph, batch.node_mask, stats=stats)
+        with span("loss", device=True):
+            return self.loss_from_outputs(out, batch, epoch, stats=stats)
 
 
 class ECPipeline(_Pipeline):
@@ -229,13 +232,14 @@ class BipartitePipeline(_Pipeline):
         """Assignment BCE against the matching truth (reference :152-191);
         ``matching_spmd`` ranks row-shard the auction."""
         hp = self.hparams
-        truth, row_match, col_match, match_valid = match_particles_to_candidates(
-            scores.detach(), bgraph.senders, bgraph.receivers, bgraph.edge_mask,
-            batch.pid_compact, batch.particle_pid, batch.n_particles,
-            aux["n_clusters"], hp["max_clusters"],
-            backend=hp.get("matching_backend", "auction"),
-            eps_scale=float(hp.get("matching_eps_scale", 1e-3)), stats=stats,
-            n_parts=matching_spmd)
+        with span("match", device=True):
+            truth, row_match, col_match, match_valid = match_particles_to_candidates(
+                scores.detach(), bgraph.senders, bgraph.receivers, bgraph.edge_mask,
+                batch.pid_compact, batch.particle_pid, batch.n_particles,
+                aux["n_clusters"], hp["max_clusters"],
+                backend=hp.get("matching_backend", "auction"),
+                eps_scale=float(hp.get("matching_eps_scale", 1e-3)), stats=stats,
+                n_parts=matching_spmd)
 
         # assignment weight: max(hit weight, matched-particle weight)
         # (reference get_asgmt_weight :123-138)

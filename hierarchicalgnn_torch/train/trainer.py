@@ -11,6 +11,9 @@ Counterpart of ``hierarchicalgnn_tpu/train/trainer.py``:
   * checkpoints: ``last`` every ``save_every_n_epochs``, ``best`` by
     ``track_eff``, ``autosave`` on any exception; ``restore``; ``test``
   * the ``debug_numerics`` guard; training from the native streaming loader
+  * spans (``utils/profiling.py``, recorded once enabled): ``train_step``
+    around each step, holding ``forward``, ``loss``, ``backward``,
+    ``optimizer`` and ``readback``
 
     hparams, model, pipeline = model_selector("BC-HGNN-GMM")
     trainer = Trainer(hparams, model, pipeline, run_dir="runs/bc")  # device="cuda"
@@ -51,6 +54,7 @@ from hierarchicalgnn_torch.train.optim import apply_gradients, make_optimizer
 from hierarchicalgnn_torch.train.pipelines import event_to
 from hierarchicalgnn_torch.utils.device import resolve_device
 from hierarchicalgnn_torch.utils.logging import MetricLogger
+from hierarchicalgnn_torch.utils.profiling import host_read, span
 from hierarchicalgnn_torch.utils.sanitize import finite_report
 
 
@@ -196,22 +200,26 @@ class Trainer:
         self.model.train()
         self.last_stats = {}
         loss, metrics = self.pipeline.loss(batch, epoch, stats=self.last_stats)
-        grads = torch.autograd.grad(loss, self._params(), allow_unused=True)
-        metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm([g for g in grads if g is not None])))
+        with span("backward", device=True):
+            grads = torch.autograd.grad(loss, self._params(), allow_unused=True)
+            metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm([g for g in grads if g is not None])))
         return grads, metrics
 
     def _apply(self, grads):
-        apply_gradients(self.optimizer, self._params(), grads)
+        with span("optimizer", device=True):
+            apply_gradients(self.optimizer, self._params(), grads)
 
     def _read_metrics(self, metrics: dict) -> dict:
         """The step's metrics as floats, read back as one stacked vector."""
-        names = sorted(metrics)
-        vec = torch.stack([torch.as_tensor(metrics[k], dtype=torch.float32,
-                                           device=self.device).reshape(())
-                           for k in names])
-        self.last_stats["host_syncs"] = self.last_stats.get("host_syncs", 0) + 1
-        return dict(zip(names, vec.tolist()))
+        with span("readback", device=True):
+            names = sorted(metrics)
+            vec = torch.stack([torch.as_tensor(metrics[k], dtype=torch.float32,
+                                               device=self.device).reshape(())
+                               for k in names])
+            with host_read(self.last_stats):
+                values = vec.tolist()
+        return dict(zip(names, values))
 
     def _check_numerics(self, values: dict, epoch):
         """The ``debug_numerics`` guard on a step's metrics (the values the
@@ -234,10 +242,11 @@ class Trainer:
         ``clusters``, ``knn_exact``) and ``grad_norm``."""
         if self.optimizer is None:
             raise RuntimeError("call init_state() before train_step()")
-        grads, metrics = self._forward_backward(batch, epoch)
-        self._apply(grads)
-        values = self._read_metrics(metrics)
-        self._check_numerics(values, epoch)
+        with span("train_step", device=True):
+            grads, metrics = self._forward_backward(batch, epoch)
+            self._apply(grads)
+            values = self._read_metrics(metrics)
+            self._check_numerics(values, epoch)
         return values
 
     # ------------------------------------------------------------------
@@ -377,15 +386,16 @@ class Trainer:
             for j in range(0, len(order), bs):
                 group = [trainset[i][2] for i in order[j:j + bs]]
                 group += group[-1:] * (bs - len(group))
-                grads, metrics = self._forward_backward(group if bs > 1 else group[0],
-                                                        epoch)
-                grads = [torch.zeros_like(p) if g is None else g
-                         for p, g in zip(self._params(), grads)]
-                acc = grads if acc is None else torch._foreach_add(acc, grads)
-                since += 1
-                if since == k:
-                    self._flush(acc, since, metrics, epoch)
-                    acc, since = None, 0
+                with span("train_step", device=True):
+                    grads, metrics = self._forward_backward(group if bs > 1 else group[0],
+                                                            epoch)
+                    grads = [torch.zeros_like(p) if g is None else g
+                             for p, g in zip(self._params(), grads)]
+                    acc = grads if acc is None else torch._foreach_add(acc, grads)
+                    since += 1
+                    if since == k:
+                        self._flush(acc, since, metrics, epoch)
+                        acc, since = None, 0
             if since:  # the ragged tail
                 self._flush(acc, since, metrics, epoch)
             val = self._end_epoch(valset, epoch, time.time() - t0, with_phase_times=True)

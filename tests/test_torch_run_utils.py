@@ -159,9 +159,6 @@ def test_phase_timer_on_the_cpu(tmp_path):
     assert out == 2 and timer.counts == {"a": 2, "b": 1}
     assert timer.totals["a"] >= 0.01 and timer.totals["b"] >= 0
     assert set(timer.reset()) == {"a", "b"} and timer.summary() == {}
-    with profiling.trace(str(tmp_path / "trace")) as prof:
-        torch.ones(8).sum()
-    assert prof.key_averages() and (tmp_path / "trace" / "trace.json").exists()
 
 
 def test_phase_probes_keys():
