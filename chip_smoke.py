@@ -54,6 +54,17 @@ these phases and fails if any of them fails:
               HD1 (with its S and Q), both HD2 routes and the host tree timed
               on the served event, with each route's step floor (the same N
               at D 1);
+ 3c. knn      KNN1, the kNN's k-selection, against its plain version (the
+              four elementwise passes and the stable sort's first k) bit for
+              bit on one block of each main-path shape: Embedding-IN's pair
+              mining on the embeddings of a served event (1024 x 24576, k
+              100) and BC's bipartite (1024 x 3072, k 5) and super (3072 x
+              3072, k 10) graphs on cluster means, 2048 of 3072 valid; the
+              whole ``knn`` of each equal to the plain path's; the kernel
+              timed beside its bound, the plain version, ``torch.topk`` on
+              the same d2 and the block's GEMM, and the whole ``knn`` on both
+              paths; then one BC and one Embedding-IN training step with
+              their KNN1 launches counted;
   4. serving  the BC-HGNN-GMM flagship (latent 256, hidden 512, 6 + 6
               iterations, bf16, capacities 24576/49152/3072/4096, seeded
               weights) reconstructs 2 synthetic events of 3000 particles
@@ -202,8 +213,8 @@ Each phase prints its seconds on a line of its own, and the script its
 total before the kernel table.
 
 The second-to-last line is the kernel table as JSON (K1-K8 and K8's
-split-launch rows (with several cards, its row over them), then HD1 and
-HD2, which replace no Pallas kernel); the last line is
+split-launch rows (with several cards, its row over them), then HD1, HD2
+and KNN1, which replace no Pallas kernel); the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -235,7 +246,7 @@ CSRC = "hierarchicalgnn_torch/csrc/"
 SOURCES = {"K1": "segment_csr.cu", "K2": "segment_csr.cu", "K5": "segment_csr.cu",
            "K3": "sddmm_csr.cu", "K4": "sddmm_csr.cu", "K6": "top2.cu",
            "K7": "segment_gather.cu", "K8": "ring_gather.cu",
-           "HD1": "hdbscan.cu", "HD2": "hdbscan.cu"}
+           "HD1": "hdbscan.cu", "HD2": "hdbscan.cu", "KNN1": "knn_select.cu"}
 REPLACES = {
     "K1": "hierarchicalgnn_tpu/ops/pallas/sorted_agg.py:148",
     "K2": "hierarchicalgnn_tpu/ops/pallas/sorted_agg.py:252",
@@ -247,6 +258,7 @@ REPLACES = {
     "K8": "hierarchicalgnn_tpu/ops/pallas/ring_gather.py:32",
     "HD1": "sklearn.cluster.HDBSCAN (host) via hierarchicalgnn_tpu/evaluation/candidates.py:43",
     "HD2": "sklearn.cluster.HDBSCAN (host) via hierarchicalgnn_tpu/evaluation/candidates.py:43",
+    "KNN1": "XLA's sort (lax.top_k) in hierarchicalgnn_tpu/ops/knn.py",
 }
 NAMES = {"K1": "K1 sorted_aggregate", "K2": "K2 sorted_aggregate_weighted",
          "K5": "K5 sorted_segment_min_i32", "K3": "K3 sorted_sddmm",
@@ -254,6 +266,8 @@ NAMES = {"K1": "K1 sorted_aggregate", "K2": "K2 sorted_aggregate_weighted",
          "K8": "K8 ring_all_gather"}
 # the kernels of the embedding models' HDBSCAN: no Pallas counterpart
 HD_NAMES = {"HD1": "HD1 core_distances", "HD2": "HD2 prim_mst"}
+# the kNN's k-selection: no Pallas counterpart either
+KNN_NAMES = {"KNN1": "KNN1 knn_select"}
 # the kernels' names in a profiler trace (K1/K2: the bf16 tile kernel, K7 its
 # tile kernel; the fix-up, a second device launch of the same call, is
 # FIXUP_TAGS)
@@ -262,7 +276,8 @@ PROFILE_TAGS = {"K1": "csr_tile_sum_kernel<__nv_bfloat16, false>",
                 "K5": "csr_min_i32_kernel", "K3": "sddmm_kernel<",
                 "K4": "scaled_gather_kernel<", "K6": "row_top2_kernel",
                 "K7": "csr_gather_tile_kernel<", "K8": "all_gather_kernel<",
-                "HD1": "core_distance_kernel<", "HD2": "prim_mst_cluster_kernel<"}
+                "HD1": "core_distance_kernel<", "HD2": "prim_mst_cluster_kernel<",
+                "KNN1": "knn_radix_kernel<"}
 # HD2's cooperative route (N above the cluster's capacity) in a trace
 COOP_TAG = "prim_mst_kernel"
 FIXUP_TAGS = {"K1": "csr_tile_fixup_kernel<__nv_bfloat16, false>",
@@ -1056,9 +1071,10 @@ def hdbscan_cases(torch, served, m):
 
 
 def _same_bits(torch, a, b):
+    bits = {torch.float64: torch.int64, torch.float32: torch.int32}
     return a.shape == b.shape and torch.equal(
-        a.view(torch.int64) if a.dtype == torch.float64 else a,
-        b.view(torch.int64) if b.dtype == torch.float64 else b)
+        a.view(bits[a.dtype]) if a.dtype in bits else a,
+        b.view(bits[b.dtype]) if b.dtype in bits else b)
 
 
 def _route_counts(sa, before):
@@ -1233,6 +1249,111 @@ def phase_hdbscan(torch, events):
     return rows
 
 
+def knn_block(torch, queries, points, p_mask, rows):
+    """The first block of ``rows`` queries as ``ops/knn.py::_block_topk`` hands
+    it to KNN1: the GEMM in full f32 and the two norms."""
+    q_block = queries[:rows]
+    dots = q_block @ points.T
+    sq_q = torch.sum(torch.square(q_block), dim=-1, keepdim=True)
+    return dots, sq_q, torch.sum(torch.square(points), dim=-1), p_mask
+
+
+def phase_knn(torch, events):
+    """KNN1 against its plain version on one block of each main-path shape,
+    bit for bit, and the whole ``knn`` of each against the plain path; the
+    kernel timed beside its bound, the plain version, ``torch.topk`` on the
+    same d2 and the block's GEMM; then one BC and one Embedding-IN training
+    step with KNN1's launches counted.  Returns {"KNN1": row}, the row at
+    Embedding-IN's shape with BC's beside it."""
+    from unittest import mock
+
+    from hierarchicalgnn_torch.data.event import preprocess_event
+    from hierarchicalgnn_torch.inference import InferenceEngine
+    from hierarchicalgnn_torch.models.registry import model_selector
+    from hierarchicalgnn_torch.ops import knn as knn_mod
+    from hierarchicalgnn_torch.ops.kernels import knn_select as ks, sorted_agg as sa
+    from hierarchicalgnn_torch.train.trainer import Trainer
+
+    hp, model, _ = model_selector("Embedding-IN", FLAGSHIP)
+    engine = InferenceEngine(hp, model)
+    batch = preprocess_event(events[0], hp, stage="test")
+    emb = engine.forward(batch).float()
+    mask = torch.as_tensor(batch.node_mask, device=emb.device)
+    gen = torch.Generator().manual_seed(0)
+    means = torch.randn(FLAGSHIP["max_clusters"], emb.shape[1], generator=gen).to(emb.device)
+    cvalid = torch.arange(means.shape[0], device=emb.device) < 2048
+    block = hp["knn_block_size"]
+    cases = (("Embedding-IN mining", emb, emb, mask, mask, hp["knn"], hp["train_r"]),
+             ("BC bipartite", emb, means, mask, cvalid, 5, 1.0),
+             ("BC super", means, means, cvalid, cvalid, 10, 1.0))
+    found = {}
+    for label, queries, points, q_mask, p_mask, k, r in cases:
+        dots, sq_q, sq_p, valid = knn_block(torch, queries, points, p_mask, block)
+        cut = ks.knn_schedule(points.shape[0], k)
+        got = ks.knn_select(dots, sq_q, sq_p, valid, k)
+        want = ks.knn_select_plain(dots, sq_q, sq_p, valid, k)
+        full = knn_mod.knn(queries, points, k, r, q_mask=q_mask, p_mask=p_mask,
+                           block_size=block)
+        with mock.patch.object(knn_mod, "knn_select", ks.knn_select_plain):
+            full_plain = knn_mod.knn(queries, points, k, r, q_mask=q_mask, p_mask=p_mask,
+                                     block_size=block)
+        torch.cuda.synchronize()
+        if not (_same_bits(torch, got[0], want[0]) and torch.equal(got[1], want[1])
+                and _same_bits(torch, full[1], full_plain[1])
+                and torch.equal(full[0], full_plain[0])):
+            raise AssertionError(f"KNN1 {label}: the kernel and the plain path differ")
+        tag = PROFILE_TAGS["KNN1"]
+        rows, p = dots.shape
+        d2 = torch.where(valid[None, :], torch.clamp(sq_q + sq_p[None, :] - 2.0 * dots, min=0.0),
+                         float("inf"))
+        n_bytes = 4 * rows * p + 4 * rows + 5 * p + 12 * rows * k
+        found[label] = {
+            "shape": f"{rows} x {p} of {queries.shape[0]} queries, k {k}",
+            "staged": cut.staged, "smem": cut.smem,
+            "ms": time_ms(torch, lambda: ks.knn_select(dots, sq_q, sq_p, valid, k)),
+            "device_ms": device_ms(torch, lambda: ks.knn_select(dots, sq_q, sq_p, valid, k),
+                                   (tag,))[tag],
+            "bound_ms": 1e3 * n_bytes / HBM_BYTES_PER_S,
+            "plain_ms": time_ms(torch, lambda: ks.knn_select_plain(dots, sq_q, sq_p, valid, k),
+                                iters=5),
+            "library_ms": time_ms(torch, lambda: torch.topk(d2, k, dim=1, largest=False),
+                                  iters=10),
+            "gemm_ms": time_ms(torch, lambda: queries[:block] @ points.T),
+            "knn_ms": time_ms(torch, lambda: knn_mod.knn(
+                queries, points, k, r, q_mask=q_mask, p_mask=p_mask, block_size=block),
+                iters=5)}
+        with mock.patch.object(knn_mod, "knn_select", ks.knn_select_plain):
+            found[label]["knn_plain_ms"] = time_ms(torch, lambda: knn_mod.knn(
+                queries, points, k, r, q_mask=q_mask, p_mask=p_mask, block_size=block),
+                iters=3)
+        log(f"KNN1 {label} ({found[label]['shape']}): bit for bit, the whole knn too; "
+            f"{ {key: v for key, v in found[label].items() if key != 'shape'} }")
+        del dots, d2
+    del engine, emb
+    torch.cuda.empty_cache()
+
+    launches = {}
+    for name in ("BC-HGNN-GMM", "Embedding-IN"):
+        if name == "BC-HGNN-GMM":
+            trainer = flagship_trainer({})[1]
+        else:
+            trainer = Trainer(*model_selector(name, FLAGSHIP))
+            trainer.init_state(seed=0)
+        batch = trainer.make_datasets(events)[0][0][2]
+        before = sa.LAUNCHES["KNN1"]
+        trainer.train_step(batch, TRAIN_EPOCH)
+        torch.cuda.synchronize()
+        launches[name] = sa.LAUNCHES["KNN1"] - before
+        assert launches[name] > 0, f"a {name} training step never launched KNN1"
+        del trainer
+        torch.cuda.empty_cache()
+    log(f"KNN1 launches a training step: {launches}")
+    row = dict(found["Embedding-IN mining"])
+    row["bc"] = {label: found[label] for label in ("BC bipartite", "BC super")}
+    row["launches_per_train_step"] = launches
+    return {"KNN1": row}
+
+
 def phase_aggregator(torch):
     """K7's entry point: ``make_aggregator(use_pallas=True)`` builds one
     layout of the flagship flat graph and sums six edge tensors over it (one
@@ -1400,8 +1521,8 @@ def phase_parity(torch):
     from hierarchicalgnn_torch.inference import InferenceEngine
     from hierarchicalgnn_torch.models import blocks
     from hierarchicalgnn_torch.models.models import build_model
-    from hierarchicalgnn_torch.ops import connected
-    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa
+    from hierarchicalgnn_torch.ops import connected, knn
+    from hierarchicalgnn_torch.ops.kernels import knn_select as ks, sorted_agg as sa
     from hierarchicalgnn_torch.utils.config import load_config
 
     hp = load_config("bc_hgnn_gmm", {**FLAGSHIP, "compute_dtype": None})
@@ -1413,7 +1534,8 @@ def phase_parity(torch):
             mock.patch.object(blocks, "sorted_aggregate_weighted",
                               sa.sorted_aggregate_weighted_plain), \
             mock.patch.object(connected, "sorted_segment_min_i32",
-                              sa.sorted_segment_min_i32_plain):
+                              sa.sorted_segment_min_i32_plain), \
+            mock.patch.object(knn, "knn_select", ks.knn_select_plain):
         before = dict(sa.LAUNCHES)
         plain = engine.forward(batch)
         assert sa.LAUNCHES == before, "the plain run launched a kernel"
@@ -1679,8 +1801,8 @@ def phase_training_parity(torch, events):
     from unittest import mock
 
     from hierarchicalgnn_torch.models import blocks
-    from hierarchicalgnn_torch.ops import connected
-    from hierarchicalgnn_torch.ops.kernels import sorted_agg as sa, top2
+    from hierarchicalgnn_torch.ops import connected, knn
+    from hierarchicalgnn_torch.ops.kernels import knn_select as ks, sorted_agg as sa, top2
     from hierarchicalgnn_torch.train import auction
 
     overrides = {"compute_dtype": None, "n_interaction_graph_iters": 2,
@@ -1708,7 +1830,8 @@ def phase_training_parity(torch, events):
                               lambda nodes, plan, *_: nodes[plan.receivers_sorted]), \
             mock.patch.object(connected, "sorted_segment_min_i32",
                               sa.sorted_segment_min_i32_plain), \
-            mock.patch.object(auction, "row_top2", top2.row_top2_plain):
+            mock.patch.object(auction, "row_top2", top2.row_top2_plain), \
+            mock.patch.object(knn, "knn_select", ks.knn_select_plain):
         before = dict(sa.LAUNCHES)
         plain, plain_seen = one_step()
         assert sa.LAUNCHES == before, "the plain run launched a kernel"
@@ -4910,6 +5033,7 @@ def main():
     rows = timed("kernels", phase_kernels, torch)
     events = flagship_events()
     rows.update(timed("hdbscan", phase_hdbscan, torch, events))
+    rows.update(timed("knn", phase_knn, torch, events))
     aggregator = timed("aggregator", phase_aggregator, torch)
     serving, serving_ms = timed("serving", phase_serving, torch, events)
     timed("parity", phase_parity, torch)
@@ -4956,6 +5080,9 @@ def main():
         assert models[kernel] > 0, f"the embedding models' serving never launched {kernel}"
         assert cli[kernel] > 0, f"the embedding model's CLI run never launched {kernel}"
     assert models["HD2_cluster"] == models["HD2"], "the served events' MSTs left the cluster route"
+    for kernel in KNN_NAMES:  # BC's dynamic graphs, the embedding models' pair mining
+        assert training[kernel] > 0, f"the flagship's training never launched {kernel}"
+        assert models[kernel] > 0, f"the four models never launched {kernel}"
     table = [{"name": NAMES[k], "route": "cuda", "source": CSRC + SOURCES[k],
               "replaces": REPLACES[k],
               "launches": (serving[k] + training[k] + models[k] + aggregator[k]
@@ -4986,6 +5113,13 @@ def main():
                "replaces": REPLACES[k], "launches": models[k] + cli[k],
                "launches_four_models": models[k], "launches_cli": cli[k], **rows[k]}
               for k in HD_NAMES]
+    table += [{"name": KNN_NAMES[k], "route": "cuda", "source": CSRC + SOURCES[k],
+               "replaces": REPLACES[k],
+               "launches": serving[k] + training[k] + models[k] + cli[k] + sharded[k],
+               "launches_serving_2_events": serving[k], "launches_training_3_steps": training[k],
+               "launches_four_models": models[k], "launches_cli": cli[k],
+               "launches_sharded_serving_2_events": sharded[k], **rows[k]}
+              for k in KNN_NAMES]
     # K8 launched once per stream of one card (phase 26(a)) and, on a host with
     # several cards, once per card on the main path over them (phase 26(d))
     for name, row in split_rows.items():

@@ -76,6 +76,11 @@ SIGNATURES = {
         # (a, prices, out[3, n_rows], n_rows, n_cols, warps_per_row, grid, stream)
         "hgnn_row_top2_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     },
+    "knn_select.cu": {
+        # (dots, sq_q, sq_p, valid, out_d2, out_idx, n_rows, n_cols, k, staged, idx_bits,
+        #  smem, stream)
+        "hgnn_knn_select_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    },
     "hdbscan.cu": {
         # (x, out, part, arrivals, n, d, k, slices, stream)
         "hgnn_core_distances_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -14,11 +14,18 @@ Ties: ``lax.top_k`` returns tied values lowest index first; ``torch.topk``
 makes no such promise, so the port takes the first k of a *stable* sort.
 Masked points carry ``inf`` exactly as in JAX, and the radius cut and the
 ``-1`` fill then give identical ``idx`` wherever ``d2`` is finite.
+
+Selection: on the card each block's ``d2`` and its first k come from kernel
+KNN1 (``ops/kernels/knn_select.py``), which reads the GEMM's dots once and
+gives the plain passes' ``d2`` and the stable sort's first k bit for bit; on
+the CPU the plain passes and sort run.
 """
 
 from __future__ import annotations
 
 import torch
+
+from hierarchicalgnn_torch.ops.kernels.knn_select import knn_select
 
 
 def _full_f32_matmul():
@@ -29,12 +36,7 @@ def _full_f32_matmul():
 def _block_topk(q_block, points, sq_norm_p, p_valid, k):
     dots = q_block @ points.T
     sq_norm_q = torch.sum(torch.square(q_block), dim=-1, keepdim=True)
-    d2 = sq_norm_q + sq_norm_p[None, :] - 2.0 * dots
-    d2 = torch.clamp(d2, min=0.0)
-    d2 = torch.where(p_valid[None, :], d2, float("inf"))
-    d2_sorted, idx = torch.sort(d2, dim=1, stable=True)
-    # copies: a slice would keep the block's whole sort alive until the end
-    return d2_sorted[:, :k].contiguous(), idx[:, :k].contiguous()
+    return knn_select(dots, sq_norm_q, sq_norm_p, p_valid, k)
 
 
 def knn(queries, points, k, r_max, q_mask=None, p_mask=None, block_size=1024):

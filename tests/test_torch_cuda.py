@@ -11,7 +11,8 @@ not need and a machine with a card may not have.)
 Tolerance: the kernels and the plain versions accumulate in f32 in
 different orders, so sums agree within 1e-4 of each row's sum of |terms|
 and K3's dots within 1e-5 of theirs; K4's single product, the int32 min,
-the top-2 and the all-gather (K8, a copy) are exact.
+the top-2, the all-gather (K8, a copy) and the kNN's selection (KNN1,
+against the plain passes and stable sort on the same card) are exact.
 """
 
 import pytest
@@ -319,3 +320,153 @@ def test_halo_flat_in_on_the_card(dev):
     torch.cuda.synchronize()
     assert torch.equal(got, cat)
     assert float((got - want).abs().max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# KNN1: the kNN's k-selection, bit for bit against the plain path
+# ---------------------------------------------------------------------------
+
+# (Q, P, k): Embedding-IN's mining, BC's bipartite and super graphs,
+# Embedding-HGNN-GMM's k 8, k above P (knn keeps P), and P of no whole vector
+KNN_SHAPES = [(1024, 24576, 100), (1024, 3072, 5), (3072, 3072, 10), (1024, 3072, 8),
+              (1000, 97, 100), (700, 3071, 10), (517, 24575, 100)]
+
+
+def _knn_points(dev, q, p, seed, case):
+    """Embeddings of 8 features; ``masked``: 10% of the points and queries
+    masked, every fifth point a copy of another and a third of the queries
+    on points (exact ties); ``few``: 50 valid points (rows with fewer than k
+    finite candidates); ``none``: no valid point."""
+    g = torch.Generator().manual_seed(seed)
+    pts = torch.randn(p, 8, generator=g)
+    queries = torch.randn(q, 8, generator=g)
+    p_mask = torch.ones(p, dtype=torch.bool)
+    q_mask = torch.ones(q, dtype=torch.bool)
+    if case == "masked":
+        pts[1::5] = pts[0::5][:pts[1::5].shape[0]]
+        queries[::3] = pts[torch.randint(0, p, (queries[::3].shape[0],), generator=g)]
+        p_mask = torch.rand(p, generator=g) < 0.9
+        q_mask = torch.rand(q, generator=g) < 0.9
+    elif case == "few":
+        p_mask = torch.zeros(p, dtype=torch.bool)
+        p_mask[torch.randperm(p, generator=g)[:50]] = True
+    elif case == "none":
+        p_mask = torch.zeros(p, dtype=torch.bool)
+    return queries.to(dev), pts.to(dev), q_mask.to(dev), p_mask.to(dev)
+
+
+@pytest.fixture
+def plain_knn(monkeypatch):
+    """Runs a function with ``knn`` on the plain selection (the four passes
+    and the stable sort), on the same card."""
+    from hierarchicalgnn_torch.ops import knn as knn_mod
+    from hierarchicalgnn_torch.ops.kernels import knn_select as ks
+
+    def run(fn, *args, **kwargs):
+        with monkeypatch.context() as m:
+            m.setattr(knn_mod, "knn_select", ks.knn_select_plain)
+            before = dict(sa.LAUNCHES)
+            out = fn(*args, **kwargs)
+            assert sa.LAUNCHES == before
+            return out
+    return run
+
+
+def _same_bits(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", ["plain", "masked", "few", "none"])
+@pytest.mark.parametrize("q,p,k", KNN_SHAPES)
+def test_knn_select_exact(dev, plain_knn, q, p, k, case):
+    """``knn`` through KNN1 gives the plain path's ``idx`` and ``d2`` bit for
+    bit, at a radius that cuts and one that keeps all, one launch a block."""
+    from hierarchicalgnn_torch.ops.knn import knn
+
+    queries, pts, q_mask, p_mask = _knn_points(dev, q, p, q + p + k, case)
+    kw = {} if case == "plain" else dict(q_mask=q_mask, p_mask=p_mask)
+    before = sa.LAUNCHES["KNN1"]
+    for r in (1e9, 0.8):
+        got = knn(queries, pts, k, r, **kw)
+        want = plain_knn(knn, queries, pts, k, r, **kw)
+        torch.cuda.synchronize()
+        _same_bits(got, want)
+    assert sa.LAUNCHES["KNN1"] == before + 2 * -(-q // 1024)
+
+
+@pytest.mark.parametrize("q,p,k", [(1024, 3072, 5), (1024, 3072, 10), (1024, 24576, 100),
+                                   (300, 3071, 10), (256, 24575, 16)])
+def test_knn_select_keys_recomputed(dev, q, p, k):
+    """The block that recomputes its keys from ``dots`` at each pass (rows
+    too long for shared memory) gives the same first k where the schedule
+    would stage them: at BC's and Embedding-IN's shapes, and on rows of no
+    whole vector."""
+    from hierarchicalgnn_torch.ops.kernels import knn_select as ks
+
+    queries, pts, _, p_mask = _knn_points(dev, q, p, 5 * p + k, "masked")
+    dots = queries @ pts.T
+    sq_q = torch.sum(torch.square(queries), dim=-1, keepdim=True)
+    sq_p = torch.sum(torch.square(pts), dim=-1)
+    cut = ks.knn_schedule(p, k)
+    assert cut.staged
+    cut = ks.KnnSchedule(False, cut.idx_bits, 4 * ks.BINS + 8 * k)
+    got = ks._launch(dots, sq_q, sq_p, p_mask, k, cut)
+    want = ks.knn_select_plain(dots, sq_q, sq_p, p_mask, k)
+    torch.cuda.synchronize()
+    _same_bits(got, want)
+
+
+def test_knn_select_nan_and_refusals(dev):
+    """NaN distances sort after +inf, lowest index first (their d2 NaN);
+    a wrong dtype or shape raises."""
+    from hierarchicalgnn_torch.ops.kernels import knn_select as ks
+
+    queries, pts, _, p_mask = _knn_points(dev, 64, 3000, 1, "masked")
+    pts[::40] = float("nan")
+    dots = queries @ pts.T
+    sq_q = torch.sum(torch.square(queries), dim=-1, keepdim=True)
+    sq_p = torch.sum(torch.square(pts), dim=-1)
+    for k in (5, 1000):
+        d2, idx = ks.knn_select(dots, sq_q, sq_p, p_mask, k)
+        w_d2, w_idx = ks.knn_select_plain(dots, sq_q, sq_p, p_mask, k)
+        torch.cuda.synchronize()
+        assert torch.equal(idx, w_idx)
+        assert torch.equal(torch.isnan(d2), torch.isnan(w_d2))
+        assert torch.equal(d2[~torch.isnan(d2)], w_d2[~torch.isnan(w_d2)])
+    with pytest.raises(ValueError):
+        ks.knn_select(dots.double(), sq_q, sq_p, p_mask, 5)
+    with pytest.raises(ValueError):
+        ks.knn_select(dots, sq_q[:10], sq_p, p_mask, 5)
+
+
+def test_knn_graph_on_a_flagship_event(dev, plain_knn):
+    """``knn_graph`` at Embedding-IN's k 100 and ``train_r`` on the
+    embeddings of one synthetic flagship event (3000 particles, seeded
+    weights), equal to the plain path's edges and distances."""
+    import numpy as np
+
+    import chip_smoke
+    from hierarchicalgnn_torch.data.event import preprocess_event
+    from hierarchicalgnn_torch.data.synthetic import generate_event
+    from hierarchicalgnn_torch.inference import InferenceEngine
+    from hierarchicalgnn_torch.models.registry import model_selector
+    from hierarchicalgnn_torch.ops.knn import knn_graph
+
+    hp, model, _ = model_selector("Embedding-IN", chip_smoke.FLAGSHIP)
+    engine = InferenceEngine(hp, model)
+    raw = generate_event(np.random.default_rng(0), n_particles=chip_smoke.N_PARTICLES)
+    batch = preprocess_event(raw, hp, stage="test")
+    emb = engine.forward(batch)
+    mask = torch.as_tensor(batch.node_mask, device=emb.device)
+    before = sa.LAUNCHES["KNN1"]
+    got = knn_graph(emb, hp["train_r"], hp["knn"], mask=mask, block_size=hp["knn_block_size"])
+    assert sa.LAUNCHES["KNN1"] == before + emb.shape[0] // hp["knn_block_size"]
+    want = plain_knn(knn_graph, emb, hp["train_r"], hp["knn"], mask=mask,
+                     block_size=hp["knn_block_size"])
+    torch.cuda.synchronize()
+    _same_bits(got, want)
+    assert int(got[2].sum()) > 0

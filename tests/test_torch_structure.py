@@ -14,7 +14,7 @@ import torch
 from hierarchicalgnn_torch.inference import InferenceEngine
 from hierarchicalgnn_torch.models.models import build_model
 from hierarchicalgnn_torch.ops.kernels import (
-    build, hdbscan, ring_gather, sddmm, segment_gather, sorted_agg, top2)
+    build, hdbscan, knn_select, ring_gather, sddmm, segment_gather, sorted_agg, top2)
 from hierarchicalgnn_torch.parallel import comm, distributed, graph_shard, halo, mesh
 from hierarchicalgnn_torch.utils.config import load_config
 
@@ -107,6 +107,9 @@ def test_wrappers_never_fall_back_off_the_cpu():
         sddmm.scaled_gather(meta[:, 0], rows, plan)
     with pytest.raises(ValueError, match="unsupported or mixed"):
         top2.row_top2(meta, torch.ones(8))
+    with pytest.raises(ValueError, match="unsupported or mixed"):
+        knn_select.knn_select(meta, torch.ones(3, 1), torch.ones(8),
+                              torch.ones(8, dtype=torch.bool), 2)
     layout = segment_gather.make_csr_layout(s, torch.ones(3, dtype=torch.bool), 2)
     with pytest.raises(ValueError, match="unsupported or mixed"):
         segment_gather.csr_segment_sum(meta, layout)
@@ -141,8 +144,8 @@ def test_kernel_sources_and_build_flags():
     the build targets sm_90a."""
     sources = sorted(path.name for path in build.CSRC_DIR.glob("*.cu"))
     assert sources == sorted(build.SIGNATURES) == [
-        "hdbscan.cu", "ring_gather.cu", "sddmm_csr.cu", "segment_csr.cu", "segment_gather.cu",
-        "top2.cu"]
+        "hdbscan.cu", "knn_select.cu", "ring_gather.cu", "sddmm_csr.cu", "segment_csr.cu",
+        "segment_gather.cu", "top2.cu"]
     for source, entries in build.SIGNATURES.items():
         src = (build.CSRC_DIR / source).read_text()
         assert "__global__" in src and 'extern "C"' in src
@@ -173,14 +176,15 @@ def test_kernel_sources_and_build_flags():
     # the wrappers name entry points that exist
     for module, source in ((sorted_agg, "segment_csr.cu"), (sddmm, "sddmm_csr.cu"),
                            (top2, "top2.cu"), (segment_gather, "segment_gather.cu"),
-                           (ring_gather, "ring_gather.cu"), (hdbscan, "hdbscan.cu")):
+                           (ring_gather, "ring_gather.cu"), (hdbscan, "hdbscan.cu"),
+                           (knn_select, "knn_select.cu")):
         text = inspect.getsource(module)
         assert all(name in text for name in build.SIGNATURES[source]), source
 
 
 def test_every_kernel_wrapper_has_a_plain_sibling_and_a_counter():
-    """K1-K8 and HD1/HD2: wrapper, plain version in the same module, launch
-    counter; and no ``try`` around a build or a launch."""
+    """K1-K8, HD1/HD2 and KNN1: wrapper, plain version in the same module,
+    launch counter; and no ``try`` around a build or a launch."""
     wrappers = {"K1": (sorted_agg, "sorted_aggregate"),
                 "K2": (sorted_agg, "sorted_aggregate_weighted"),
                 "K5": (sorted_agg, "sorted_segment_min_i32"),
@@ -188,7 +192,8 @@ def test_every_kernel_wrapper_has_a_plain_sibling_and_a_counter():
                 "K6": (top2, "row_top2"),
                 "K7": (segment_gather, "csr_segment_sum"),
                 "K8": (ring_gather, "ring_all_gather"),
-                "HD1": (hdbscan, "core_distances"), "HD2": (hdbscan, "prim_mst")}
+                "HD1": (hdbscan, "core_distances"), "HD2": (hdbscan, "prim_mst"),
+                "KNN1": (knn_select, "knn_select")}
     # HD2's launches are also counted by route, K8's of calls over several launches too
     assert set(sorted_agg.LAUNCHES) == set(wrappers) | {"HD2_cluster", "HD2_coop", "K8_split"}
     for kernel, (module, name) in wrappers.items():
