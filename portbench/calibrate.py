@@ -35,7 +35,7 @@ def readings(cell, seed: int, side: str, device) -> dict:
     from portbench.harness.window import release
     from portbench.modes import train
 
-    hp, tr = cell.hp, cell.traffic
+    hp, tr, model_file = cell.hp, cell.traffic, cell.model
     raws = traffic.make_pool(seed, tr)
     if side in ("program", "half_batch"):
         driver = drivers.PortTrain(hp, device, traffic.weights_seed(seed, tr))
@@ -43,24 +43,24 @@ def readings(cell, seed: int, side: str, device) -> dict:
         if side == "half_batch":
             train._faulty(driver, ("half_batch",))
     else:
-        state0 = _seeded_state(hp, traffic.weights_seed(seed, tr), device)
-        driver = drivers.RefTrain(hp, device, state0, CONTROL_DTYPE)
-    first = check.record_train(driver, raws, tr["epoch"])
+        state0 = _seeded_state(model_file, hp, traffic.weights_seed(seed, tr), device)
+        driver = drivers.RefTrain(model_file, hp, device, state0, CONTROL_DTYPE)
+    first = check.record_train(model_file, driver, raws, tr["epoch"])
     del driver
     release(device)
-    numbers = check.train_check(hp, raws, state0, [first], tr["epoch"], device, detail := {})
+    numbers = check.train_check(model_file, hp, raws, state0, [first], tr["epoch"], device,
+                                detail := {})
     numbers["detail"] = detail[0]
     return numbers
 
 
-def _seeded_state(hp, seed: int, device) -> dict:
+def _seeded_state(model_file, hp, seed: int, device) -> dict:
     """The reference model's state with the weights ``seed`` draws, as the
     program's are drawn."""
     from portbench.harness import drivers, weights
 
-    config = drivers._mod(drivers.REFERENCE, "utils.config")
-    model = drivers._mod(drivers.REFERENCE, "models.models").build_model(
-        config.process_hparams({**hp, "compute_dtype": "float32", "remat": False}))
+    model = model_file.reference_model(
+        drivers.reference_hparams(hp, "float32"))
     weights.fill(model.to(device), seed)
     return weights.snapshot(model)
 

@@ -2,16 +2,24 @@
 the harness finds by its names.
 
 * ``portbench/configs/<config>.json``: the configuration as it is run
-  (``hparams``, every key the port's model reads), its source, ``reduced``
-  and ``assumed``;
+  (``hparams``, every key the port's model reads), its source, ``reduced``,
+  ``assumed`` and ``model_file``;
+* ``portbench/models/<model_file>.py``: what the harness asks of the model
+  (``Cell.model``): ``STAGES`` and ``INNER``, its discrete stages
+  (``harness/stages.py``); ``reference_model(hp)`` and
+  ``reference_pipeline(model, hp)``, the reference's model and loss, built
+  from modules of ``portbench/reference/hgnn`` (``drivers.REFERENCE``);
+  ``forward_flops(hp, n_nodes, n_edges, n_clusters)``, one forward's model
+  FLOPs (``harness/flops.py``); ``TIMED``, the port's functions that a
+  traced window times, ``{counter: (module under the port, attribute)}``;
 * ``portbench/traffic/<traffic>.json``: the mode (``portbench/modes/<mode>.py``)
   and the traffic's parameters;
 * ``portbench/workloads/<cell>.json``: the limits of the numbers that decide
   ``correct``;
 * ``portbench/metrics/<metric>.py``: a reader per per-layer metric.
 
-Adding a cell, a configuration, a traffic mix or a metric adds files and
-entries; no file of the harness names one.
+Adding a cell, a configuration, a model, a traffic mix or a metric adds
+files and entries; no file of the harness names one.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ class Cell:
     limits: dict
     end_to_end: list
     per_layer: list
+    model: object             # the configuration's model file, a module
 
     @property
     def mode(self) -> str:
@@ -72,7 +81,8 @@ def load(name: str, root: str = ROOT, bench_dir: str = BENCH_DIR,
     per_layer = [m for m in bench["per_layer"] if _reports(m, name, e2e_names)]
     return Cell(name=name, config=entry["config"], traffic_name=entry["traffic"],
                 chips=int(entry["chips"]), hp=dict(config["hparams"]), traffic=traffic,
-                limits=dict(workload["limits"]), end_to_end=e2e, per_layer=per_layer)
+                limits=dict(workload["limits"]), end_to_end=e2e, per_layer=per_layer,
+                model=load_module("models", config["model_file"], bench_dir))
 
 
 def load_module(kind: str, name: str, bench_dir: str = BENCH_DIR):

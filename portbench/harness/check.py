@@ -39,12 +39,12 @@ def _norm(t) -> float:
     return float(torch.linalg.vector_norm(t.double()))
 
 
-def record_train(driver, raws, epoch) -> dict:
+def record_train(model_file, driver, raws, epoch) -> dict:
     """The first ``TRAIN_STEPS`` steps of ``driver`` on ``raws[0..]``, with
-    their discrete stages recorded: losses, the first gradient, the
-    parameters before and after, and the stage calls by step."""
-    model = driver.hp["model"]
-    rec = stages.Recorder(driver.root, stages.STAGES[model] + stages.INNER[model],
+    their discrete stages (the cell's ``model_file``'s ``STAGES`` and
+    ``INNER``) recorded: losses, the first gradient, the parameters before
+    and after, and the stage calls by step."""
+    rec = stages.Recorder(driver.root, model_file.STAGES + model_file.INNER,
                           driver.owners(), to_host=True)
     out = {"losses": [], "values": [], "p0": driver.params()}
     try:
@@ -64,15 +64,15 @@ def record_train(driver, raws, epoch) -> dict:
     return out
 
 
-def follow_train(hp, raws, state, record, epoch, device, dtype="float32") -> dict:
+def follow_train(model_file, hp, raws, state, record, epoch, device,
+                 dtype="float32") -> dict:
     """The reference's own ``TRAIN_STEPS`` steps from ``state`` on the same
     events, each on the recorded step's discrete choices."""
-    ref = drivers.RefTrain(hp, device, state, dtype)
-    stage_names = stages.STAGES[hp["model"]]
+    ref = drivers.RefTrain(model_file, hp, device, state, dtype)
     out = {"losses": []}
     for i in range(TRAIN_STEPS):
         batch = ref.batch(raws[i], i)
-        forcer = stages.Forcer(drivers.REFERENCE, stage_names, ref.owners(),
+        forcer = stages.Forcer(drivers.REFERENCE, model_file.STAGES, ref.owners(),
                                record["calls"][i], device)
         try:
             values = ref.step(batch, epoch)
@@ -145,26 +145,27 @@ def half_event(ev):
                        signal_true_graph=cut(ev.signal_true_graph))
 
 
-def diff_numbers(calls, hp, device) -> dict:
+def diff_numbers(model_file, calls, hp, device) -> dict:
     """``<stage>_diff`` over the recorded calls (a list, all slots)."""
-    diffs = stages.stage_diffs(calls, drivers.ReferenceStages(hp, device), device)
+    diffs = stages.stage_diffs(calls, drivers.ReferenceStages(model_file, hp, device), device)
     return {f"{stage}_diff": float(n) for stage, n in diffs.items()}
 
 
-def train_check(hp, raws, state, records, epoch, device, detail=None) -> dict:
-    """Every number of a training cell, each the worst over ``records``
-    (``record_train``'s, all from ``state``): the reference follows each
-    record's steps, then the stages are redone.  ``detail``, a dict, gets
-    ``train_detail`` of each record by its index."""
+def train_check(model_file, hp, raws, state, records, epoch, device, detail=None) -> dict:
+    """Every number of a training cell of ``model_file`` (``Cell.model``),
+    each the worst over ``records`` (``record_train``'s, all from
+    ``state``): the reference follows each record's steps, then the stages
+    are redone.  ``detail``, a dict, gets ``train_detail`` of each record by
+    its index."""
     numbers: dict = {}
     for index, record in enumerate(records):
-        ref = follow_train(hp, raws, state, record, epoch, device)
+        ref = follow_train(model_file, hp, raws, state, record, epoch, device)
         got = train_numbers(record, ref)
         if detail is not None:
             detail[index] = train_detail(record, ref)
         del ref
-        got.update(diff_numbers([c for i in sorted(record["calls"])
-                                 for c in record["calls"][i]], hp, device))
+        got.update(diff_numbers(model_file, [c for i in sorted(record["calls"])
+                                             for c in record["calls"][i]], hp, device))
         for name, value in got.items():
             numbers[name] = max(numbers.get(name, value), value)
     return numbers

@@ -4,8 +4,10 @@ Each driver trains one model from the same raw events and the same initial
 weights, and exposes what the comparison reads: a training step's loss, the
 first gradient as the optimizer took it, the parameters.  ``PORT`` is the package under test;
 ``REFERENCE`` the frozen plain copy in ``portbench/reference/hgnn``, which
-imports nothing of the port.  ``dtype`` of a reference driver is
-"float32" for the reference itself and "float8_e4m3fn" for the control.
+imports nothing of the port; the cell's model file builds its model and
+loss (``reference_model``, ``reference_pipeline``).  ``dtype`` of a
+reference driver is "float32" for the reference itself and
+"float8_e4m3fn" for the control.
 """
 
 from __future__ import annotations
@@ -24,6 +26,13 @@ REFERENCE = "portbench.reference.hgnn"
 
 def _mod(root, name):
     return importlib.import_module(f"{root}.{name}")
+
+
+def reference_hparams(hp: dict, dtype: str) -> dict:
+    """``hp`` as the reference runs it: computed in ``dtype``, with nothing
+    recomputed in the backward."""
+    config = _mod(REFERENCE, "utils.config")
+    return config.process_hparams({**hp, "compute_dtype": dtype, "remat": False})
 
 
 def preprocess_rng(slot: int):
@@ -100,23 +109,18 @@ class PortTrain(_Train):
 
 
 class RefTrain(_Train):
-    """The reference's step: forward, loss, gradient, clip, AdamW-amsgrad."""
+    """The reference's step: forward, loss, gradient, clip, AdamW-amsgrad.
+    ``model_file``: the cell's (``Cell.model``)."""
 
     root = REFERENCE
 
-    def __init__(self, hp: dict, device, state: dict, dtype: str = "float32"):
-        config = _mod(REFERENCE, "utils.config")
-        models = _mod(REFERENCE, "models.models")
-        pipelines = _mod(REFERENCE, "train.pipelines")
+    def __init__(self, model_file, hp: dict, device, state: dict, dtype: str = "float32"):
         optim = _mod(REFERENCE, "train.optim")
         self.device = torch.device(device)
-        self.hp = config.process_hparams({**hp, "compute_dtype": dtype, "remat": False})
-        self.model = models.build_model(self.hp).to(self.device)
+        self.hp = reference_hparams(hp, dtype)
+        self.model = model_file.reference_model(self.hp).to(self.device)
         self.model.load_state_dict(state)
-        if self.hp["model"] == "BC-HGNN-GMM":
-            self.pipeline = pipelines.BipartitePipeline(self.model, self.hp)
-        else:
-            self.pipeline = pipelines.EmbeddingPipeline(self.model, self.hp, hierarchical=False)
+        self.pipeline = model_file.reference_pipeline(self.model, self.hp)
         self.optimizer = optim.make_optimizer(self.model.parameters(), self.hp,
                                               max(self.hp["train_split"][0], 1))
         self._apply = optim.apply_gradients
@@ -133,19 +137,19 @@ class RefTrain(_Train):
 
 class ReferenceStages:
     """The reference's stage functions, for ``stages.stage_diffs``: each
-    takes the program's recorded inputs."""
+    takes the program's recorded inputs.  ``model_file``: the cell's."""
 
-    def __init__(self, hp: dict, device):
-        config = _mod(REFERENCE, "utils.config")
-        self.hp = config.process_hparams({**hp, "compute_dtype": "float32", "remat": False})
+    def __init__(self, model_file, hp: dict, device):
+        self.hp = reference_hparams(hp, "float32")
         self.device = torch.device(device)
         self.knn = _mod(REFERENCE, "ops.knn").knn
         self.knn_graph = _mod(REFERENCE, "ops.knn").knn_graph
+        self._model_file = model_file
         self._model = None
 
     def _block(self):
         if self._model is None:
-            self._model = _mod(REFERENCE, "models.models").build_model(self.hp).to(self.device)
+            self._model = self._model_file.reference_model(self.hp).to(self.device)
         return self._model.hgnn
 
     def clustering(self, args, kwargs, score_cut):

@@ -1,8 +1,8 @@
 """The discrete stages of a step, recorded on one side and replayed on the other.
 
-A step of BC-HGNN-GMM makes discrete choices: the pooling's clusters, the
-kNN graphs over the cluster means, the matching of particles to candidates;
-Embedding-IN's training mines kNN pairs.  On the
+A training step makes discrete choices: in BC-HGNN-GMM the pooling's
+clusters, the kNN graphs over the cluster means, the matching of particles
+to candidates; in Embedding-IN the mined kNN pairs.  On the
 card the program computes them in bf16 and the plain f32 reference would
 choose differently near every cut, so the comparison follows the program:
 
@@ -37,21 +37,14 @@ MODULE_STAGES = {
     "knn_graph": ("train.pipelines", "knn_graph"),
 }
 
-# the stages of each model's training step, in the order the comparisons report them
-STAGES = {
-    "BC-HGNN-GMM": ("clustering", "knn", "matching"),
-    "Embedding-IN": ("knn_graph",),
-}
-
-# stages recorded inside one of STAGES and checked with it, never handed to
-# the reference: the auction inside the matching, whose input is the
-# program's own pair-score matrix.  That matrix is a float32 sum by atomic
-# adds, so its last bits, and through a near tie the auction's answer, vary
-# from run to run: the matching is judged on the program's own matrix.
-INNER = {
-    "BC-HGNN-GMM": ("auction",),
-    "Embedding-IN": (),
-}
+# A model file (``portbench/models/<model_file>.py``) lists its training
+# step's stages in ``STAGES``, in the order the comparisons report them, and
+# in ``INNER`` those recorded inside one of them and checked with it, never
+# handed to the reference: the auction inside the matching, whose input is
+# the program's own pair-score matrix.  That matrix is a float32 sum by
+# atomic adds, so its last bits, and through a near tie the auction's
+# answer, vary from run to run: the matching is judged on the program's own
+# matrix.
 
 
 def _detach(value, device):

@@ -10,7 +10,11 @@ in a synchronize, and starts every pass over the pool from the initial
 state (parameters, buffers, a fresh optimizer), so that every pass does the
 same work; ``train_events_per_s`` is the steps over the window's wall time,
 the restores included.  With ``--trace 1`` the window keeps counters and
-times the kNN by CUDA events, then one pass runs under the profiler for the
+times the model file's ``TIMED`` functions by CUDA events; then, with the
+port's spans on, ``SPAN_PASSES`` passes over the pool from the initial
+state give ``record["spans"]``, the spans a step (the window, the profiled
+passes and the checked steps run with them off, so that a span costs none
+of them); then one pass runs under the profiler for the
 device alone and its first ``traffic["profile_steps"]`` steps again with the
 op ranges open (``harness/profile.py``).  Then the peak is read, the same
 trainer takes the first steps once more from the initial state, it is
@@ -20,6 +24,8 @@ freed, and the reference follows both sets of first steps
 
 from __future__ import annotations
 
+import importlib
+import json
 import math
 import sys
 import time
@@ -27,35 +33,61 @@ import traceback
 
 import torch
 
-from portbench.harness import check, drivers, flops, profile, traffic, weights
+from portbench.harness import check, drivers, flops, profile, readers, traffic, weights
 from portbench.harness.ops import OpLog
 from portbench.harness.window import RunResult, note, peak, release, reset_peak, sync, trace_path
 
+SPAN_PASSES = 2  # passes over the pool with the port's spans on, in a traced run
 
-class _KnnTimer:
-    """CUDA events around the port's ``knn_graph`` where the pipeline looks
-    it up; ``ms()`` the time of each call, read once the window is over."""
 
-    def __init__(self):
-        import hierarchicalgnn_torch.train.pipelines as pipelines
+class _Timers:
+    """CUDA events around the port's functions of a model file's ``TIMED``,
+    where their callers look them up; ``ms()`` gives ``{counter: [ms of each
+    call]}``, read once the window is over."""
 
-        self._mod, self._fn, self.pairs = pipelines, pipelines.knn_graph, []
+    def __init__(self, timed: dict):
+        self._undo, self._calls = [], {name: [] for name in timed}
+        for name, (module, attr) in timed.items():
+            owner = importlib.import_module(f"{drivers.PORT}.{module}")
+            fn = getattr(owner, attr)
+            setattr(owner, attr, self._wrap(fn, self._calls[name]))
+            self._undo.append((owner, attr, fn))
 
+    @staticmethod
+    def _wrap(fn, calls):
         def timed(*args, **kwargs):
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
-            out = self._fn(*args, **kwargs)
+            out = fn(*args, **kwargs)
             end.record()
-            self.pairs.append((start, end))
+            calls.append((start, end))
             return out
-
-        pipelines.knn_graph = timed
+        return timed
 
     def close(self):
-        self._mod.knn_graph = self._fn
+        for owner, attr, fn in reversed(self._undo):
+            setattr(owner, attr, fn)
+        self._undo = []
 
-    def ms(self):
-        return [s.elapsed_time(e) for s, e in self.pairs]
+    def ms(self) -> dict:
+        return {name: [s.elapsed_time(e) for s, e in calls]
+                for name, calls in self._calls.items()}
+
+
+def span_passes(prog, start_state, batches, epoch, device) -> dict:
+    """``SPAN_PASSES`` passes over the pool, each from the initial state, with
+    the port's span recorder on; its spans a step (``readers.spans_a_step``)."""
+    profiling = importlib.import_module(f"{drivers.PORT}.utils.profiling")
+    profiling.enable()
+    try:
+        for _ in range(SPAN_PASSES):
+            prog.restore(start_state)
+            for batch in batches:
+                prog.step(batch, epoch)
+        sync(device)
+    finally:
+        profiling.disable()
+    return readers.spans_a_step(profiling.drain(), SPAN_PASSES * len(batches))
 
 
 def _faulty(prog, faults, setup_steps=0):
@@ -131,7 +163,7 @@ def _run(cell, seed, seconds, trace, t0, device, faults) -> RunResult:
     _faulty(prog, faults, check.TRAIN_STEPS + len(raws))
     state0 = weights.snapshot(prog.model)
     start_state = prog.save()
-    first = check.record_train(prog, raws, epoch)
+    first = check.record_train(cell.model, prog, raws, epoch)
     note(t0, "first steps taken")
     batches = [prog.batch(raw, i) for i, raw in enumerate(raws)]
     rows = [(int(b.node_mask.sum()), int(b.graph.edge_mask.sum())) for b in batches]
@@ -143,7 +175,7 @@ def _run(cell, seed, seconds, trace, t0, device, faults) -> RunResult:
     setup_s = time.perf_counter() - t0
 
     counters = {"host_syncs": [], "auction_rounds": [], "flops": []}
-    knn = _KnnTimer() if trace and cell.hp["model"] == "Embedding-IN" else None
+    timers = _Timers(cell.model.TIMED) if trace else None
     attempted = failed = 0
     reset_peak(device)
     start = time.perf_counter()
@@ -166,15 +198,18 @@ def _run(cell, seed, seconds, trace, t0, device, faults) -> RunResult:
             if "auction_rounds_launched" in stats:
                 counters["auction_rounds"].append(stats["auction_rounds_launched"])
             counters["flops"].append(flops.train_flops(
-                cell.hp, *rows[i], int(values.get("clusters", 0))))
+                cell.model, cell.hp, *rows[i], int(values.get("clusters", 0))))
     sync(device)
     window_s = time.perf_counter() - start
     record = {"mode": "train", "window_s": window_s, "events": attempted,
               "counters": counters}
-    if knn is not None:
-        knn.close()
-        record["counters"]["knn_ms"] = knn.ms()
     if trace:
+        timers.close()
+        record["counters"].update(timers.ms())
+        t_spans = time.perf_counter()
+        record["spans"] = span_passes(prog, start_state, batches, epoch, device)
+        step_ms = 1e3 * (time.perf_counter() - t_spans) / (SPAN_PASSES * len(batches))
+        note(t0, f"span passes: {step_ms!r} ms a step, spans a step {json.dumps(record['spans'])}")
         oplog = OpLog()
 
         def profiled(ranged, steps):
@@ -195,11 +230,12 @@ def _run(cell, seed, seconds, trace, t0, device, faults) -> RunResult:
     peak_bytes = peak(device)
     note(t0, "window closed")
     prog.restore(start_state)
-    late = check.record_train(prog, raws, epoch)  # the window's trainer, warm
+    late = check.record_train(cell.model, prog, raws, epoch)  # the window's trainer, warm
 
     del prog, batches, start_state
     release(device)
-    numbers = check.train_check(cell.hp, raws, state0, [first, late], epoch, device)
+    numbers = check.train_check(cell.model, cell.hp, raws, state0, [first, late], epoch,
+                                device)
     note(t0, "reference compared")
     correct, checks = check.judge(numbers, cell.limits)
     end_to_end = {"train_events_per_s": attempted / window_s, "setup_s": setup_s,

@@ -96,12 +96,9 @@ class BipartiteClassifierHGNN(_Model):
         return bgraph, scores, embeddings, aux
 
 
-MODELS = {"Embedding-IN": EmbeddingIN, "BC-HGNN-GMM": BipartiteClassifierHGNN}
-
-
-def build_model(hparams: dict, seed: int = 0):
-    """The model that ``hparams["model"]`` names, seeded, in eval mode."""
+def build(cls, hparams: dict, seed: int = 0):
+    """A ``cls`` model of ``hparams``, seeded, in eval mode."""
     with torch.random.fork_rng(devices=[]):
-        model = MODELS[hparams["model"]](ArchConfig.from_hparams(hparams))
+        model = cls(ArchConfig.from_hparams(hparams))
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.eval()

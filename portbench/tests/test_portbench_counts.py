@@ -3,7 +3,11 @@
 import pytest
 import torch
 
+from portbench.harness import cell as cell_lib
 from portbench.harness import flops, ops, peaks
+
+BC = cell_lib.load_module("models", "bc_hgnn_gmm")
+EMBEDDING_IN = cell_lib.load_module("models", "embedding_in")
 
 
 def test_mlp_flops_by_hand():
@@ -22,8 +26,8 @@ def test_embedding_in_forward_by_hand():
                + 2 * n * (8 * 8 + 8 * 4)        # node network
                + 2 * 14 * (12 * 8 + 8 * 4)      # edge network
                + 2 * n * (4 * 8 + 8 * 2))       # embedding head
-    assert flops.forward_flops(hp, n, e) == by_hand
-    assert flops.train_flops(hp, n, e) == 3 * by_hand
+    assert EMBEDDING_IN.forward_flops(hp, n, e) == by_hand
+    assert flops.train_flops(EMBEDDING_IN, hp, n, e) == 3 * by_hand
 
 
 def test_bc_adds_the_hierarchy():
@@ -38,7 +42,7 @@ def test_bc_adds_the_hierarchy():
             + 2 * n * (12 * 8 + 8 * 4) + 2 * 14 * (12 * 8 + 8 * 4)
             + 2 * c * (12 * 8 + 8 * 4) + 2 * s * (12 * 8 + 8 * 4)
             + 2 * b * (8 * 8 + 8 * 1))
-    assert flops.forward_flops(hp, n, e, c) == flops.forward_flops(flat, n, e) + hier
+    assert BC.forward_flops(hp, n, e, c) == EMBEDDING_IN.forward_flops(flat, n, e) + hier
 
 
 def _plan(n_valid, rows):

@@ -35,9 +35,9 @@ def test_training_steps_match_the_port(name):
     raws = traffic.make_pool(2147483650, cell.traffic)
     port = drivers.PortTrain(cell.hp, "cpu", 2147483650)
     state0 = weights.snapshot(port.model)
-    prog = check.record_train(port, raws, cell.traffic["epoch"])
-    ref_drv = drivers.RefTrain(cell.hp, "cpu", state0)
-    ref = check.record_train(ref_drv, raws, cell.traffic["epoch"])
+    prog = check.record_train(cell.model, port, raws, cell.traffic["epoch"])
+    ref_drv = drivers.RefTrain(cell.model, cell.hp, "cpu", state0)
+    ref = check.record_train(cell.model, ref_drv, raws, cell.traffic["epoch"])
     assert prog["losses"] == pytest.approx(ref["losses"], rel=1e-5)
     for n, g in ref["g1"].items():
         torch.testing.assert_close(prog["g1"][n], g, rtol=1e-4, atol=1e-7)

@@ -8,10 +8,14 @@ TINY = {"n_nodes_max": 512, "n_edges_max": 1024, "max_clusters": 128, "max_parti
 
 
 def tiny_cell(name: str, **hp):
-    """The cell ``name`` at tiny shapes: a pool of 3 events of 40 particles
-    (so that a short window steps through each), and ``hp`` over the
+    """The cell ``name`` at tiny shapes (``shrink``)."""
+    return shrink(cell_lib.load(name), **hp)
+
+
+def shrink(cell, **hp):
+    """``cell`` at tiny shapes: a pool of 3 events of 40 particles (so that
+    a short window steps through each), and ``hp`` over the
     configuration."""
-    cell = cell_lib.load(name)
     cell.hp.update(TINY, **hp)
     cell.traffic.update({"n_particles": 40, "pool_events": 3})
     return cell
