@@ -26,6 +26,8 @@ the supernode init and the final embedding head, and ``share_weight``
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 
@@ -326,71 +328,74 @@ class HierarchicalGNNBlock(nn.Module):
         cluster_valid = torch.arange(cfg.max_clusters, device=means.device) < n_clusters
         means = torch.where(cluster_valid[:, None], means, 0.0)
 
-        super_graph, super_weights = self.super_graph_construction(
-            means, means, training, src_mask=cluster_valid, dst_mask=cluster_valid)
-        if shard is None or pooled:
-            # unsharded, or query-sharded: this rank mines its own node rows and
-            # the result IS its sender-contiguous block of the bipartite graph
-            bipartite_graph, bipartite_weights, _ = self.bipartite_graph_construction(
-                embeddings, means, training, src_mask=node_mask, dst_mask=cluster_valid,
-                comm=shard.comm if pooled else None)
-        else:
-            bipartite_graph, bipartite_weights, _ = self.bipartite_graph_construction(
-                emb_global, means, training, src_mask=mask_global,
-                dst_mask=cluster_valid)
+        # the super and bipartite graphs with their sorted plans and gathers;
+        # like ``pool``, a span of the unsharded path alone
+        with span("graph", device=True) if shard is None else contextlib.nullcontext():
+            super_graph, super_weights = self.super_graph_construction(
+                means, means, training, src_mask=cluster_valid, dst_mask=cluster_valid)
+            if shard is None or pooled:
+                # unsharded, or query-sharded: this rank mines its own node rows and
+                # the result IS its sender-contiguous block of the bipartite graph
+                bipartite_graph, bipartite_weights, _ = self.bipartite_graph_construction(
+                    embeddings, means, training, src_mask=node_mask, dst_mask=cluster_valid,
+                    comm=shard.comm if pooled else None)
+            else:
+                bipartite_graph, bipartite_weights, _ = self.bipartite_graph_construction(
+                    emb_global, means, training, src_mask=mask_global,
+                    dst_mask=cluster_valid)
 
-        if shard is not None:
-            # local flat edges, the local bipartite block + one sum over the
-            # ranks into the supernode space, the halo gather for the edge update
-            aggs, gathers, super_graph, super_weights, s_ok, head_gather = \
-                make_hier_shard_aggs(shard, bipartite_graph, bipartite_weights,
-                                     super_graph, super_weights, cfg.max_clusters,
-                                     cfg.bipartitegraph_sparsity, training)
-            if stats is not None:
-                stats.setdefault("partition_ok", []).append(s_ok)
-        else:
-            # one receiver-sorted plan per direction, shared by the init and
-            # every hierarchical iteration
-            s_plan = build_sorted_plan(super_graph.senders, super_graph.receivers,
-                                       super_graph.edge_mask, cfg.max_clusters)
-            gather_super = endpoint_gather(s_plan, super_graph, cfg.max_clusters,
-                                           transposed=training)
-            super_graph = Graph(s_plan.senders_sorted, s_plan.receivers_sorted,
-                                s_plan.edge_mask_sorted)
-            super_weights = s_plan.sort(super_weights)
-            b1 = build_sorted_plan(bipartite_graph.senders, bipartite_graph.receivers,
-                                   bipartite_graph.edge_mask, cfg.max_clusters)
-            b2 = build_sorted_plan(bipartite_graph.receivers, bipartite_graph.senders,
-                                   bipartite_graph.edge_mask, n)
-            w1 = b1.sort(bipartite_weights)
-            w2 = b2.sort(bipartite_weights)
-            bipartite_graph, bipartite_weights = Graph(
-                b1.senders_sorted, b1.receivers_sorted, b1.edge_mask_sorted), w1
-            # b1 (sorted by cluster) and b2 (sorted by node) hold the same edges:
-            # each is the other's transposed plan, so in training the row gathers
-            # by b1's senders (nodes) and by b2's senders (clusters) get a K1
-            # backward for the price of two index gathers
-            b1_of_b2 = cross_permutation(b1, b2) if training else None
-            b2_of_b1 = cross_permutation(b2, b1) if training else None
-            t1, t2 = (b2, b1) if training else (None, None)
-            gathers = {
-                "graph": gather or plain_gather(graph),
-                "super": gather_super,
-                "bip_to_super": lambda x: gather_senders(x, b1, t1, b1_of_b2),
-                "bip_to_node": lambda x: gather_senders(x, b2, t2, b2_of_b1),
-            }
-            aggs = {
-                "edge_to_node": agg,
-                "bip_to_super": (lambda d: sorted_aggregate_weighted(d, w1, b1),
-                                 b1.senders_sorted),
-                "bip_to_node": (lambda d: sorted_aggregate_weighted(d, w2, b2),
-                                b2.senders_sorted),
-                "super_to_super": lambda d: sorted_aggregate_weighted(d, super_weights,
-                                                                      s_plan),
-            }
-            # the score head's inputs: rows by the bipartite graph's endpoints
-            head_gather = lambda x, sn: (gathers["bip_to_super"](x),
-                                         gather_receivers(sn, b1))
+            if shard is not None:
+                # local flat edges, the local bipartite block + one sum over the
+                # ranks into the supernode space, the halo gather for the edge update
+                aggs, gathers, super_graph, super_weights, s_ok, head_gather = \
+                    make_hier_shard_aggs(shard, bipartite_graph, bipartite_weights,
+                                         super_graph, super_weights, cfg.max_clusters,
+                                         cfg.bipartitegraph_sparsity, training)
+                if stats is not None:
+                    stats.setdefault("partition_ok", []).append(s_ok)
+            else:
+                # one receiver-sorted plan per direction, shared by the init and
+                # every hierarchical iteration
+                s_plan = build_sorted_plan(super_graph.senders, super_graph.receivers,
+                                           super_graph.edge_mask, cfg.max_clusters)
+                gather_super = endpoint_gather(s_plan, super_graph, cfg.max_clusters,
+                                               transposed=training)
+                super_graph = Graph(s_plan.senders_sorted, s_plan.receivers_sorted,
+                                    s_plan.edge_mask_sorted)
+                super_weights = s_plan.sort(super_weights)
+                b1 = build_sorted_plan(bipartite_graph.senders, bipartite_graph.receivers,
+                                       bipartite_graph.edge_mask, cfg.max_clusters)
+                b2 = build_sorted_plan(bipartite_graph.receivers, bipartite_graph.senders,
+                                       bipartite_graph.edge_mask, n)
+                w1 = b1.sort(bipartite_weights)
+                w2 = b2.sort(bipartite_weights)
+                bipartite_graph, bipartite_weights = Graph(
+                    b1.senders_sorted, b1.receivers_sorted, b1.edge_mask_sorted), w1
+                # b1 (sorted by cluster) and b2 (sorted by node) hold the same edges:
+                # each is the other's transposed plan, so in training the row gathers
+                # by b1's senders (nodes) and by b2's senders (clusters) get a K1
+                # backward for the price of two index gathers
+                b1_of_b2 = cross_permutation(b1, b2) if training else None
+                b2_of_b1 = cross_permutation(b2, b1) if training else None
+                t1, t2 = (b2, b1) if training else (None, None)
+                gathers = {
+                    "graph": gather or plain_gather(graph),
+                    "super": gather_super,
+                    "bip_to_super": lambda x: gather_senders(x, b1, t1, b1_of_b2),
+                    "bip_to_node": lambda x: gather_senders(x, b2, t2, b2_of_b1),
+                }
+                aggs = {
+                    "edge_to_node": agg,
+                    "bip_to_super": (lambda d: sorted_aggregate_weighted(d, w1, b1),
+                                     b1.senders_sorted),
+                    "bip_to_node": (lambda d: sorted_aggregate_weighted(d, w2, b2),
+                                    b2.senders_sorted),
+                    "super_to_super": lambda d: sorted_aggregate_weighted(d, super_weights,
+                                                                          s_plan),
+                }
+                # the score head's inputs: rows by the bipartite graph's endpoints
+                head_gather = lambda x, sn: (gathers["bip_to_super"](x),
+                                             gather_receivers(sn, b1))
 
         agg_to_super, _ = aggs["bip_to_super"]
         init_nodes = l1_normalize(nodes) if self.l1_norm_supernode_init else nodes

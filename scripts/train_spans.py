@@ -8,8 +8,10 @@ pass over the pool.  Then it runs windows of ``--seconds`` in the order
 off, on, on, off: each steps the pool's events in turn, restarts every pass
 from the initial state and ends in a synchronize; in an "on" window the
 span recorder (``hierarchicalgnn_torch/utils/profiling.py``) is enabled,
-and after the window its records are drained and reduced to each span's
-device ms, host ms and count a step.  Then one pass over the pool runs
+and after the window its records are drained and reduced, by the
+benchmark's own ``portbench.harness.readers.spans_a_step``, to each span's
+count, interval and self time (the interval less its child spans') on
+either clock a step: the self times are what the span metrics read.  Then one pass over the pool runs
 under ``torch.profiler`` (host and device) with the spans on, and each
 kernel is put in the top-level ``hgnn::`` range within which the host
 launched it (the launch's correlation id ties a kernel to its launch).
@@ -36,11 +38,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 from hierarchicalgnn_torch.utils import profiling  # noqa: E402
-from portbench.harness import cell as cell_lib, drivers, traffic  # noqa: E402
+from portbench.harness import cell as cell_lib, drivers, readers, traffic  # noqa: E402
 from portbench.harness.cli import power_limit, set_cache_dirs  # noqa: E402
 
 TOP = ("forward", "loss", "backward", "optimizer", "readback")
-NESTED = ("pool", "match")
+NESTED = ("pool", "graph", "match")
 
 
 def build(cell, seed: int, device):
@@ -63,8 +65,8 @@ def _sync(device):
 
 def window(prog, batches, start, epoch, seconds: float, traced: bool, device) -> dict:
     """Steps for ``seconds`` from a fresh pass; with ``traced`` the spans a
-    step (``spans``) and the top-level device intervals' share of the
-    window's time a step (``covered``)."""
+    step (``spans``, ``readers.spans_a_step``) and the top-level device
+    intervals' share of the window's time a step (``covered``)."""
     prog.restore(start)
     _sync(device)
     if traced:
@@ -82,11 +84,7 @@ def window(prog, batches, start, epoch, seconds: float, traced: bool, device) ->
     out = {"traced": traced, "steps": steps, "window_s": wall,
            "train_events_per_s": steps / wall, "step_ms": 1e3 * wall / steps}
     if traced:
-        totals = profiling.totals(profiling.drain())
-        out["spans"] = {name: {"device_ms": None if t["device_ms"] is None
-                               else t["device_ms"] / steps,
-                               "host_ms": t["host_ms"] / steps, "count": t["count"] / steps}
-                        for name, t in totals.items()}
+        out["spans"] = readers.spans_a_step(profiling.drain(), steps)
         top = sum(out["spans"][n]["device_ms"] or 0.0 for n in TOP if n in out["spans"])
         out["top_device_ms"] = top
         out["covered"] = top / out["step_ms"]
@@ -97,7 +95,8 @@ def kernels_by_range(prog, batches, start, epoch, path: str) -> dict:
     """One pass over the pool under the profiler with the spans on; each
     kernel launched inside a ``train_step`` range, with its device time, by
     the top-level range whose host interval holds its launch (``outside``:
-    in the step, in none of them), and by the ``pool`` and ``match`` within;
+    in the step, in none of them), and by the ``pool``, ``graph`` and
+    ``match`` within;
     means a step."""
     from torch.profiler import ProfilerActivity, profile
 

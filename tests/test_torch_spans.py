@@ -1,7 +1,7 @@
 """The port's span recorder (``utils/profiling.py``) in the one-card
 training step, on the CPU at tiny shapes.
 
-One traced ``Trainer.train_step`` of BC-HGNN-GMM and of Embedding-IN gives
+One traced ``Trainer.train_step`` of BC-HGNN-GMM, gMRT and Embedding-IN gives
 the span tree of the step's layers under one step id, with one
 ``host_read`` span per counted host read.  With tracing off nothing is
 recorded and no ``record_function`` range is entered; under
@@ -33,7 +33,9 @@ TINY = {"n_nodes_max": 512, "n_edges_max": 2048, "max_clusters": 128, "max_parti
 # span -> its parent's name, in every model's step
 STEP = {"train_step": None, "forward": "train_step", "loss": "train_step",
         "backward": "train_step", "optimizer": "train_step", "readback": "train_step"}
-TREES = {"BC-HGNN-GMM": {**STEP, "pool": "forward", "match": "loss"},
+BIPARTITE = ("BC-HGNN-GMM", "gMRT")
+TREES = {**{name: {**STEP, "pool": "forward", "graph": "forward", "match": "loss"}
+            for name in BIPARTITE},
          "Embedding-IN": STEP}
 TOP = ("forward", "loss", "backward", "optimizer", "readback")
 
@@ -90,13 +92,37 @@ def test_step_span_tree(name):
 @pytest.mark.parametrize("name", sorted(TREES))
 def test_host_read_spans_equal_host_syncs(name):
     """A ``host_read`` span per read ``last_stats["host_syncs"]`` counts;
-    BC's fall in the pooling, the matching and the readback."""
+    BC's and gMRT's fall in the pooling, the matching and the readback."""
     records, stats = _traced_step(name)
     reads = [r for r in records if r["name"] == "host_read"]
     assert len(reads) == stats["host_syncs"] >= 1
     names = {r["id"]: r["name"] for r in records}
     where = {names[r["parent"]] for r in reads}
-    assert where == ({"pool", "match", "readback"} if name == "BC-HGNN-GMM" else {"readback"})
+    assert where == ({"pool", "match", "readback"} if name in BIPARTITE else {"readback"})
+
+
+@pytest.mark.parametrize("name", BIPARTITE)
+def test_graph_span_beside_pool(name):
+    """The graph construction is a ``graph`` span under ``forward``, after
+    ``pool``, and ``forward``'s self time (what ``forward_ms.train`` reads)
+    leaves both out."""
+    from portbench.harness.readers import spans_a_step
+
+    records, _ = _traced_step(name)
+    (forward,) = [r for r in records if r["name"] == "forward"]
+    (pool,) = [r for r in records if r["name"] == "pool"]
+    (graph,) = [r for r in records if r["name"] == "graph"]
+    assert pool["parent"] == graph["parent"] == forward["id"]
+    assert pool["host_end_ns"] <= graph["host_start_ns"]
+
+    def ms(rec):
+        return (rec["host_end_ns"] - rec["host_start_ns"]) / 1e6
+
+    spans = spans_a_step(records, 1)
+    children = sum(ms(r) for r in records if r["parent"] == forward["id"])
+    assert spans["forward"]["host_self_ms"] == pytest.approx(ms(forward) - children)
+    assert spans["forward"]["host_self_ms"] <= ms(forward) - ms(pool) - ms(graph) + 1e-9
+    assert spans["graph"]["host_ms"] == pytest.approx(ms(graph)) and ms(graph) > 0
 
 
 def test_tracing_off_records_nothing(monkeypatch):
